@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+  1. device: the card's name and power limit (nvidia-smi); TF32 off.
+  2. build: compile the CUDA kernels from src/repro_torch/csrc into build/.
+  3. kernels: each kernel against its plain PyTorch version on the card, in
+     bf16 and fp32, at the shapes of the main path below (plus every flash
+     mask kind at a small size), with times of the kernel, the plain
+     version and, where one PyTorch call computes the same function, that
+     call.
+  4. reduced parity: tinyllama cut to 4 layers in fp32, LP pairs (0,1),
+     (2,3): greedy tokens on the card equal the port's CPU path, prefill
+     logits agree within 2e-4.
+  5. main path: LP tinyllama-1.1b at full width (22 layers, plan_for_depth
+     16 -> 6 pairs + 10 single layers), bf16 random weights from a seed,
+     4 prompts of 128 tokens, 64 new tokens through ``generate``, with the
+     exact launch count of every kernel, and prefill ms and decode ms per
+     step taken inside that one ``generate`` call.
+
+The second-to-last line is the kernels JSON (with the main path's prefill
+ms, decode ms per step and decode tok/s), the last line the device JSON.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+BF16_TOL = 2e-2     # atol = rtol, as the JAX package's kernel tests
+FP32_TOL = 2e-5
+LOGIT_TOL = 2e-4    # prefill logits after the whole stack, fp32
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12,      # dense bf16 tensor-core rate
+            "float32": 67e12}        # fp32 outside the tensor cores
+
+# Main-path shapes (tinyllama-1.1b, B=4 prompts of 128, cache of 256).
+B, S, MAX_LEN, N_NEW = 4, 128, 256, 64
+D, HKV, G, HD = 2048, 4, 8, 64
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, iters=20, reps=10):
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events, so the host's launch cost
+    is left out."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def call_ms(fn, iters=50):
+    """Time of one call issued back to back from Python: the host's launch
+    cost included, as the eager main path pays it."""
+    import torch
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, flops, dtype_name, *, flops_peak=None):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (flops_peak or PEAK_OPS[dtype_name]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def compare(name, got, want, tol):
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    log(f"  {name}: max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs err {err:.3e}, tol {tol:g})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    rows = {}
+
+    def record(name, dtype, err, fn, plain, nb, fl, library=None, flops_peak=None):
+        entry = rows.setdefault((name, dtype), {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if fn is None:
+            return
+        b_ms, b_by = bound(nb, fl, str(dtype).split(".")[1], flops_peak=flops_peak)
+        entry.update(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b_ms,
+                     bound_by=b_by, library_ms=time_ms(library) if library else None,
+                     call_ms=call_ms(fn))
+        log(f"  {name} {dtype}: ms={entry['ms']:.5f} plain_ms={entry['plain_ms']:.5f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms="
+            f"{entry['library_ms']} call_ms={entry['call_ms']:.5f}")
+
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+        log(f"[kernels] dual_rmsnorm {dtype}")
+        for M in (B * S, B):   # prefill rows, decode rows
+            x = rand(M, D, dtype=dtype)
+            sa, sb = rand(D, dtype=dtype), rand(D, dtype=dtype)
+            for plus_one in (False, True):
+                ya, yb = ops.dual_rmsnorm(x, sa, sb, plus_one=plus_one)
+                ra, rb = ops.dual_rmsnorm_plain(x, sa, sb, plus_one=plus_one)
+                err = max(compare(f"dual_rmsnorm M={M} plus_one={plus_one} a", ya, ra, tol),
+                          compare(f"dual_rmsnorm M={M} plus_one={plus_one} b", yb, rb, tol))
+                timed = (M == B and not plus_one)   # the decode shape: most launches
+                if M == B * S and not plus_one:   # the prefill shape: 12 launches
+                    log(f"  dual_rmsnorm M={M}: ms={time_ms(lambda: ops.dual_rmsnorm(x, sa, sb)):.5f} "
+                        f"plain_ms={time_ms(lambda: ops.dual_rmsnorm_plain(x, sa, sb)):.5f}")
+                record("dual_rmsnorm", dtype, err,
+                       (lambda: ops.dual_rmsnorm(x, sa, sb)) if timed else None,
+                       lambda: ops.dual_rmsnorm_plain(x, sa, sb),
+                       nbytes(x, sa, sb) + 2 * nbytes(x), 6 * M * D,
+                       flops_peak=PEAK_OPS["float32"])
+
+        log(f"[kernels] decode attention {dtype}")
+        k1, v1 = rand(B, MAX_LEN, HKV, HD, dtype=dtype), rand(B, MAX_LEN, HKV, HD, dtype=dtype)
+        q1 = rand(B, HKV, G, HD, dtype=dtype)
+        k2, v2 = rand(2, B, MAX_LEN, HKV, HD, dtype=dtype), rand(2, B, MAX_LEN, HKV, HD, dtype=dtype)
+        q2 = rand(B, 2, HKV, G, HD, dtype=dtype).transpose(0, 1)   # strided, as on the path
+        for t in (0, 63, 100, 160, MAX_LEN - 1):
+            timed = t == 160
+            err = compare(f"decode_attention t={t}", ops.decode_attention(q1, k1, v1, t),
+                          ops.decode_attention_plain(q1, k1, v1, t), tol)
+            n = t + 1
+            lib = None
+            if timed:
+                ql = q1.reshape(B, HKV * G, 1, HD)
+                kl, vl = k1[:, :n].transpose(1, 2), v1[:, :n].transpose(1, 2)
+                lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True)
+            record("decode_attention", dtype, err,
+                   (lambda: ops.decode_attention(q1, k1, v1, t)) if timed else None,
+                   lambda: ops.decode_attention_plain(q1, k1, v1, t),
+                   2 * nbytes(q1) + 2 * B * n * HKV * HD * k1.element_size(),
+                   4 * B * HKV * G * n * HD, library=lib)
+            err = compare(f"decode_attention_pair t={t}", ops.decode_attention_pair(q2, k2, v2, t),
+                          ops.decode_attention_pair_plain(q2, k2, v2, t), tol)
+            if timed:
+                ql2 = q2.reshape(2 * B, HKV * G, 1, HD)
+                kl2 = k2.reshape(2 * B, MAX_LEN, HKV, HD)[:, :n].transpose(1, 2)
+                vl2 = v2.reshape(2 * B, MAX_LEN, HKV, HD)[:, :n].transpose(1, 2)
+                lib = lambda: F.scaled_dot_product_attention(ql2, kl2, vl2, enable_gqa=True)
+            record("decode_attention_pair", dtype, err,
+                   (lambda: ops.decode_attention_pair(q2, k2, v2, t)) if timed else None,
+                   lambda: ops.decode_attention_pair_plain(q2, k2, v2, t),
+                   2 * nbytes(q2) + 2 * 2 * B * n * HKV * HD * k2.element_size(),
+                   4 * 2 * B * HKV * G * n * HD, library=lib)
+
+        log(f"[kernels] flash attention {dtype}")
+        for H in (2 * HKV, HKV):   # LP pair layer (heads folded), single layer
+            q = rand(B, S, H, G, HD, dtype=dtype)
+            k, v = rand(B, S, H, HD, dtype=dtype), rand(B, S, H, HD, dtype=dtype)
+            err = compare(f"flash causal H={H}", ops.flash_attention(q, k, v, block_n=16),
+                          ops.flash_attention_plain(q, k, v), tol)
+            timed = H == 2 * HKV
+            if not timed:   # the single-layer shape: 10 of the 16 launches
+                log(f"  flash causal H={H}: ms={time_ms(lambda: ops.flash_attention(q, k, v, block_n=16)):.5f} "
+                    f"plain_ms={time_ms(lambda: ops.flash_attention_plain(q, k, v)):.5f}")
+            lib = None
+            if timed:
+                ql = q.permute(0, 2, 3, 1, 4).reshape(B, H * G, S, HD)
+                kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+                lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                             enable_gqa=True)
+            pairs = B * H * G * S * (S + 1) // 2   # allowed (query, key) pairs
+            record("flash_attention", dtype, err,
+                   (lambda: ops.flash_attention(q, k, v, block_n=16)) if timed else None,
+                   lambda: ops.flash_attention_plain(q, k, v),
+                   2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs, library=lib)
+        # every other mask kind, offsets and ragged edges, at a small size
+        for kw, s_len, t_len, hd, g, bn in (
+                (dict(kind="window", window=7), 40, 40, 64, 2, 16),
+                (dict(kind="chunk", chunk=16), 37, 37, 32, 4, 16),
+                (dict(kind="causal", prefix_len=5), 40, 40, 16, 1, 64),
+                (dict(kind="bidir"), 24, 40, 64, 3, 16),
+                (dict(kind="causal", q0=16), 24, 40, 64, 8, 16),
+                (dict(kind="causal", q0=20, k0=4), 24, 40, 128, 2, 32)):
+            q = rand(2, s_len, 2, g, hd, dtype=dtype)
+            k, v = rand(2, t_len, 2, hd, dtype=dtype), rand(2, t_len, 2, hd, dtype=dtype)
+            err = compare(f"flash {kw} S={s_len} T={t_len} hd={hd} g={g} block_n={bn}",
+                          ops.flash_attention(q, k, v, block_n=bn, **kw),
+                          ops.flash_attention_plain(q, k, v, **kw), tol)
+            record("flash_attention", dtype, err, None, None, 0, 0)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: reduced config, card against CPU
+# ---------------------------------------------------------------------------
+
+def reduced_parity():
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate, make_prefill
+
+    pc = ParallelContext()
+    base = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+    for n_kv in (base.n_kv_heads, 1):   # g = 1 as reduced, and a GQA group of 4
+        cfg = dataclasses.replace(base, n_kv_heads=n_kv)
+        ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 4))
+        p_cpu = T.init_params(ms, torch.Generator().manual_seed(SEED),
+                              torch.float32, device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")   # the same weights, on the card
+        prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                                generator=torch.Generator().manual_seed(SEED + 1))
+        sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+        lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
+        lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda())
+        err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+        tok_cpu = generate(p_cpu, prompts, 16, ms=ms, pc=pc, sv=sv)
+        tok_gpu = generate(p_gpu, prompts.cuda(), 16, ms=ms, pc=pc, sv=sv).cpu()
+        same = bool((tok_cpu == tok_gpu).all())
+        log(f"[reduced] n_kv_heads={n_kv} pairs={ms.plan.pairs}: prefill logits "
+            f"max_abs_err={err:.3e} (tol {LOGIT_TOL:g}); greedy tokens equal: {same}")
+        if err > LOGIT_TOL or not same:
+            raise AssertionError(f"reduced parity failed: logits err {err:.3e}, "
+                                 f"tokens\n{tok_cpu}\n{tok_gpu}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at full width
+# ---------------------------------------------------------------------------
+
+def main_path():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.kernels import ops
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate, make_prefill
+
+    pc = ParallelContext()
+    cfg = get_config("tinyllama-1.1b")
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 16))
+    n_groups = sum(s.count for s in ms.segments)
+    n_pairs = len(ms.plan.pairs)
+    n_single = n_groups - n_pairs
+    log(f"[main] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, pairs {ms.plan.pairs}, "
+        f"{n_groups} groups")
+    assert (n_groups, n_pairs) == (16, 6), (n_groups, n_pairs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(ms, gen, torch.bfloat16, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+
+    generate(params, prompts, 2, ms=ms, pc=pc, sv=sv)   # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    timings = {}
+    out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings)
+    launches = dict(ops.LAUNCHES)
+
+    steps = N_NEW - 1
+    want = {"flash_attention": n_groups,
+            "dual_rmsnorm": 2 * n_pairs * (1 + steps),
+            "decode_attention": steps * n_single,
+            "decode_attention_pair": steps * n_pairs}
+    log(f"[main] launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+
+    logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+    if tuple(out.shape) != (B, N_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    tok0 = logits.argmax(-1)
+    if not bool((tok0 == out[:, 0]).all()):
+        raise AssertionError("first generated token is not the prefill argmax")
+    # One decode step against the prefill cache vs a prefill of the longer
+    # prompt: the same logits up to bf16 rounding of two different paths.
+    step_logits, _ = T.decode_step(params, tok0, caches, S, ms=ms, pc=pc)
+    longer = torch.cat([prompts, tok0[:, None]], dim=1)
+    full_logits, _, _ = T.forward_full(params, longer, ms=ms, pc=pc,
+                                       attn_impl=sv.attn_impl)
+    scale = full_logits[:, -1].abs().max().item()
+    diff = (step_logits - full_logits[:, -1]).abs().max().item()
+    log(f"[main] decode-step vs prefill logits: max_abs_diff={diff:.4f} "
+        f"(logit scale {scale:.3f}, tol 0.1 x scale)")
+    if diff > 0.1 * scale:
+        raise AssertionError("decode step disagrees with prefill of the same stream")
+    # Both from the one measured generate above.
+    e2e = {"prefill_ms": timings["prefill_s"] * 1e3,
+           "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
+           "decode_tok_per_s": B * steps / timings["decode_s"]}
+    log("[main] " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
+    profile_decode(lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv))
+    return launches, e2e
+
+
+def profile_decode(run):
+    """Device busy share and kernel time by name over one short generate
+    (a prefill and 8 decode steps), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    if not busy_us:
+        log("[profile] device time not measured: the profiler saw no device events")
+        return
+    log(f"[profile] generate(9 new) wall_ms={wall_us / 1e3:.3f} device_busy_ms="
+        f"{busy_us / 1e3:.3f} busy_share={busy_us / wall_us:.4f} "
+        f"kernels={sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.1%}  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+
+KERNELS = {
+    "dual_rmsnorm": ("triton", "src/repro_torch/kernels/dual_rmsnorm.py",
+                     "src/repro/kernels/dual_rmsnorm.py:37"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:130"),
+    "decode_attention_pair": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                              "src/repro/kernels/decode_attention.py:142"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:92"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the "
+              "card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build   # fails outside a checkout of the repo
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    per_source = build.build_all()
+    log(f"[build] {time.perf_counter() - t0:.1f}s "
+        f"({', '.join(f'{k} {v:.1f}s' for k, v in per_source.items()) or 'cached'})")
+    for src in build.SOURCES:
+        for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+
+    rows = check_kernels()
+    reduced_parity()
+    launches, e2e = main_path()
+
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        r = rows[(name, torch.bfloat16)]
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": max(r["max_abs_err"],
+                                           rows[(name, torch.float32)]["max_abs_err"]),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels, **e2e}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,129 @@
+"""Public kernel wrappers: device dispatch and launch counts.
+
+Each wrapper takes the JAX package's layout at its interface and dispatches
+on the device its tensors lie on:
+
+  * CPU tensors run the kernel's plain PyTorch version (``*_plain`` here,
+    built on ``repro_torch.kernels.ref``);
+  * CUDA tensors launch the hand-written Hopper kernel, or raise.
+
+There is no fallback and no switch that runs the plain version on a CUDA
+tensor. ``LAUNCHES`` counts kernel launches per wrapper; it moves only where
+a kernel is launched, so a run can show which kernels its path went
+through (``reset_launches`` before the run, read after).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {"dual_rmsnorm": 0, "decode_attention": 0,
+            "decode_attention_pair": 0, "flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"inputs on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel for device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# dual RMSNorm
+# ---------------------------------------------------------------------------
+
+def dual_rmsnorm_plain(x, sa, sb, *, eps=1e-6, plus_one=False):
+    ya, yb = ref.dual_rmsnorm_ref(x.reshape(-1, x.shape[-1]), sa, sb, eps=eps,
+                                  plus_one=plus_one)
+    return torch.stack([ya, yb]).reshape(2, *x.shape)
+
+
+def dual_rmsnorm(x, sa, sb, *, eps=1e-6, plus_one=False):
+    """x: [..., D] -> [2, ..., D]: the two per-path norms (LP pair) stacked
+    on a leading axis, so ``ya, yb = dual_rmsnorm(...)`` unpacks them."""
+    if not _on_card(x, sa, sb):
+        return dual_rmsnorm_plain(x, sa, sb, eps=eps, plus_one=plus_one)
+    from repro_torch.kernels import dual_rmsnorm as K
+    y = K.launch(x.reshape(-1, x.shape[-1]), sa, sb, eps=eps, plus_one=plus_one)
+    LAUNCHES["dual_rmsnorm"] += 1
+    return y.reshape(2, *x.shape)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q, k, v, *, kind="causal", window=0, chunk=0,
+                          prefix_len=0, q0=0, k0=0, block_n=64):
+    """Grouped layout: q [B, S, H, g, hd]; k, v [B, T, H, hd] ->
+    [B, S, H, g, hd]. Folds to the kernel's rows (row = pos*g + head) and
+    runs ``flash_attention_ref``; ``block_n`` only sets the kernel's tiling,
+    which the plain version does not have."""
+    B, S, H, g, hd = q.shape
+    T = k.shape[1]
+    qf = q.permute(0, 2, 1, 3, 4).reshape(B * H, S * g, hd)
+    kf = k.permute(0, 2, 1, 3).reshape(B * H, T, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * H, T, hd)
+    o = ref.flash_attention_ref(qf, kf, vf, kind=kind, window=window,
+                                chunk=chunk, prefix_len=prefix_len, q0=q0,
+                                k0=k0, q_group=g)
+    return o.reshape(B, H, S, g, hd).permute(0, 2, 1, 3, 4)
+
+
+def flash_attention(q, k, v, *, kind="causal", window=0, chunk=0,
+                    prefix_len=0, q0=0, k0=0, block_n=64):
+    """Grouped layout: q [B, S, H, g, hd]; k, v [B, T, H, hd] ->
+    [B, S, H, g, hd]. ``block_n`` is the kv tile width, fixed by the caller
+    and never clamped to T."""
+    if not _on_card(q, k, v):
+        return flash_attention_plain(q, k, v, kind=kind, window=window,
+                                     chunk=chunk, prefix_len=prefix_len,
+                                     q0=q0, k0=k0, block_n=block_n)
+    from repro_torch.kernels import flash_attention as K
+    o = K.launch(q, k, v, kind=kind, window=window, chunk=chunk,
+                 prefix_len=prefix_len, q0=q0, k0=k0, block_n=block_n)
+    LAUNCHES["flash_attention"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# ring decode attention (single layer and LP pair)
+# ---------------------------------------------------------------------------
+
+decode_attention_plain = ref.decode_attention_ref
+decode_attention_pair_plain = ref.decode_attention_pair_ref
+
+
+def decode_attention(q, k, v, t_valid):
+    """q: [B, Hkv, g, hd]; k, v: [B, L, Hkv, hd] -> [B, Hkv, g, hd]."""
+    if not _on_card(q, k, v):
+        return decode_attention_plain(q, k, v, t_valid)
+    from repro_torch.kernels import decode_attention as K
+    o = K.launch(q[None], k[None], v[None], int(t_valid))[0]
+    LAUNCHES["decode_attention"] += 1
+    return o
+
+
+def decode_attention_pair(q, k, v, t_valid):
+    """Fused LP-pair decode: q [2, B, Hkv, g, hd]; k, v [2, B, L, Hkv, hd]
+    (the stacked pair cache) -> [2, B, Hkv, g, hd] in one kernel launch."""
+    if q.shape[0] != 2 or k.shape[0] != 2:
+        raise ValueError(f"pair decode shapes {tuple(q.shape)}, {tuple(k.shape)}")
+    if not _on_card(q, k, v):
+        return decode_attention_pair_plain(q, k, v, t_valid)
+    from repro_torch.kernels import decode_attention as K
+    o = K.launch(q, k, v, int(t_valid))
+    LAUNCHES["decode_attention_pair"] += 1
+    return o

@@ -1,0 +1,144 @@
+"""The port's plain kernel versions against the JAX oracles and the JAX
+Pallas kernels (interpret mode on the CPU), on the same numpy inputs.
+
+Tolerances as tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16. The
+kernels themselves run only on an NVIDIA GPU: tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as JOPS  # noqa: E402
+from repro.kernels import ref as JREF  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _both(a, dtype="float32"):
+    """One numpy array -> (jax array, torch tensor) of the same values."""
+    jd, td, _ = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(np.asarray(a, np.float32)).to(td)
+
+
+def _close(t, j, tol):
+    t = t.float().numpy()
+    j = np.asarray(j, np.float32)
+    assert t.shape == j.shape, (t.shape, j.shape)
+    np.testing.assert_allclose(t, j, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# dual RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,d", [(8, 64), (50, 96), (1, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_dual_rmsnorm_plain(m, d, dtype, plus_one):
+    rng = np.random.default_rng(m * d)
+    tol = DTYPES[dtype][2]
+    jx, tx = _both(rng.standard_normal((m, d)), dtype)
+    jsa, tsa = _both(rng.standard_normal(d))
+    jsb, tsb = _both(rng.standard_normal(d))
+    ya, yb = ref.dual_rmsnorm_ref(tx, tsa, tsb, plus_one=plus_one)
+    for ja, jb in (JREF.dual_rmsnorm_ref(jx, jsa, jsb, plus_one=plus_one),
+                   JOPS.dual_rmsnorm(jx, jsa, jsb, plus_one=plus_one, block_m=32)):
+        _close(ya, ja, tol)
+        _close(yb, jb, tol)
+    # the wrapper on CPU tensors is the plain version, any leading shape,
+    # both outputs stacked on a leading pair axis
+    w = ops.dual_rmsnorm(tx.reshape(m, 1, d), tsa, tsb, plus_one=plus_one)
+    assert w.shape == (2, m, 1, d)
+    assert torch.equal(w[0].reshape(m, d), ya) and torch.equal(w[1].reshape(m, d), yb)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,kw,s,t,hd", [
+    ("causal", {}, 37, 37, 32),
+    ("causal", {"prefix_len": 5}, 37, 37, 32),
+    ("window", {"window": 7}, 37, 37, 32),
+    ("chunk", {"chunk": 16}, 40, 40, 16),
+    ("bidir", {}, 16, 48, 16),
+    ("causal", {"q0": 16}, 24, 40, 16),
+    ("causal", {"q0": 20, "k0": 4}, 24, 40, 16),
+])
+def test_flash_attention_plain(kind, kw, s, t, hd):
+    rng = np.random.default_rng(s * t + hd)
+    jq, tq = _both(rng.standard_normal((3, s, hd)))
+    jk, tk = _both(rng.standard_normal((3, t, hd)))
+    jv, tv = _both(rng.standard_normal((3, t, hd)))
+    o = ref.flash_attention_ref(tq, tk, tv, kind=kind, **kw)
+    _close(o, JREF.flash_attention_ref(jq, jk, jv, kind=kind, **kw), 2e-5)
+    _close(o, JOPS.flash_attention(jq, jk, jv, kind=kind, block_q=16,
+                                   block_k=16, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gqa_fold(dtype):
+    """q_group > 1: rows [pos, head] share the position mask — against the
+    Pallas kernel, and the kernel wrapper's grouped layout on the CPU."""
+    g, s, hd, tol = 4, 24, 16, DTYPES[dtype][2]
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, s * g, hd))
+    jq, tq = _both(q, dtype)
+    jk, tk = _both(rng.standard_normal((2, s, hd)), dtype)
+    jv, tv = _both(rng.standard_normal((2, s, hd)), dtype)
+    o = ref.flash_attention_ref(tq, tk, tv, kind="causal", q_group=g)
+    _close(o, JOPS.flash_attention(jq, jk, jv, kind="causal", q_group=g,
+                                   block_q=16, block_k=16), tol)
+    for h in range(g):  # the oracle, one query head at a time
+        _close(o[:, h::g], JREF.flash_attention_ref(jq[:, h::g], jk, jv), tol)
+    # grouped layout [B=2, S, H=1, g, hd] through the wrapper
+    og = ops.flash_attention(tq.reshape(2, s, 1, g, hd), tk[:, :, None],
+                             tv[:, :, None], kind="causal", block_n=16)
+    assert torch.equal(og.reshape(2, s * g, hd), o)
+
+
+# ---------------------------------------------------------------------------
+# ring decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hkv,g,l,hd", [(2, 3, 4, 100, 32), (4, 2, 1, 64, 16)])
+@pytest.mark.parametrize("t_frac", [0.3, 1.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain(b, hkv, g, l, hd, t_frac, dtype):
+    rng = np.random.default_rng(b * l + g)
+    tol = DTYPES[dtype][2]
+    t = max(int(l * t_frac) - 1, 0)
+    jq, tq = _both(rng.standard_normal((b, hkv, g, hd)), dtype)
+    jk, tk = _both(rng.standard_normal((b, l, hkv, hd)), dtype)
+    jv, tv = _both(rng.standard_normal((b, l, hkv, hd)), dtype)
+    o = ref.decode_attention_ref(tq, tk, tv, t)
+    _close(o, JREF.decode_attention_ref(jq, jk, jv, t), tol)
+    _close(o, JOPS.decode_attention(jq, jk, jv, t, block_l=32), tol)
+    assert torch.equal(ops.decode_attention(tq, tk, tv, t), o)
+
+
+@pytest.mark.parametrize("t", [0, 17, 47])
+def test_decode_attention_pair_plain(t):
+    rng = np.random.default_rng(t)
+    jq, tq = _both(rng.standard_normal((2, 3, 2, 4, 16)))
+    jk, tk = _both(rng.standard_normal((2, 3, 48, 2, 16)))
+    jv, tv = _both(rng.standard_normal((2, 3, 48, 2, 16)))
+    o = ref.decode_attention_pair_ref(tq, tk, tv, t)
+    _close(o, JOPS.decode_attention_pair(jq, jk, jv, t, block_l=32), 2e-5)
+    for i in range(2):  # each half is the single-layer oracle
+        _close(o[i], JREF.decode_attention_ref(jq[i], jk[i], jv[i], t), 2e-5)
+    assert torch.equal(ops.decode_attention_pair(tq, tk, tv, t), o)
+
+
+def test_wrappers_reject_other_devices():
+    x = torch.zeros(2, 8)
+    s = torch.ones(8, device="meta")
+    with pytest.raises(ValueError):
+        ops.dual_rmsnorm(x, s, s)
+    with pytest.raises(ValueError):
+        ops.dual_rmsnorm(x.to("meta"), s, s)
