@@ -7,21 +7,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: compile the CUDA kernels from src/repro_torch/csrc into build/.
   3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 and fp32, at the shapes of the main path below (plus every flash
-     mask kind at a small size), with times of the kernel, the plain
+     bf16 and fp32, at the shapes of the two main paths below (plus every
+     flash mask kind at a small size), with times of the kernel, the plain
      version and, where one PyTorch call computes the same function, that
-     call.
+     call. The paged decode kernel also equals the ring kernel bit for bit
+     on a paginated copy of the same cache, and the flash kernel with a
+     per-row q0 tensor of equal entries equals its scalar launch.
   4. reduced parity: tinyllama cut to 4 layers in fp32, LP pairs (0,1),
      (2,3): greedy tokens on the card equal the port's CPU path, prefill
-     logits agree within 2e-4.
-  5. main path: LP tinyllama-1.1b at full width (22 layers, plan_for_depth
-     16 -> 6 pairs + 10 single layers), bf16 random weights from a seed,
-     4 prompts of 128 tokens, 64 new tokens through ``generate``, with the
-     exact launch count of every kernel, and prefill ms and decode ms per
-     step taken inside that one ``generate`` call.
+     logits agree within 2e-4; the continuous-batching ``PagedEngine`` on
+     the card gives the same tokens as ``generate`` on the card and as the
+     engine on the CPU.
+  5. generate path: LP tinyllama-1.1b at full width (22 layers,
+     plan_for_depth 16 -> 6 pairs + 10 single layers), bf16 random weights
+     from a seed, 4 prompts of 128 tokens, 64 new tokens through
+     ``generate``, with the exact launch count of every kernel, and prefill
+     ms and decode ms per step taken inside that one ``generate`` call.
+  6. engine path: the same model behind ``PagedEngine`` (8 slots, pages of
+     16, 129 pages, prefix cache, auto bucket ladder), 16 requests in two
+     waves (8 sharing a 64-token prefix, 8 cold), 32 new tokens each: an
+     fp32-pool run whose streams are held against ``generate`` (any
+     divergence must sit at a near-tie), then a timed bf16-pool run whose
+     kernel launches reconcile exactly with the engine's own counters, and
+     a profiled window of 8 engine steps.
 
-The second-to-last line is the kernels JSON (with the main path's prefill
-ms, decode ms per step and decode tok/s), the last line the device JSON.
+The second-to-last line is the kernels JSON (with both paths' metrics), the
+last line the device JSON.
 """
 from __future__ import annotations
 
@@ -45,6 +56,12 @@ PEAK_OPS = {"bfloat16": 989e12,      # dense bf16 tensor-core rate
 # Main-path shapes (tinyllama-1.1b, B=4 prompts of 128, cache of 256).
 B, S, MAX_LEN, N_NEW = 4, 128, 256, 64
 D, HKV, G, HD = 2048, 4, 8, 64
+# Engine shapes: 8 decode slots, pages of 16 tokens, 16 pages per slot
+# (max_len 256), 129 pages with the garbage page 0.
+N_SLOTS, PS, N_PAGES = 8, 16, 129
+N_PG = MAX_LEN // PS
+ENGINE_NEW = 32
+MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
 
 
 def log(msg):
@@ -157,8 +174,11 @@ def check_kernels():
                           compare(f"dual_rmsnorm M={M} plus_one={plus_one} b", yb, rb, tol))
                 timed = (M == B and not plus_one)   # the decode shape: most launches
                 if M == B * S and not plus_one:   # the prefill shape: 12 launches
+                    b_ms, b_by = bound(nbytes(x, sa, sb) + 2 * nbytes(x), 6 * M * D,
+                                       "float32")
                     log(f"  dual_rmsnorm M={M}: ms={time_ms(lambda: ops.dual_rmsnorm(x, sa, sb)):.5f} "
-                        f"plain_ms={time_ms(lambda: ops.dual_rmsnorm_plain(x, sa, sb)):.5f}")
+                        f"plain_ms={time_ms(lambda: ops.dual_rmsnorm_plain(x, sa, sb)):.5f} "
+                        f"bound_ms={b_ms:.6f} ({b_by})")
                 record("dual_rmsnorm", dtype, err,
                        (lambda: ops.dual_rmsnorm(x, sa, sb)) if timed else None,
                        lambda: ops.dual_rmsnorm_plain(x, sa, sb),
@@ -205,20 +225,22 @@ def check_kernels():
             err = compare(f"flash causal H={H}", ops.flash_attention(q, k, v, block_n=16),
                           ops.flash_attention_plain(q, k, v), tol)
             timed = H == 2 * HKV
-            if not timed:   # the single-layer shape: 10 of the 16 launches
-                log(f"  flash causal H={H}: ms={time_ms(lambda: ops.flash_attention(q, k, v, block_n=16)):.5f} "
-                    f"plain_ms={time_ms(lambda: ops.flash_attention_plain(q, k, v)):.5f}")
-            lib = None
-            if timed:
-                ql = q.permute(0, 2, 3, 1, 4).reshape(B, H * G, S, HD)
-                kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
-                lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                             enable_gqa=True)
+            ql = q.permute(0, 2, 3, 1, 4).reshape(B, H * G, S, HD)
+            kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+            lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                         enable_gqa=True)
             pairs = B * H * G * S * (S + 1) // 2   # allowed (query, key) pairs
+            if not timed:   # the single-layer shape: 10 of the 16 launches
+                b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs,
+                                   str(dtype).split(".")[1])
+                log(f"  flash causal H={H}: ms={time_ms(lambda: ops.flash_attention(q, k, v, block_n=16)):.5f} "
+                    f"plain_ms={time_ms(lambda: ops.flash_attention_plain(q, k, v)):.5f} "
+                    f"bound_ms={b_ms:.6f} ({b_by}) library_ms={time_ms(lib):.5f}")
             record("flash_attention", dtype, err,
                    (lambda: ops.flash_attention(q, k, v, block_n=16)) if timed else None,
                    lambda: ops.flash_attention_plain(q, k, v),
-                   2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs, library=lib)
+                   2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs,
+                   library=lib if timed else None)
         # every other mask kind, offsets and ragged edges, at a small size
         for kw, s_len, t_len, hd, g, bn in (
                 (dict(kind="window", window=7), 40, 40, 64, 2, 16),
@@ -233,6 +255,68 @@ def check_kernels():
                           ops.flash_attention(q, k, v, block_n=bn, **kw),
                           ops.flash_attention_plain(q, k, v, **kw), tol)
             record("flash_attention", dtype, err, None, None, 0, 0)
+
+        log(f"[kernels] flash attention, per-row q0 {dtype}")
+        # A bucketed radix-suffix prefill: 8 rows of a 64-token bucket after
+        # 4 context pages; cold rows start at 0, hit rows at their ctx.
+        Sb, Tc = 64, 4 * PS
+        for H in (2 * HKV, HKV):
+            q = rand(N_SLOTS, Sb, H, G, HD, dtype=dtype)
+            k, v = (rand(N_SLOTS, Tc + Sb, H, HD, dtype=dtype) for _ in range(2))
+            q0 = torch.tensor([0, 64, 32, 0, 48, 16, 64, 0], dtype=torch.int32,
+                              device=dev)
+            err = compare(f"flash q0 rows H={H}",
+                          ops.flash_attention(q, k, v, q0=q0, block_n=16),
+                          ops.flash_attention_plain(q, k, v, q0=q0), tol)
+            record("flash_attention", dtype, err, None, None, 0, 0)
+            same = torch.full((N_SLOTS,), 32, dtype=torch.int32, device=dev)
+            if not torch.equal(ops.flash_attention(q, k, v, q0=same, block_n=16),
+                               ops.flash_attention(q, k, v, q0=32, block_n=16)):
+                raise AssertionError("flash with equal per-row q0 differs from "
+                                     "the scalar launch")
+            log(f"  flash q0 rows H={H}: equal entries == scalar q0, bit for bit")
+
+        log(f"[kernels] paged decode attention {dtype}")
+        # The engine's decode: 8 slots of 16 pages, ragged horizons, slot 1
+        # idle (all-garbage block table, t = 0).
+        kr, vr = (rand(2, N_SLOTS, MAX_LEN, HKV, HD, dtype=dtype) for _ in range(2))
+        qp = rand(N_SLOTS, 2, HKV, G, HD, dtype=dtype).transpose(0, 1)
+        perm = 1 + torch.randperm(N_SLOTS * N_PG, generator=gen, device=dev)
+        bt = perm.to(torch.int32).reshape(N_SLOTS, N_PG)
+        kp = torch.zeros((2, N_PAGES, PS, HKV, HD), dtype=dtype, device=dev)
+        vp = torch.zeros_like(kp)
+        kp[:, bt.long().reshape(-1)] = kr.reshape(2, -1, PS, HKV, HD)
+        vp[:, bt.long().reshape(-1)] = vr.reshape(2, -1, PS, HKV, HD)
+        bt[1] = 0
+        tv = torch.tensor([255, 0, 17, 100, 160, 63, 200, 31], dtype=torch.int32,
+                          device=dev)
+        pair = ops.decode_attention_pair_paged(qp, kp, vp, bt, tv)
+        err = compare("decode_attention_pair_paged", pair,
+                      ops.decode_attention_pair_paged_plain(qp, kp, vp, bt, tv), tol)
+        single = ops.decode_attention_paged(qp[0], kp[0], vp[0], bt, tv)
+        err1 = compare("decode_attention_paged", single,
+                       ops.decode_attention_paged_plain(qp[0], kp[0], vp[0], bt, tv), tol)
+        for b in range(N_SLOTS):
+            if b == 1:
+                continue
+            ring = ops.decode_attention_pair(qp[:, b:b + 1], kr[:, b:b + 1],
+                                             vr[:, b:b + 1], int(tv[b]))
+            if not torch.equal(pair[:, b:b + 1], ring):
+                raise AssertionError(f"paged decode differs from the ring kernel "
+                                     f"on a paginated cache (slot {b})")
+        log("  paged == ring kernel on the paginated cache, bit for bit (7 slots)")
+        keys = int((tv + 1).sum())               # keys 0..t[b] of each row
+        kv_bytes = 2 * keys * HKV * HD * kp.element_size()
+        record("decode_attention_pair_paged", dtype, err,
+               lambda: ops.decode_attention_pair_paged(qp, kp, vp, bt, tv),
+               lambda: ops.decode_attention_pair_paged_plain(qp, kp, vp, bt, tv),
+               2 * nbytes(qp) + 2 * kv_bytes + nbytes(bt, tv),
+               2 * 4 * keys * HKV * G * HD)
+        record("decode_attention_paged", dtype, err1,
+               lambda: ops.decode_attention_paged(qp[0], kp[0], vp[0], bt, tv),
+               lambda: ops.decode_attention_paged_plain(qp[0], kp[0], vp[0], bt, tv),
+               2 * nbytes(qp[0]) + kv_bytes + nbytes(bt, tv),
+               4 * keys * HKV * G * HD)
     return rows
 
 
@@ -248,7 +332,8 @@ def reduced_parity():
     from repro_torch.core.lp import plan_range
     from repro_torch.model import transformer as T
     from repro_torch.parallel.context import ParallelContext
-    from repro_torch.serve import ServeConfig, generate, make_prefill
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate, make_prefill)
 
     pc = ParallelContext()
     base = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
@@ -272,6 +357,56 @@ def reduced_parity():
         if err > LOGIT_TOL or not same:
             raise AssertionError(f"reduced parity failed: logits err {err:.3e}, "
                                  f"tokens\n{tok_cpu}\n{tok_gpu}")
+        # The continuous-batching engine: card == generate on the card ==
+        # the engine on the CPU, token for token.
+        work = reduced_traffic(cfg.vocab_size)
+        psv = PagedServeConfig(n_slots=4, page_size=8, n_pages=33, max_len=48,
+                               cache_dtype=torch.float32, prefix_cache=True)
+        eng = PagedEngine(p_gpu, ms, psv)
+        got = serve(eng, work)
+        cpu = serve(PagedEngine(p_cpu, ms, psv), work)
+        ref = [generate(p_gpu, torch.from_numpy(p).cuda()[None], n, ms=ms, pc=pc,
+                        sv=sv)[0].cpu().numpy() for _, p, n in work]
+        n_gen = sum(a.tolist() == b.tolist() for a, b in zip(got, ref))
+        n_cpu = sum(a.tolist() == b.tolist() for a, b in zip(got, cpu))
+        c = eng.counters
+        log(f"[reduced] engine n_kv_heads={n_kv}: {len(work)} requests, "
+            f"prefix hits {c['prefix_hits']}, bucket launches {c['bucket_groups']}; "
+            f"streams equal to generate on the card {n_gen}/{len(work)}, "
+            f"to the engine on the CPU {n_cpu}/{len(work)}")
+        if n_gen != len(work) or n_cpu != len(work) or not c["prefix_hits"]:
+            raise AssertionError("reduced engine parity failed")
+
+
+def reduced_traffic(vocab):
+    """10 requests of the reduced engine check: 4 sharing a 16-token
+    prefix, 6 cold, in staggered waves (submit step, prompt, max_new)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    shared = rng.integers(0, vocab, 16)
+    fam = [np.concatenate([shared, rng.integers(0, vocab, n)]) for n in (5, 8, 11, 2)]
+    cold = [rng.integers(0, vocab, n) for n in (3, 9, 17, 24, 30, 12)]
+    prompts = [fam[0], cold[0], cold[1], fam[1], cold[2], cold[3], fam[2],
+               cold[4], fam[3], cold[5]]
+    return list(zip([0, 0, 0, 1, 1, 1, 2, 2, 4, 4], prompts,
+                    [6, 4, 7, 5, 8, 3, 6, 5, 4, 7]))
+
+
+def serve(eng, work, step_log=None):
+    """Drive a PagedEngine through (submit step, prompt, max_new) traffic;
+    returns the streams in submission order. ``step_log`` receives
+    (seconds, stats) per step, each step ending with its tokens on the
+    host."""
+    rids, i = [], 0
+    while i < len(work) or eng.sched.n_queued or eng.sched.n_running:
+        while i < len(work) and work[i][0] <= eng.step_count:
+            rids.append(eng.add_request(work[i][1], work[i][2]))
+            i += 1
+        t0 = time.perf_counter()
+        stats = eng.step()
+        if step_log is not None:
+            step_log.append((time.perf_counter() - t0, stats))
+    return [eng.results[r] for r in rids]
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +448,8 @@ def main_path():
     want = {"flash_attention": n_groups,
             "dual_rmsnorm": 2 * n_pairs * (1 + steps),
             "decode_attention": steps * n_single,
-            "decode_attention_pair": steps * n_pairs}
+            "decode_attention_pair": steps * n_pairs,
+            "decode_attention_paged": 0, "decode_attention_pair_paged": 0}
     log(f"[main] launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -343,13 +479,15 @@ def main_path():
            "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
            "decode_tok_per_s": B * steps / timings["decode_s"]}
     log("[main] " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
-    profile_decode(lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv))
+    e2e["busy_share"] = profile_decode(
+        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv))
     return launches, e2e
 
 
-def profile_decode(run):
-    """Device busy share and kernel time by name over one short generate
-    (a prefill and 8 decode steps), from torch.profiler."""
+def profile_decode(run, what="generate(9 new)"):
+    """Device busy share and kernel time by name over a short run (a
+    generate of a prefill and 8 decode steps, or 8 engine steps), from
+    torch.profiler. Returns the busy share, or None when not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -365,12 +503,187 @@ def profile_decode(run):
     busy_us = sum(by_name.values())
     if not busy_us:
         log("[profile] device time not measured: the profiler saw no device events")
-        return
-    log(f"[profile] generate(9 new) wall_ms={wall_us / 1e3:.3f} device_busy_ms="
+        return None
+    log(f"[profile] {what} wall_ms={wall_us / 1e3:.3f} device_busy_ms="
         f"{busy_us / 1e3:.3f} busy_share={busy_us / wall_us:.4f} "
         f"kernels={sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.1%}  {name[:90]}")
+    return busy_us / wall_us
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the continuous-batching engine at full width
+# ---------------------------------------------------------------------------
+
+def engine_traffic(vocab):
+    """16 requests in two waves of 8 (the second 4 steps after the first),
+    32 new tokens each: 8 share a 64-token prefix (4 pages) and add their
+    own 16-96-token suffix, 8 are cold at 24-160 tokens. The second wave's
+    hit suffixes and cold prompts fall into common buckets (32, 64, 128),
+    so hit and cold rows share bucket launches."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    prefix = rng.integers(0, vocab, 64)
+    fam = [np.concatenate([prefix, rng.integers(0, vocab, n)])
+           for n in (16, 40, 60, 96, 20, 44, 64, 90)]
+    cold = [rng.integers(0, vocab, n) for n in (24, 50, 100, 160, 30, 52, 110, 150)]
+    wave1 = [p for pair in zip(fam[:4], cold[:4]) for p in pair]
+    wave2 = [p for pair in zip(fam[4:], cold[4:]) for p in pair]
+    return [(0, p, ENGINE_NEW) for p in wave1] + [(4, p, ENGINE_NEW) for p in wave2]
+
+
+def engine_config(cache_dtype):
+    from repro_torch.serve import PagedServeConfig
+    return PagedServeConfig(n_slots=N_SLOTS, page_size=PS, max_len=MAX_LEN,
+                            n_pages=N_PAGES, prefix_cache=True,
+                            cache_dtype=cache_dtype)
+
+
+def shared_bucket_launches(eng):
+    """(hit rows, cold rows) of every bucket launch that held both, from
+    the engine's prefill spans: one launch per (step, bucket) group here,
+    since every group fits the program's rows."""
+    from repro_torch.serve import bucket_for
+    groups = {}
+    for span in eng.telemetry.spans.values():
+        for e in span.events_of("prefill"):
+            if e.attrs.get("batched"):
+                key = (e.step, bucket_for(e.attrs["tokens"], eng._buckets))
+                groups.setdefault(key, []).append(e.attrs["kind"])
+    return [(kinds.count("suffix"), kinds.count("full"))
+            for kinds in groups.values()
+            if "suffix" in kinds and "full" in kinds]
+
+
+def first_divergence(params, ms, pc, prompt, want, got):
+    """First position where the engine's stream leaves generate()'s, and
+    the top-2 margin and scale of generate's logits there (its own
+    prefill + decode_step path)."""
+    import torch
+    from repro_torch.model import transformer as T
+    from repro_torch.serve import ServeConfig, make_prefill
+    i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    x = torch.from_numpy(prompt).cuda()[None]
+    logits, caches = make_prefill(ms, pc, sv)(params, x)
+    for j in range(i):
+        tok = torch.tensor([int(want[j])], device="cuda")
+        logits, caches = T.decode_step(params, tok, caches, len(prompt) + j,
+                                       ms=ms, pc=pc)
+    top = logits[0].float().topk(2).values
+    return i, float(top[0] - top[1]), float(logits[0].abs().max())
+
+
+def engine_path():
+    """Returns (kernel launches of the timed run, engine metrics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.kernels import ops
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, ServeConfig, default_buckets,
+                                   generate)
+
+    pc = ParallelContext()
+    cfg = get_config("tinyllama-1.1b")
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 16))
+    n_groups = sum(s.count for s in ms.segments)
+    n_pairs = len(ms.plan.pairs)
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    work = engine_traffic(cfg.vocab_size)
+    log(f"[engine] {cfg.name} LP {ms.plan.pairs}: {len(work)} requests, "
+        f"{N_SLOTS} slots, pages of {PS}, {N_PAGES} pages, buckets "
+        f"{default_buckets(MAX_LEN, PS)}")
+
+    # Parity run: bf16 weights, fp32 pool, streams against generate().
+    eng = PagedEngine(params, ms, engine_config(torch.float32))
+    got = serve(eng, work)
+    shared = shared_bucket_launches(eng)
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    n_equal, worst = 0, 0.0
+    for (_, prompt, n), stream in zip(work, got):
+        want = generate(params, torch.from_numpy(prompt).cuda()[None], n, ms=ms,
+                        pc=pc, sv=sv)[0].cpu().numpy()
+        if want.tolist() == stream.tolist():
+            n_equal += 1
+            continue
+        i, margin, scale = first_divergence(params, ms, pc, prompt, want, stream)
+        worst = max(worst, margin / scale)
+        log(f"[engine] stream of a {len(prompt)}-token prompt leaves generate at "
+            f"token {i}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
+            f"({margin / scale:.5f}, limit {MARGIN_FRAC})")
+    log(f"[engine] parity (fp32 pool): {n_equal}/{len(work)} streams equal to "
+        f"generate on the card; bucket launches holding hit and cold rows "
+        f"(hit, cold): {shared}")
+    if worst > MARGIN_FRAC:
+        raise AssertionError("an engine stream diverged from generate away from "
+                             "a near-tie")
+    if not shared:
+        raise AssertionError("no bucket launch held both a radix-hit row and a "
+                             "cold row")
+
+    # Timed run: bf16 pool, every kernel launch counted.
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    serve(eng, work[:N_SLOTS])                      # warm-up: one wave
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    steps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve(eng, work, steps)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    c = dict(eng.counters)
+    exact = c["full_prefills"] + c["suffix_prefills"] - c["bucket_prefills"]
+    prefill_launches = c["bucket_groups"] + exact
+    decode_launches = sum(1 for _, st in steps if st["decoded"])
+    want = {"dual_rmsnorm": 2 * n_pairs * (prefill_launches + decode_launches),
+            "decode_attention": 0, "decode_attention_pair": 0,
+            "decode_attention_paged": (n_groups - n_pairs) * decode_launches,
+            "decode_attention_pair_paged": n_pairs * decode_launches,
+            "flash_attention": n_groups * prefill_launches}
+    log(f"[engine] launches {launches} (want {want}; {prefill_launches} prefill "
+        f"and {decode_launches} decode launches by the engine's counters)")
+    if launches != want:
+        raise AssertionError(f"engine launch counts {launches} != {want}")
+    if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size
+           for o in out):
+        raise AssertionError("engine streams of the wrong length or out of range")
+    resident = eng.prefix.resident_pages
+    live = eng.pool.live
+    eng.prefix.evict(resident, eng.pool)          # nothing holds a page now
+    eng.pool.check_balance()
+    log(f"[engine] after drain: pool.live {live} == radix-resident {resident}; "
+        f"after evicting the tree pool.live {eng.pool.live}")
+    if live != resident or eng.pool.live != 0:
+        raise AssertionError("pages still held after drain")
+    dec = [dt for dt, st in steps if st["decoded"] and not st["admitted"]]
+    dec_tokens = sum(st["decoded"] for _, st in steps
+                     if st["decoded"] and not st["admitted"])
+    metrics = {"wall_ms": wall_s * 1e3, "steps": len(steps),
+               "decode_ms_per_step": sum(dec) / len(dec) * 1e3,
+               "decode_tok_per_s": dec_tokens / sum(dec),
+               "decoded": c["decoded"],
+               "prefill_launches": {"bucket": c["bucket_groups"], "exact": exact},
+               "prefix_hits": c["prefix_hits"], "hit_tokens": c["hit_tokens"],
+               "pad_tokens": c["pad_tokens"],
+               "parity_streams_equal": n_equal, "parity_streams": len(work),
+               "shared_bucket_launches": len(shared)}
+    log("[engine] " + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                               for k, v in metrics.items()))
+
+    # Profiled window: 8 decode steps with all slots running.
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    for _, prompt, n in work[:N_SLOTS]:
+        eng.add_request(prompt, n)
+    eng.step()
+    eng.step()
+    metrics["busy_share"] = profile_decode(lambda: [eng.step() for _ in range(8)],
+                                           "engine 8 decode steps")
+    return launches, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +695,10 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:130"),
     "decode_attention_pair": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                               "src/repro/kernels/decode_attention.py:142"),
+    "decode_attention_paged": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:258"),
+    "decode_attention_pair_paged": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:273"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:92"),
 }
@@ -414,19 +731,26 @@ def main() -> int:
 
     rows = check_kernels()
     reduced_parity()
-    launches, e2e = main_path()
+    gen_launches, e2e = main_path()          # each path reads its own counts
+    eng_launches, engine = engine_path()
+    for name in KERNELS:
+        if not gen_launches[name] + eng_launches[name]:
+            raise AssertionError(f"{name} was launched on neither main path")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = rows[(name, torch.bfloat16)]
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": gen_launches[name] + eng_launches[name],
+                        "launches_by_path": {"generate": gen_launches[name],
+                                             "engine": eng_launches[name]},
                         "max_abs_err": max(r["max_abs_err"],
                                            rows[(name, torch.float32)]["max_abs_err"]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels, **e2e}))
+    print(json.dumps({"kernels": kernels, **e2e, "engine": engine}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

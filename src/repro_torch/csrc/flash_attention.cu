@@ -30,6 +30,12 @@
 //    wiped by corr = exp(kNegInf - m) = 0.
 //  * Inputs are read in their stored layout through strides: q and the
 //    output as [B, S, H, g, hd], k and v as [B, T, H, hd]. No transposes.
+//  * The query offset q0 is one int for the launch, or one per batch row
+//    read from device memory (the engine's bucketed prefill, where each
+//    radix-hit row starts at its own context length). Each block uses its
+//    row's q0 for both the mask and the tile-skip range, so fully masked
+//    tiles stay exact no-ops per row, and equal per-row offsets give the
+//    scalar launch's output bit for bit.
 //
 // A query row that may attend to no key at all (no mask of this repo makes
 // one: the diagonal is always allowed) gets zeros, or the mean of the values
@@ -61,6 +67,7 @@ struct FlashArgs {
   // (batch, position, head). The last dim (hd) is contiguous.
   long long qs[4], ks[3], vs[3], os[4];
   int kind, window, chunk, prefix_len, q0, k0, block_n;
+  const int* q0_rows;  // per-row query offsets [B] in device memory, or null
   float scale;
 };
 
@@ -88,12 +95,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
 
   const int bh = blockIdx.x;
   const int h = bh % a.H, b = bh / a.H;
+  const int q0 = a.q0_rows ? a.q0_rows[b] : a.q0;
   const int n_rows = a.S * a.G;
   const int tid = threadIdx.x;
   const int rloc = tid / kThreadsPerRow, part = tid % kThreadsPerRow;
   const int r = blockIdx.y * kRows + rloc;
   const bool row_ok = r < n_rows;
-  const int qpos = a.q0 + (row_ok ? r : n_rows - 1) / a.G;
+  const int qpos = q0 + (row_ok ? r : n_rows - 1) / a.G;
 
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
@@ -115,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
   // Key range any row of this block may attend to, as absolute positions.
   const int row_lo = blockIdx.y * kRows;
   const int row_hi = min(n_rows, row_lo + kRows) - 1;
-  const int qmin = a.q0 + row_lo / a.G, qmax = a.q0 + row_hi / a.G;
+  const int qmin = q0 + row_lo / a.G, qmax = q0 + row_hi / a.G;
   const int k_limit = a.k0 + a.T;
   int lo = a.k0, hi = k_limit;
   if (a.kind != kBidir) {
@@ -216,19 +224,20 @@ int dispatch_hd(const FlashArgs& a, int hd, cudaStream_t stream) {
 
 // Returns 0 on success, a cudaError_t code after a failed launch, or -1 for
 // arguments the kernel does not take (the Python wrapper checks first).
+// q0_rows: null for the scalar q0, else int32 [B] in device memory.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int dtype, int B,
                                      int H, int S, int G, int T, int hd,
                                      const long long* strides, int kind,
                                      int window, int chunk, int prefix_len,
-                                     int q0, int k0, int block_n, float scale,
-                                     void* stream) {
+                                     int q0, const int* q0_rows, int k0,
+                                     int block_n, float scale, void* stream) {
   if (block_n <= 0 || smem_bytes(block_n, hd) > 227 * 1024 || kind < 0 ||
       kind > kBidir || (kind == kWindow && window <= 0) ||
       (kind == kChunk && chunk <= 0) || S <= 0 || T <= 0 || G <= 0)
     return -1;
   FlashArgs a{q, k, v, o, B, H, S, G, T, {}, {}, {}, {},
-              kind, window, chunk, prefix_len, q0, k0, block_n, scale};
+              kind, window, chunk, prefix_len, q0, k0, block_n, q0_rows, scale};
   for (int i = 0; i < 4; ++i) {
     a.qs[i] = strides[i];
     a.os[i] = strides[10 + i];

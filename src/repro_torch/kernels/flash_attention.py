@@ -22,17 +22,20 @@ KINDS = {"causal": 0, "window": 1, "chunk": 2, "bidir": 3}
 def _fn():
     fn = build.library(SOURCE).repro_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_float,
+                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
-           window: int, chunk: int, prefix_len: int, q0: int, k0: int,
+           window: int, chunk: int, prefix_len: int, q0, k0: int,
            block_n: int) -> torch.Tensor:
     """q: [B, S, H, g, hd]; k, v: [B, T, H, hd] CUDA tensors, any strides
-    with hd contiguous. Returns a new contiguous [B, S, H, g, hd] tensor."""
+    with hd contiguous. ``q0``: an int, or a contiguous int32 tensor [B] of
+    per-row query offsets on the same device. Returns a new contiguous
+    [B, S, H, g, hd] tensor."""
     B, S, H, G, hd = q.shape
     T = k.shape[1]
     if k.shape != (B, T, H, hd) or v.shape != k.shape:
@@ -51,12 +54,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
                          f"got {hd}")
     if kind not in KINDS or block_n <= 0:
         raise ValueError(f"flash attention kind={kind!r} block_n={block_n}")
+    q0_rows = None
+    if torch.is_tensor(q0):
+        if (q0.shape != (B,) or q0.dtype != torch.int32 or q0.device != q.device
+                or not q0.is_contiguous()):
+            raise ValueError(f"per-row q0 must be a contiguous int32 [B={B}] "
+                             f"tensor on {q.device}, got {tuple(q0.shape)} "
+                             f"{q0.dtype} on {q0.device}")
+        q0_rows, q0 = q0.data_ptr(), 0
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 14)(*q.stride()[:4], *k.stride()[:3],
                                        *v.stride()[:3], *o.stride()[:4])
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                DTYPES[q.dtype], B, H, S, G, T, hd, strides, KINDS[kind],
-               window, chunk, prefix_len, q0, k0, block_n, hd ** -0.5,
+               window, chunk, prefix_len, int(q0), q0_rows, k0, block_n,
+               hd ** -0.5,
                build.stream_for(q.device))
     build.check(rc, "flash_attention")
     return o

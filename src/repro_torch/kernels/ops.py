@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"dual_rmsnorm": 0, "decode_attention": 0,
-            "decode_attention_pair": 0, "flash_attention": 0}
+            "decode_attention_pair": 0, "decode_attention_paged": 0,
+            "decode_attention_pair_paged": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -70,9 +71,12 @@ def flash_attention_plain(q, k, v, *, kind="causal", window=0, chunk=0,
     """Grouped layout: q [B, S, H, g, hd]; k, v [B, T, H, hd] ->
     [B, S, H, g, hd]. Folds to the kernel's rows (row = pos*g + head) and
     runs ``flash_attention_ref``; ``block_n`` only sets the kernel's tiling,
-    which the plain version does not have."""
+    which the plain version does not have. ``q0``: an int, or a [B] tensor
+    of per-row query offsets."""
     B, S, H, g, hd = q.shape
     T = k.shape[1]
+    if torch.is_tensor(q0):
+        q0 = q0.long().repeat_interleave(H)   # one offset per (b, kv head)
     qf = q.permute(0, 2, 1, 3, 4).reshape(B * H, S * g, hd)
     kf = k.permute(0, 2, 1, 3).reshape(B * H, T, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * H, T, hd)
@@ -86,8 +90,9 @@ def flash_attention(q, k, v, *, kind="causal", window=0, chunk=0,
                     prefix_len=0, q0=0, k0=0, block_n=64):
     """Grouped layout: q [B, S, H, g, hd]; k, v [B, T, H, hd] ->
     [B, S, H, g, hd]. ``block_n`` is the kv tile width, fixed by the caller
-    and never clamped to T."""
-    if not _on_card(q, k, v):
+    and never clamped to T. ``q0`` is an int, or an int32 tensor [B] of
+    per-row query offsets on the inputs' device."""
+    if not _on_card(q, k, v, *([q0] if torch.is_tensor(q0) else [])):
         return flash_attention_plain(q, k, v, kind=kind, window=window,
                                      chunk=chunk, prefix_len=prefix_len,
                                      q0=q0, k0=k0, block_n=block_n)
@@ -126,4 +131,52 @@ def decode_attention_pair(q, k, v, t_valid):
     from repro_torch.kernels import decode_attention as K
     o = K.launch(q, k, v, int(t_valid))
     LAUNCHES["decode_attention_pair"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (single layer and LP pair)
+# ---------------------------------------------------------------------------
+
+decode_attention_paged_plain = ref.decode_attention_paged_ref
+decode_attention_pair_paged_plain = ref.decode_attention_pair_paged_ref
+
+
+def _no_head_map(head_map):
+    if head_map is not None:
+        raise NotImplementedError("head_map selects replicated kv heads under "
+                                  "tensor parallelism, which is not ported")
+
+
+def decode_attention_paged(q, k_pages, v_pages, block_tables, t_valid,
+                           head_map=None):
+    """q: [B, Hkv, g, hd]; k/v_pages: [n_pages, ps, Hkv, hd]; block_tables
+    [B, n_pg] and t_valid [B], int32, on the same device -> [B, Hkv, g, hd].
+    Each row attends to its positions 0..t_valid[b]."""
+    _no_head_map(head_map)
+    if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
+        return decode_attention_paged_plain(q, k_pages, v_pages, block_tables,
+                                            t_valid)
+    from repro_torch.kernels import decode_attention as K
+    o = K.launch_paged(q[None], k_pages[None], v_pages[None], block_tables,
+                       t_valid)[0]
+    LAUNCHES["decode_attention_paged"] += 1
+    return o
+
+
+def decode_attention_pair_paged(q, k_pages, v_pages, block_tables, t_valid,
+                                head_map=None):
+    """Fused paged LP-pair decode: q [2, B, Hkv, g, hd]; k/v_pages
+    [2, n_pages, ps, Hkv, hd] (the stacked pair pool, one block table for
+    both halves) -> [2, B, Hkv, g, hd] in one kernel launch."""
+    _no_head_map(head_map)
+    if q.shape[0] != 2 or k_pages.shape[0] != 2:
+        raise ValueError(f"pair decode shapes {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}")
+    if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
+        return decode_attention_pair_paged_plain(q, k_pages, v_pages,
+                                                 block_tables, t_valid)
+    from repro_torch.kernels import decode_attention as K
+    o = K.launch_paged(q, k_pages, v_pages, block_tables, t_valid)
+    LAUNCHES["decode_attention_pair_paged"] += 1
     return o

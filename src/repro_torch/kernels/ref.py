@@ -23,10 +23,11 @@ def dual_rmsnorm_ref(x, sa, sb, *, eps=1e-6, plus_one=False):
 
 
 def _mask(kind, qpos, kpos, *, window=0, chunk=0, prefix_len=0):
-    q = qpos[:, None]
+    """Allowed-mask [..., S, T] for q positions [..., S] x k positions [T]."""
+    q = qpos[..., None]
     k = kpos[None, :]
     if kind == "bidir":
-        return torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+        return torch.ones(qpos.shape + kpos.shape, dtype=torch.bool,
                           device=qpos.device)
     m = k <= q
     if kind == "causal":
@@ -45,24 +46,29 @@ def flash_attention_ref(q, k, v, *, kind="causal", window=0, chunk=0,
     """q: [BH, S, hd]; k, v: [BH, T, hd] -> [BH, S, hd] (fp32 math).
 
     ``q_group`` > 1 means q rows are GQA-folded (row = position*g + head),
-    as the kernel takes them; masks then use position = row // g."""
+    as the kernel takes them; masks then use position = row // g. ``q0`` is
+    an int, or a [BH] tensor of per-row query offsets."""
     S, T = q.shape[1], k.shape[1]
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bsh,bth->bst", q.float(), k.float()) * scale
-    qpos = q0 + torch.arange(S, device=q.device) // q_group
+    rel = torch.arange(S, device=q.device) // q_group
+    qpos = q0[:, None] + rel if torch.is_tensor(q0) else q0 + rel
     m = _mask(kind, qpos, k0 + torch.arange(T, device=q.device),
               window=window, chunk=chunk, prefix_len=prefix_len)
-    s = torch.where(m[None], s, NEG_INF)
+    s = torch.where(m if m.dim() == 3 else m[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,bth->bsh", p, v.float()).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, t_valid):
     """q: [B, Hkv, g, hd]; k, v: [B, L, Hkv, hd]; entries with index > t_valid
-    masked. Returns [B, Hkv, g, hd]."""
+    masked (an int, or a [B] tensor of per-row horizons). Returns
+    [B, Hkv, g, hd]."""
     L = k.shape[1]
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bngh,btnh->bngt", q.float(), k.float()) * scale
+    if torch.is_tensor(t_valid):
+        t_valid = t_valid.reshape(-1, 1, 1, 1)
     valid = torch.arange(L, device=q.device)[None, None, None, :] <= t_valid
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -77,3 +83,27 @@ def decode_attention_pair_ref(q, k, v, t_valid):
                              k.reshape(P2 * B, *k.shape[2:]),
                              v.reshape(P2 * B, *v.shape[2:]), t_valid)
     return o.reshape(q.shape)
+
+
+def gather_pages(pages, block_tables):
+    """pages [n_pages, ps, Hkv, hd]; block_tables [B, n_pg] -> the rows'
+    logical sequences [B, n_pg * ps, Hkv, hd]."""
+    g = pages[block_tables.long()]                 # [B, n_pg, ps, Hkv, hd]
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def decode_attention_paged_ref(q, k_pages, v_pages, block_tables, t_valid):
+    """Paged form: q [B, Hkv, g, hd]; k/v_pages [n_pages, ps, Hkv, hd];
+    block_tables [B, n_pg]; t_valid [B] per-row horizons. Gathers each
+    row's pages into [B, L] and applies the ring math."""
+    return decode_attention_ref(q, gather_pages(k_pages, block_tables),
+                                gather_pages(v_pages, block_tables), t_valid)
+
+
+def decode_attention_pair_paged_ref(q, k_pages, v_pages, block_tables,
+                                    t_valid):
+    """Pair form over the stacked pool [2, n_pages, ps, Hkv, hd], one block
+    table shared by both halves: q [2, B, Hkv, g, hd] -> [2, B, Hkv, g, hd]."""
+    return torch.stack([decode_attention_paged_ref(
+        q[i], k_pages[i], v_pages[i], block_tables, t_valid)
+        for i in range(2)])

@@ -6,11 +6,12 @@ axis on the weights with the pair folded pair-major into the head axis, and
 the pair's output projection as per-path gemms plus one add.
 
 Kernels: on a CUDA tensor ``attention_core`` runs the flash kernel for every
-impl (a pinned ``"chunked:<kb>"`` becomes its fixed kv tile width) and
-``decode_attn_standard`` runs the ring decode kernel, one launch for both
-halves of a pair. On a CPU tensor the impls are the plain cores below and
-decode runs the kernel's plain version. The decode cache is updated in
-place: the new token's k/v are index-assigned into the stored cache.
+impl (a pinned ``"chunked:<kb>"`` becomes its fixed kv tile width),
+``decode_attn_standard`` runs the ring decode kernel and
+``decode_attn_paged`` the paged one, each one launch for both halves of a
+pair. On a CPU tensor the impls are the plain cores below and decode runs
+the kernel's plain version. Decode updates the cache in place: the new
+token's k/v are index-assigned into the stored ring cache or page pool.
 """
 from __future__ import annotations
 
@@ -119,7 +120,11 @@ def _chunked_core(q, k, v, *, kind, window, chunk, prefix_len, q0, k0,
     instead of clamping down). A fully masked tile is then an exact no-op
     (corr = exp(m - m) = 1, p = 0) and a partly masked tile reduces over
     the same kb lanes whatever the padded length, so right-padding the key
-    axis is bit-transparent for the rows below the true length."""
+    axis is bit-transparent for the rows below the true length.
+
+    ``q0`` may be a [B] tensor of PER-ROW offsets (bucketed radix-suffix
+    prefill: row i's queries start at its own context length); the mask
+    then resolves per row while the tile schedule stays row-independent."""
     B, S0, Hk, g, hd = q.shape
     T0 = k.shape[1]
     qb = min(qb, S0)
@@ -142,20 +147,23 @@ def _chunked_core(q, k, v, *, kind, window, chunk, prefix_len, q0, k0,
     kt = k.reshape(B, nk, kb, Hk, hd).permute(1, 0, 3, 2, 4)        # [nk,B,Hk,kb,hd]
     vt = v.reshape(B, nk, kb, Hk, hd).permute(1, 0, 3, 2, 4)
 
+    per_row = torch.is_tensor(q0)
+    base = q0[:, None] if per_row else q0
     tiles = []
     for qi in range(nq):
-        qpos = q0 + qi * qb + torch.arange(qb, device=dev)
+        qpos = base + qi * qb + torch.arange(qb, device=dev)   # [qb] or [B,qb]
         m = torch.full((B, Hk, g, qb), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Hk, g, qb), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Hk, g, qb, hd), dtype=torch.float32, device=dev)
         for ki in range(nk):
             kpos = k0 + ki * kb + torch.arange(kb, device=dev)
             msk = tile_mask(kind, qpos, kpos, window=window, chunk=chunk,
-                            prefix_len=prefix_len)
+                            prefix_len=prefix_len)  # [qb,kb] or [B,qb,kb]
             msk = msk & (kpos < k_limit)[None, :]   # kv padding columns
             s = torch.einsum("bngqh,bnkh->bngqk", qt[qi].float(),
                              kt[ki].float()) * scale
-            s = s + torch.where(msk, 0.0, NEG_INF)
+            bias = torch.where(msk, 0.0, NEG_INF)
+            s = s + (bias[:, None, None] if per_row else bias)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -182,11 +190,20 @@ def attention_core(q, k, v, *, kind, window=0, chunk=0, prefix_len=0,
     width) | "flash". On a CUDA tensor every impl launches the flash kernel,
     with the pinned width of "chunked:<kb>" as its kv tile. On a CPU tensor
     "flash" runs the kernel wrapper's plain version (the kernel's layout
-    and fold, for tests) and the others run the plain cores."""
+    and fold, for tests) and the others run the plain cores.
+
+    ``q0`` may be an int32 [B] tensor of per-row offsets; then the impl
+    must pin its tile ("chunked:<kb>") or be the flash kernel."""
     B, S, Hk, g, hd = q.shape
     T = k.shape[1]
     pinned = impl.startswith("chunked:")
-    if q.device.type != "cpu" or impl == "flash":
+    kernel = q.device.type != "cpu" or impl == "flash"
+    if torch.is_tensor(q0) and not (pinned or kernel):
+        # The dense and unpinned chunked cores would build one shared mask.
+        raise NotImplementedError(
+            f"per-row q0 requires a pinned chunked impl ('chunked:<kb>') or "
+            f"the flash kernel, got impl={impl!r}")
+    if kernel:
         block_n = int(impl.split(":", 1)[1]) if pinned else FLASH_BLOCK_N
         return ops.flash_attention(q, k, v, kind=_KERNEL_KIND[kind],
                                    window=window, chunk=chunk,
@@ -275,6 +292,13 @@ def project_kv(p, xn, cfg, dims: AttnDims, *, positions, kind, pair: bool):
 # Decode (single new token against a ring KV cache)
 # ---------------------------------------------------------------------------
 
+def _widen(q, cache):
+    """q in the wider of its type and the cache's: the decode kernels take
+    one type, and bf16 q against an fp32 cache widens exactly. (The plain
+    versions compute in fp32 whatever the types.)"""
+    return q.to(torch.promote_types(q.dtype, cache.dtype))
+
+
 def cache_slot(kind: str, t: int, *, window=0, chunk=0):
     """Ring-buffer slot + local validity horizon for a decode step ``t``:
     entries with index <= t_local are valid."""
@@ -311,16 +335,70 @@ def decode_attn_standard(p, xn, cache_k, cache_v, t: int, cfg, dims: AttnDims,
         cache_k[:, :, slot:slot + 1] = k2.to(cache_k.dtype)
         cache_v[:, :, slot:slot + 1] = v2.to(cache_v.dtype)
         qh = q.reshape(B, 2, Hk, g, dims.hd).transpose(0, 1)  # [2,B,Hk,g,hd]
-        o = ops.decode_attention_pair(qh, cache_k, cache_v, t_local).to(xn.dtype)
+        o = ops.decode_attention_pair(_widen(qh, cache_k), cache_k, cache_v,
+                                      t_local).to(xn.dtype)
         o = o.transpose(0, 1).reshape(B, 1, 2 * dims.hq, dims.hd)
         return output_proj(p, o, dims, pair=True), cache_k, cache_v
 
     cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
     cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
-    qh = q.reshape(B, Hk, g, dims.hd)
+    qh = _widen(q.reshape(B, Hk, g, dims.hd), cache_k)
     o = ops.decode_attention(qh, cache_k, cache_v, t_local).to(xn.dtype)
     o = o.reshape(B, 1, dims.hq, dims.hd)
     return output_proj(p, o, dims, pair=False), cache_k, cache_v
+
+
+def decode_attn_paged(p, xn, k_pages, v_pages, t, block_tables, cfg,
+                      dims: AttnDims, *, kind, pair: bool):
+    """Decode against the PAGED pool (continuous batching). Returns
+    (partial_out, k_pages, v_pages); the pools are the SAME tensors,
+    updated in place.
+
+    pair=False: xn [B,1,D], k/v_pages [n_pages, ps, hkv, hd].
+    pair=True (fused LP pair): xn [2,B,1,D], k/v_pages [2, n_pages, ps,
+    hkv, hd] stacked-contiguous — both halves occupy the same page indices
+    of their own half, so one block table serves the pair: one projection,
+    one scatter per pool tensor, one attention launch, one merged output
+    projection.
+
+    t: [B] int32 per-slot positions; block_tables: [B, n_pg] int32, with
+    unused entries and idle slots' whole rows at the reserved garbage page
+    0. Idle slots all write (page 0, offset 0); with duplicate indices the
+    write that lands there is unspecified, and nothing reads page 0
+    unmasked. Only plain causal kinds page (slot == t).
+    """
+    B = xn.shape[1] if pair else xn.shape[0]
+    q = project_q(p, xn, cfg, dims, positions=t[:, None], kind=kind, pair=pair)
+    k, v = project_kv(p, xn, cfg, dims, positions=t[:, None], kind=kind,
+                      pair=pair)
+    ps = k_pages.shape[2 if pair else 1]
+    tl = t.long()
+    # Indirection: position t lives at (bt[b, t // ps], t % ps).
+    page_of = block_tables.long().gather(1, (tl // ps)[:, None])[:, 0]
+    off = tl % ps
+    Hk, g = dims.hkv, dims.group
+
+    if pair:
+        # New-token kv arrives pair-folded [B,1,2*hkv,hd]; unfold and write
+        # both halves' (page, offset) in one scatter per pool tensor.
+        k2 = k.reshape(B, 2, Hk, dims.hd).transpose(0, 1)
+        v2 = v.reshape(B, 2, Hk, dims.hd).transpose(0, 1)
+        k_pages[:, page_of, off] = k2.to(k_pages.dtype)
+        v_pages[:, page_of, off] = v2.to(v_pages.dtype)
+        qh = q.reshape(B, 2, Hk, g, dims.hd).transpose(0, 1)  # [2,B,Hk,g,hd]
+        o = ops.decode_attention_pair_paged(_widen(qh, k_pages), k_pages,
+                                            v_pages, block_tables,
+                                            t).to(xn.dtype)
+        o = o.transpose(0, 1).reshape(B, 1, 2 * dims.hq, dims.hd)
+        return output_proj(p, o, dims, pair=True), k_pages, v_pages
+
+    k_pages[page_of, off] = k[:, 0].to(k_pages.dtype)
+    v_pages[page_of, off] = v[:, 0].to(v_pages.dtype)
+    qh = _widen(q.reshape(B, Hk, g, dims.hd), k_pages)
+    o = ops.decode_attention_paged(qh, k_pages, v_pages, block_tables,
+                                   t).to(xn.dtype)
+    o = o.reshape(B, 1, dims.hq, dims.hd)
+    return output_proj(p, o, dims, pair=False), k_pages, v_pages
 
 
 def output_proj(p, o, dims: AttnDims, *, pair: bool):

@@ -10,8 +10,9 @@ Pair params are the two layers' params stacked on a leading axis. A pair
 whose halves share one mixer kind stores its decode caches stacked on a
 leading pair axis — ``k``/``v``: [2, B, L, Hkv, hd] under bare names, while
 single layers keep indexed names ``k0``/``v0`` — and decodes as ONE call
-into ``attention.decode_attn_standard(pair=True)``. Decode updates the
-caches in place.
+into ``attention.decode_attn_standard(pair=True)``, or
+``decode_attn_paged(pair=True)`` over the engine's page pool. Decode
+updates the caches in place.
 
 Only attention mixers with an MLP are ported so far: mamba, RG-LRU, MoE,
 cross-attention and pairs of mixed attention kinds raise
@@ -94,9 +95,18 @@ def _homogeneous_kind(group: Group) -> str:
 
 
 def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
-                         attn_impl="auto"):
+                         attn_impl="auto", ctx_kv=None, q0=0):
     """Full-sequence attention (prefill). Returns (partial_out, kv_list)
-    with one (k, v) in stored layout per layer in the group."""
+    with one (k, v) in stored layout per layer in the group.
+
+    ``ctx_kv`` (suffix prefill, prefix sharing): this group's cached
+    CONTEXT keys/values for absolute positions [0, q0), in stored layout
+    ({"k"/"v"}: [2,B,Tc,hkv,hd] stacked pair, {"k0"/"v0"}: [B,Tc,hkv,hd]
+    single layer; keys already roped). They are put before the suffix's
+    fresh kv, so every suffix row reduces over exactly ``q0 + S`` keys: the
+    reduction shape the full-prompt forward gives that row. ``q0`` is the
+    absolute position of the first query row: an int, or a [B] tensor of
+    per-row context lengths (bucketed radix-hit rows)."""
     kind = _homogeneous_kind(group)
     p = gp["attn"]
     B = xn.shape[1] if group.pair else xn.shape[0]
@@ -106,13 +116,52 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
                     pair=group.pair)
     k, v = A.project_kv(p, xn, cfg, dims, positions=positions, kind=kind,
                         pair=group.pair)
+    ks, vs = k, v
+    if ctx_kv is not None:
+        cks, cvs = _fold_ctx_kv(ctx_kv, dims, group=group)
+        ks = torch.cat([cks.to(k.dtype), k], dim=1)
+        vs = torch.cat([cvs.to(v.dtype), v], dim=1)
+        if torch.is_tensor(q0):
+            # Per-row ctx lengths: row i's real context is the first q0[i]
+            # positions of the Tc-wide ctx block, the rest garbage-page
+            # filler. Rearrange each row's keys to [real ctx | suffix |
+            # junk], so every real key sits at its absolute position and
+            # the junk lands at kpos >= q0[i] + S, past the row's last query,
+            # where the causal mask kills it. With the pinned kv tile the
+            # junk is then bit-transparent like bucket padding: a ctx row
+            # reduces as the cold full-prompt program does, and a row with
+            # q0[i] = 0 as the plain bucket program does (attention_core
+            # refuses a per-row q0 to an impl without a pinned tile).
+            Tc, Tt = cks.shape[1], ks.shape[1]
+            j = torch.arange(Tt, device=ks.device)[None, :]
+            c = q0.long()[:, None]
+            idx = torch.where(j < c, j, torch.where(j < c + S, Tc + (j - c), j - S))
+            idx = idx[:, :, None, None].expand(-1, -1, *ks.shape[2:])
+            ks = torch.gather(ks, 1, idx)
+            vs = torch.gather(vs, 1, idx)
+        # torch.cat and torch.gather materialise the keys and values before
+        # the core, so the value contraction runs over one tensor and its
+        # float accumulation is grouped as in the cold full-prompt forward.
     # Pair-major folds: q heads [2*hq] group onto kv heads [2*hkv].
     qh = q.reshape(B, S, nP * dims.hkv, dims.group, dims.hd)
-    o = A.attention_core(qh, k, v, kind=kind, window=cfg.window,
-                         chunk=cfg.chunk, impl=attn_impl)
+    o = A.attention_core(qh, ks, vs, kind=kind, window=cfg.window,
+                         chunk=cfg.chunk, q0=q0, impl=attn_impl)
     o = o.reshape(B, S, nP * dims.hq, dims.hd)
     out = A.output_proj(p, o, dims, pair=group.pair)
     return out, _split_kv(k, v, dims, pair=group.pair)
+
+
+def _fold_ctx_kv(ctx_kv, dims, *, group: Group):
+    """Cached context kv (stored layout) -> the folded [B,Tc,P*hkv,hd]
+    layout of fresh projections, so a suffix forward can put context before
+    suffix keys along the length axis. The pair fold is pair-major, as
+    ``project_kv``'s."""
+    if group.pair:
+        ck, cv = ctx_kv["k"], ctx_kv["v"]              # [2,B,Tc,hkv,hd]
+        B, Tc = ck.shape[1], ck.shape[2]
+        return (ck.movedim(0, 2).reshape(B, Tc, 2 * dims.hkv, dims.hd),
+                cv.movedim(0, 2).reshape(B, Tc, 2 * dims.hkv, dims.hd))
+    return ctx_kv["k0"], ctx_kv["v0"]                  # [B,Tc,hkv,hd]
 
 
 def _split_kv(k, v, dims, *, pair: bool):
@@ -182,9 +231,15 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
-                     positions, attn_impl="auto", emit_cache=False, max_len=0):
+                     positions, attn_impl="auto", emit_cache=False, max_len=0,
+                     ctx_kv=None, q0=0):
     """One group over the full sequence. x: [B,S,D]. Returns (x, aux,
-    cache_dict)."""
+    cache_dict).
+
+    ``ctx_kv``/``q0`` (suffix prefill): cached kv for positions [0, q0) in
+    stored layout; the sequence starts at absolute position ``q0``. The
+    emitted cache covers only the suffix (length ``max_len``, local 0 ==
+    absolute ``q0``); the caller places it after the context."""
     cache: Dict[str, Any] = {}
     mixer = _homogeneous_kind(group)
     if not mixer.startswith("attn"):
@@ -193,7 +248,8 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     # ---- phase 1: attention ---------------------------------------------
     xn = _norm_inputs(gp, "ln1", pc.phase_in(x), cfg, group)
     out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
-                                    positions=positions, attn_impl=attn_impl)
+                                    positions=positions, attn_impl=attn_impl,
+                                    ctx_kv=ctx_kv, q0=q0)
     if emit_cache:
         fks = [fill_cache(k, max_len, mixer=mixer, cfg=cfg) for k, _ in kvs]
         fvs = [fill_cache(v, max_len, mixer=mixer, cfg=cfg) for _, v in kvs]
@@ -216,23 +272,34 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
 # Single-token decode group application
 # ---------------------------------------------------------------------------
 
-def apply_group_decode(gp, x, cache, t: int, *, cfg, group: Group, dims,
-                       pc: ParallelContext):
-    """One group for one new token against its ring cache. x: [B,1,D];
-    ``cache`` entries are updated in place. Returns (x, cache).
+def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
+                       pc: ParallelContext, cache_layout="ring",
+                       block_tables=None):
+    """One group for one new token. x: [B,1,D]; ``cache`` entries are
+    updated in place. Returns (x, cache).
 
     A pair takes the fused path: one decode_attn_standard(pair=True) call
     over the stacked [2, ...] cache (one QKV projection, one cache write,
-    one attention launch, one phase_out per phase)."""
+    one attention launch, one phase_out per phase).
+
+    cache_layout="paged" (continuous batching): ``t`` is an int32 [B]
+    tensor of per-slot positions and the k/v entries are page pools
+    indirected through ``block_tables`` [B, n_pg]; the pair stays one
+    decode_attn_paged(pair=True) call."""
     mixer = _homogeneous_kind(group)
     if not mixer.startswith("attn"):
         raise _not_ported(f"mixer {mixer!r}")
 
     xn = _norm_inputs(gp, "ln1", x, cfg, group)
     names = ("k", "v") if group.pair else ("k0", "v0")
-    out, _, _ = A.decode_attn_standard(
-        gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg, dims,
-        kind=mixer, pair=group.pair, window=cfg.window, chunk=cfg.chunk)
+    if cache_layout == "paged":
+        out, _, _ = A.decode_attn_paged(
+            gp["attn"], xn, cache[names[0]], cache[names[1]], t, block_tables,
+            cfg, dims, kind=mixer, pair=group.pair)
+    else:
+        out, _, _ = A.decode_attn_standard(
+            gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg, dims,
+            kind=mixer, pair=group.pair, window=cfg.window, chunk=cfg.chunk)
     x = x + pc.psum_tp(out).to(x.dtype)
 
     if group.specs[0].ffn is not None:

@@ -99,18 +99,28 @@ def _group_params(sp, seg: Segment, c: int):
 # ---------------------------------------------------------------------------
 
 def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
-                     attn_impl="auto", emit_cache=False, max_len=0):
+                     attn_impl="auto", emit_cache=False, max_len=0, ctx=None,
+                     q0=0):
     """Run all segments over the full sequence. Returns (x, aux, caches):
     caches is a list (one tree per segment, entries stacked to
-    [count, ...]) when emit_cache, else None."""
+    [count, ...]) when emit_cache, else None.
+
+    ``ctx``/``q0`` (suffix prefill): cached context kv for absolute
+    positions [0, q0), one count-stacked tree per segment in the layout of
+    the emitted caches, so every group attends over its own layer's
+    context."""
     caches = [] if emit_cache else None
     aux = 0.0
-    for sp, seg in zip(seg_params, segments):
+    ctx = ctx if ctx is not None else [None] * len(segments)
+    for sp, seg, ctx_seg in zip(seg_params, segments, ctx):
         seg_caches = []
         for c in range(seg.count):
+            ctx_g = (None if ctx_seg is None
+                     else {name: e[c] for name, e in ctx_seg.items()})
             x, a, cache = B.apply_group_full(
                 _group_params(sp, seg, c), x, cfg=cfg, group=seg.group,
-                dims=dims, pc=pc, positions=positions, attn_impl=attn_impl, emit_cache=emit_cache, max_len=max_len)
+                dims=dims, pc=pc, positions=positions, attn_impl=attn_impl,
+                emit_cache=emit_cache, max_len=max_len, ctx_kv=ctx_g, q0=q0)
             aux = aux + a
             seg_caches.append(cache)
         if emit_cache:
@@ -119,16 +129,20 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
     return x, aux, caches
 
 
-def apply_stack_decode(seg_params, x, caches, t: int, segments, *, cfg, dims,
-                       pc):
+def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,
+                       pc, cache_layout="ring", block_tables=None):
     """One decode step through all segments. ``caches`` (one stacked tree
-    per segment) are updated in place and returned."""
+    per segment) are updated in place and returned.
+
+    cache_layout="paged": the entries are page pools indirected through
+    ``block_tables`` and ``t`` is the per-slot position tensor."""
     for sp, cache, seg in zip(seg_params, caches, segments):
         for c in range(seg.count):
             view = {name: entry[c] for name, entry in cache.items()}
             x, _ = B.apply_group_decode(
                 _group_params(sp, seg, c), x, view, t, cfg=cfg,
-                group=seg.group, dims=dims, pc=pc)
+                group=seg.group, dims=dims, pc=pc, cache_layout=cache_layout,
+                block_tables=block_tables)
     return x, caches
 
 

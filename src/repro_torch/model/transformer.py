@@ -3,9 +3,11 @@
 One ``ModelStructure`` describes everything static (config, LP plan, TP
 degree, segments); the functional entry points mirror the JAX package:
 
-  forward_full   — logits over a full sequence
+  forward_full   — logits over a full sequence (or a suffix after cached
+                   context kv)
   prefill        — forward_full + KV cache emission
-  decode_step    — one new token against the ring cache (updated in place)
+  decode_step    — one new token against the ring cache or the paged pool
+                   (updated in place)
 
 Weights live in a ``ModelParams`` module (``init_params`` or
 ``repro_torch.bridge.params_from_numpy``); the functions take it or its
@@ -106,18 +108,30 @@ def _head(params, x, cfg, pc: ParallelContext):
 # ---------------------------------------------------------------------------
 
 def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
-                 emit_cache=False, max_len=0, attn_impl="auto"):
-    """tokens: [B, S] -> (local_logits [B, S, V/tp], aux, caches)."""
+                 emit_cache=False, max_len=0, attn_impl="auto", ctx_kv=None,
+                 start=0):
+    """tokens: [B, S] -> (local_logits [B, S, V/tp], aux, caches).
+
+    ctx_kv/start (suffix prefill, prefix sharing): process ``tokens`` as
+    the SUFFIX of a stream whose first ``start`` positions have cached kv
+    in ``ctx_kv`` (one count-stacked tree per segment, the layout of the
+    emitted caches). Every suffix row attends over exactly ``start + S``
+    keys, the reduction shape the full-prompt forward gives the same row.
+    ``start`` may be an int32 [B] tensor of PER-ROW context lengths
+    (bucketed radix-hit prefill; needs the pinned-tile impl or the flash
+    kernel). The emitted cache covers only the suffix (length ``max_len``,
+    local 0 == absolute ``start``)."""
     params = as_tree(params)
     cfg = ms.cfg
     S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)[None, :]
+    rel = torch.arange(S, device=tokens.device)[None, :]
+    positions = start.long()[:, None] + rel if torch.is_tensor(start) else start + rel
     x = _embed(params, tokens, cfg, pc, positions=positions)
     x = pc.shard_seq(x)
     x, aux, caches = ST.apply_stack_full(
         params["segments"], x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
         positions=positions, attn_impl=attn_impl, emit_cache=emit_cache,
-        max_len=max_len or S)
+        max_len=max_len or S, ctx=ctx_kv, q0=start)
     x = pc.phase_in(x)
     logits = _head(params, x, cfg, pc)
     return logits, aux, caches
@@ -134,6 +148,14 @@ def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
                                max_len=max_len, dtype=dtype)
 
 
+def cache_batch_axis(entry_name: str) -> int:
+    """Axis of the BATCH dim in a count-stacked cache entry [count, ...]:
+    stacked pair entries ("k", "v") carry a leading pair axis of 2, so batch
+    sits at axis 2; per-layer entries ("k0", ...) keep it at axis 1. In a
+    paged pool the same axis holds the pages."""
+    return 1 if entry_name[-1].isdigit() else 2
+
+
 def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
             max_len: int, attn_impl="auto", cache_dtype=torch.bfloat16):
     """Returns (last-position local logits [B, V/tp], caches)."""
@@ -145,18 +167,30 @@ def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
     return logits[:, -1], caches
 
 
-def decode_step(params, tok, caches, t: int, *, ms: ModelStructure,
-                pc: ParallelContext):
-    """One decode step against the ring caches. tok: [B] ids; t: absolute
-    position of ``tok`` in the stream. ``caches`` are updated in place.
-    Returns (local logits [B, V/tp], caches)."""
+def decode_step(params, tok, caches, t, *, ms: ModelStructure,
+                pc: ParallelContext, cache_layout="ring", block_tables=None):
+    """One decode step. tok: [B] ids; t: absolute position of ``tok`` in
+    the stream. ``caches`` are updated in place. Returns (local logits
+    [B, V/tp], caches).
+
+    cache_layout="paged" (continuous batching, ``repro_torch.serve``):
+    ``t`` is an int32 [B] tensor of per-slot positions on the device,
+    ``caches`` is the page pool tree (serve.paged_cache) and
+    ``block_tables`` [B, n_pg] int32 maps each slot to its pages."""
     params = as_tree(params)
     cfg = ms.cfg
     dpc = pc.with_sp(False)  # decode never uses sequence parallelism
-    pos = torch.full((tok.shape[0], 1), t, dtype=torch.int64, device=tok.device)
+    if cache_layout == "paged":
+        if block_tables is None or not torch.is_tensor(t) or t.dim() != 1:
+            raise ValueError("paged decode takes per-slot positions t [B] and "
+                             "block tables")
+        pos = t[:, None]
+    else:
+        pos = torch.full((tok.shape[0], 1), t, dtype=torch.int64,
+                         device=tok.device)
     x = _embed(params, tok[:, None], cfg, dpc, positions=pos)
     x, caches = ST.apply_stack_decode(
         params["segments"], x, caches, t, ms.segments, cfg=cfg, dims=ms.dims,
-        pc=dpc)
+        pc=dpc, cache_layout=cache_layout, block_tables=block_tables)
     logits = _head(params, x, cfg, dpc)
     return logits[:, 0], caches

@@ -1,5 +1,7 @@
-"""The port's hand-written kernels against their plain versions, on an
-NVIDIA GPU (CUDA C++ and Triton have no CPU mode): skipped elsewhere.
+"""The port's hand-written kernels against their plain versions (and the
+paged kernel against the ring kernel, bit for bit), and the engine against
+``generate``, on an NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
+skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
 JAX:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
@@ -51,3 +53,99 @@ def test_kernels_match_plain_on_gpu(cuda, dtype):
         torch.testing.assert_close(ops.flash_attention(q, k, v, block_n=16, **kw),
                                    ops.flash_attention_plain(q, k, v, **kw),
                                    atol=tol, rtol=tol)
+
+
+def _paginate(cache, ps):
+    """Ring cache [P, B, L, H, hd] -> (pool [P, 1 + B*L/ps, ps, H, hd],
+    block tables [B, L/ps] int32): slot b's pages are contiguous, after the
+    garbage page 0."""
+    P, B, L, H, hd = cache.shape
+    n_pg = L // ps
+    pool = torch.cat([torch.zeros((P, 1, ps, H, hd), dtype=cache.dtype,
+                                  device=cache.device),
+                      cache.reshape(P, B * n_pg, ps, H, hd)], dim=1)
+    bt = 1 + torch.arange(B * n_pg, dtype=torch.int32,
+                          device=cache.device).reshape(B, n_pg)
+    return pool, bt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    B, L, H, G, hd, ps = 3, 48, 2, 4, 32, 16
+    k, v = rand(2, B, L, H, hd), rand(2, B, L, H, hd)
+    q = rand(2, B, H, G, hd)
+    kp, bt = _paginate(k, ps)
+    vp, _ = _paginate(v, ps)
+    t = torch.tensor([40, 0, 17], dtype=torch.int32, device=cuda)
+    bt[1] = 0                                   # an idle slot: garbage page
+    got = ops.decode_attention_pair_paged(q, kp, vp, bt, t)
+    torch.testing.assert_close(
+        got, ops.decode_attention_pair_paged_plain(q, kp, vp, bt, t),
+        atol=tol, rtol=tol)
+    got1 = ops.decode_attention_paged(q[0], kp[0], vp[0], bt, t)
+    torch.testing.assert_close(got1, got[0], atol=0, rtol=0)
+    # same arithmetic as the ring kernel: bit for bit on a paginated cache
+    for b in (0, 2):
+        ring = ops.decode_attention_pair(q[:, b:b + 1], k[:, b:b + 1],
+                                         v[:, b:b + 1], int(t[b]))
+        assert torch.equal(got[:, b:b + 1], ring), b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_per_row_q0_on_gpu(cuda, dtype):
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    q, k, v = rand(3, 20, 2, 4, 32), rand(3, 52, 2, 32), rand(3, 52, 2, 32)
+    q0 = torch.tensor([0, 32, 17], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, q0=q0, block_n=16),
+                               ops.flash_attention_plain(q, k, v, q0=q0),
+                               atol=tol, rtol=tol)
+    same = torch.full((3,), 32, dtype=torch.int32, device=cuda)
+    assert torch.equal(ops.flash_attention(q, k, v, q0=same, block_n=16),
+                       ops.flash_attention(q, k, v, q0=32, block_n=16))
+
+
+def test_engine_matches_generate_on_gpu(cuda):
+    """The engine on the card gives one-shot generate()'s greedy tokens
+    (reduced tinyllama, fp32 weights and pool)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+    params = T.init_params(ms, torch.Generator(device=cuda).manual_seed(0),
+                           torch.float32, device=cuda)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 9)] + [rng.integers(0, cfg.vocab_size, n)
+                                   for n in (5, 20, 12)]
+    eng = PagedEngine(params, ms, PagedServeConfig(
+        n_slots=4, page_size=8, n_pages=33, max_len=48,
+        cache_dtype=torch.float32, prefix_cache=True))
+    rids = [eng.add_request(prompts[0], 6)]
+    eng.step()
+    rids += [eng.add_request(p, 6) for p in prompts[1:]]
+    res = eng.drain()
+    assert eng.counters["prefix_hits"] >= 1 and eng.pool.live == eng.prefix.resident_pages
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    for rid, p in zip(rids, prompts):
+        ref = generate(params, torch.from_numpy(p).to(cuda)[None], 6, ms=ms,
+                       pc=ParallelContext(), sv=sv)[0].cpu().numpy()
+        assert (res[rid] == ref).all(), rid

@@ -35,6 +35,16 @@ from repro_torch.model import transformer as TT  # noqa: E402
 from repro_torch.parallel.context import ParallelContext as TPC  # noqa: E402
 from repro_torch.serve import ServeConfig, generate, make_prefill  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread is as fast, and keeps
+    the parallel suite's workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SRC = Path(__file__).resolve().parent.parent / "src"
 MAX_LEN, N_NEW = 32, 6
 
@@ -148,6 +158,11 @@ params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
 out = generate(params, torch.zeros((2, 5), dtype=torch.int64), 4, ms=ms,
                pc=ParallelContext(), sv=ServeConfig(max_len=16))
 assert out.shape == (2, 4), out.shape
+from repro_torch.serve import PagedEngine, PagedServeConfig
+eng = PagedEngine(params, ms, PagedServeConfig(n_slots=2, page_size=8,
+                                               n_pages=9, max_len=16))
+rid = eng.add_request([1, 2, 3], 4)
+assert len(eng.drain()[rid]) == 4
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), \
     [m for m in sys.modules if m.startswith("repro.")]
 print("OK")

@@ -34,6 +34,16 @@ from repro_torch.model import transformer as TT  # noqa: E402
 from repro_torch.model.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.parallel.context import ParallelContext as TPC  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread is as fast, and keeps
+    the parallel suite's workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 2e-5
 
 
