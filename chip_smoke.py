@@ -7,17 +7,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: compile the CUDA kernels from src/repro_torch/csrc into build/.
   3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 and fp32, at the shapes of the two main paths below (plus every
+     bf16 and fp32, at the shapes of the three paths below (plus every
      flash mask kind at a small size), with times of the kernel, the plain
      version and, where one PyTorch call computes the same function, that
      call. The paged decode kernel also equals the ring kernel bit for bit
-     on a paginated copy of the same cache, and the flash kernel with a
-     per-row q0 tensor of equal entries equals its scalar launch.
-  4. reduced parity: tinyllama cut to 4 layers in fp32, LP pairs (0,1),
-     (2,3): greedy tokens on the card equal the port's CPU path, prefill
-     logits agree within 2e-4; the continuous-batching ``PagedEngine`` on
-     the card gives the same tokens as ``generate`` on the card and as the
-     engine on the CPU.
+     on a paginated copy of the same cache, the flash kernel with a
+     per-row q0 tensor of equal entries equals its scalar launch, and the
+     selective scan equals its plain version bit for bit in fp32 (and a
+     sequence split across two calls equals one call).
+  4. reduced parity: tinyllama and falcon-mamba cut to 4 layers in fp32,
+     LP pairs (0,1), (2,3): greedy tokens on the card equal the port's CPU
+     path, prefill logits agree within 2e-4; the continuous-batching
+     ``PagedEngine`` on the card gives the same tokens as ``generate`` on
+     the card and as the engine on the CPU (for falcon-mamba also with a
+     preempted request, resumed by a full re-prefill).
   5. generate path: LP tinyllama-1.1b at full width (22 layers,
      plan_for_depth 16 -> 6 pairs + 10 single layers), bf16 random weights
      from a seed, 4 prompts of 128 tokens, 64 new tokens through
@@ -30,12 +33,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      divergence must sit at a near-tie), then a timed bf16-pool run whose
      kernel launches reconcile exactly with the engine's own counters, and
      a profiled window of 8 engine steps.
+  7. Mamba path: LP falcon-mamba-7b at full width (64 layers, d 4096,
+     d_inner 8192, N 16, vocab 65024; plan_for_depth 48 -> 16 pairs + 32
+     single layers), random weights made on the card from a seed, after
+     the tinyllama weights are freed. First in fp32 (29 GB): the engine
+     with phase 6's geometry and traffic, fp32 pool, held stream by stream
+     against ``generate`` (the prefix cache and the bucket ladder switch
+     off for the recurrent mixer: every admission prefills at its exact
+     length). bf16 GEMMs of other shapes (decode at M = 8 against M = 1)
+     move this random model's logits by a few percent of their scale, so
+     the streams are held in fp32, where they move by far less. Then the
+     same weights cast to bf16: ``generate`` with phase 5's prompts and
+     lengths (the selective scan once per group at prefill) and a timed
+     engine run whose launches reconcile with the engine's counters, each
+     with a profiled window.
 
-The second-to-last line is the kernels JSON (with both paths' metrics), the
-last line the device JSON.
+The second-to-last line is the kernels JSON (with every path's metrics),
+the last line the device JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -62,6 +80,9 @@ N_SLOTS, PS, N_PAGES = 8, 16, 129
 N_PG = MAX_LEN // PS
 ENGINE_NEW = 32
 MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
+# Mamba path: falcon-mamba-7b, d_inner 8192, state 16, 48 LP groups.
+MAMBA = "falcon-mamba-7b"
+MAMBA_EFF_DEPTH, DI, NS = 48, 8192, 16
 
 
 def log(msg):
@@ -317,6 +338,45 @@ def check_kernels():
                lambda: ops.decode_attention_paged_plain(qp[0], kp[0], vp[0], bt, tv),
                2 * nbytes(qp[0]) + kv_bytes + nbytes(bt, tv),
                4 * keys * HKV * G * HD)
+
+        log(f"[kernels] ssm_scan {dtype}")
+        # generate's pair and single-layer prefill, one engine admission of
+        # 97 tokens, and RG-LRU's width (N = 1).
+        for what, (R, Ss, C, N) in (("pair", (2 * B, S, DI, NS)),
+                                     ("single", (B, S, DI, NS)),
+                                     ("engine", (1, 97, DI, NS)),
+                                     ("rglru", (4, 128, 4096, 1))):
+            a = (0.5 + 0.5 * torch.rand((R, Ss, C, N), generator=gen, device=dev)).to(dtype)
+            bb = rand(R, Ss, C, N, dtype=dtype)
+            h0 = rand(R, C, N, dtype=torch.float32)
+            y, h = ops.ssm_scan(a, bb, h0)
+            ry, rh = ops.ssm_scan_plain(a, bb, h0)
+            err = max(compare(f"ssm_scan {what} {list(a.shape)} y", y, ry, tol),
+                      compare(f"ssm_scan {what} h_S", h, rh, tol))
+            if dtype == torch.float32:
+                if not (torch.equal(y, ry) and torch.equal(h, rh)):
+                    raise AssertionError(f"ssm_scan {what}: fp32 kernel differs from "
+                                         "its plain version")
+                y1, h1 = ops.ssm_scan(a[:, :64].contiguous(), bb[:, :64].contiguous(), h0)
+                y2, h2 = ops.ssm_scan(a[:, 64:].contiguous(), bb[:, 64:].contiguous(), h1)
+                if not (torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)):
+                    raise AssertionError(f"ssm_scan {what}: two calls split at s = 64 "
+                                         "differ from one call")
+                log(f"  ssm_scan {what}: == plain bit for bit; split at s = 64 == one call")
+            del y, h, ry, rh
+            # bytes: a, b and y once each, h0 and h_S; 2 flops per element-step
+            nb, fl = 3 * nbytes(a) + 2 * nbytes(h0), 2 * a.numel()
+            if what == "pair":
+                record("ssm_scan", dtype, err, lambda: ops.ssm_scan(a, bb, h0),
+                       lambda: ops.ssm_scan_plain(a, bb, h0), nb, fl,
+                       flops_peak=PEAK_OPS["float32"])
+            else:
+                b_ms, b_by = bound(nb, fl, "float32")
+                log(f"  ssm_scan {what}: ms={time_ms(lambda: ops.ssm_scan(a, bb, h0)):.5f} "
+                    f"bound_ms={b_ms:.6f} ({b_by})")
+                record("ssm_scan", dtype, err, None, None, 0, 0)
+            del a, bb, h0
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -376,6 +436,75 @@ def reduced_parity():
             f"to the engine on the CPU {n_cpu}/{len(work)}")
         if n_gen != len(work) or n_cpu != len(work) or not c["prefix_hits"]:
             raise AssertionError("reduced engine parity failed")
+
+
+def reduced_mamba_parity():
+    """falcon-mamba cut to 4 layers, LP pairs (0,1), (2,3), fp32 weights and
+    caches: the card against the CPU for ``generate`` and the engine, and
+    the engine against ``generate`` on the card, with staggered traffic and
+    with a preempted request (resumed by a full re-prefill and a replay)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate, make_prefill)
+
+    pc = ParallelContext()
+    cfg = reduced_config(get_config(MAMBA), n_layers=4)
+    ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 4))
+    p_cpu = T.init_params(ms, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
+    lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda())
+    err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    tok_cpu = generate(p_cpu, prompts, 16, ms=ms, pc=pc, sv=sv)
+    tok_gpu = generate(p_gpu, prompts.cuda(), 16, ms=ms, pc=pc, sv=sv).cpu()
+    same = bool((tok_cpu == tok_gpu).all())
+    log(f"[reduced] {cfg.name} pairs={ms.plan.pairs}: prefill logits "
+        f"max_abs_err={err:.3e} (tol {LOGIT_TOL:g}); greedy tokens equal: {same}")
+    if err > LOGIT_TOL or not same:
+        raise AssertionError(f"reduced mamba parity failed: logits err {err:.3e}, "
+                             f"tokens\n{tok_cpu}\n{tok_gpu}")
+    rng = np.random.default_rng(SEED + 4)
+    preempt = [(0, rng.integers(0, cfg.vocab_size, 8), 20),
+               (0, rng.integers(0, cfg.vocab_size, 8), 20),
+               (4, rng.integers(0, cfg.vocab_size, 8), 4)]
+    for name, work, psv in (
+            ("staggered", reduced_traffic(cfg.vocab_size),
+             PagedServeConfig(n_slots=4, page_size=8, n_pages=33, max_len=48,
+                              cache_dtype=torch.float32, prefix_cache=True)),
+            ("preempted", preempt,
+             PagedServeConfig(n_slots=4, page_size=8, n_pages=9, max_len=32,
+                              cache_dtype=torch.float32, prefix_cache=True,
+                              preempt_after=2))):
+        eng = PagedEngine(p_gpu, ms, psv)
+        got = serve(eng, work)
+        cpu = serve(PagedEngine(p_cpu, ms, psv), work)
+        gsv = ServeConfig(max_len=psv.max_len, cache_dtype=torch.float32)
+        ref = [generate(p_gpu, torch.from_numpy(p).cuda()[None], n, ms=ms, pc=pc,
+                        sv=gsv)[0].cpu().numpy() for _, p, n in work]
+        n_gen = sum(a.tolist() == b.tolist() for a, b in zip(got, ref))
+        n_cpu = sum(a.tolist() == b.tolist() for a, b in zip(got, cpu))
+        c = eng.counters
+        log(f"[reduced] {cfg.name} engine, {name}: {len(work)} requests, "
+            f"{c['full_prefills']} exact prefills, preemptions "
+            f"{eng.sched.preemptions_total}, replayed tokens {c['replay_tokens']}; "
+            f"streams equal to generate on the card {n_gen}/{len(work)}, to the "
+            f"engine on the CPU {n_cpu}/{len(work)}")
+        if n_gen != len(work) or n_cpu != len(work) or eng.prefix is not None \
+                or c["bucket_groups"]:
+            raise AssertionError(f"reduced mamba engine parity failed ({name})")
+        if name == "preempted" and not (eng.sched.preemptions_total
+                                        and c["replay_tokens"]):
+            raise AssertionError("the reduced mamba engine preempted nothing")
 
 
 def reduced_traffic(vocab):
@@ -449,7 +578,8 @@ def main_path():
             "dual_rmsnorm": 2 * n_pairs * (1 + steps),
             "decode_attention": steps * n_single,
             "decode_attention_pair": steps * n_pairs,
-            "decode_attention_paged": 0, "decode_attention_pair_paged": 0}
+            "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
+            "ssm_scan": 0}
     log(f"[main] launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -644,7 +774,7 @@ def engine_path():
             "decode_attention": 0, "decode_attention_pair": 0,
             "decode_attention_paged": (n_groups - n_pairs) * decode_launches,
             "decode_attention_pair_paged": n_pairs * decode_launches,
-            "flash_attention": n_groups * prefill_launches}
+            "flash_attention": n_groups * prefill_launches, "ssm_scan": 0}
     log(f"[engine] launches {launches} (want {want}; {prefill_launches} prefill "
         f"and {decode_launches} decode launches by the engine's counters)")
     if launches != want:
@@ -687,6 +817,197 @@ def engine_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the Mamba path at full width
+# ---------------------------------------------------------------------------
+
+def mamba_model():
+    """falcon-mamba-7b under plan_for_depth(48), fp32 random weights from
+    the seed, made on the card (``init_params`` draws in fp32 and casts, so
+    a later cast to bf16 gives the weights a bf16 init would)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = get_config(MAMBA)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, MAMBA_EFF_DEPTH))
+    n_groups = sum(s.count for s in ms.segments)
+    if (n_groups, len(ms.plan.pairs)) != (48, 16) or cfg.d_inner != DI:
+        raise AssertionError(f"{cfg.name}: {n_groups} groups, pairs {ms.plan.pairs}")
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.float32, device="cuda")
+    n_params = sum(v.numel() for v in params.parameters())
+    log(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, N {cfg.ssm_state}, vocab {cfg.vocab_size}; pairs "
+        f"{ms.plan.pairs[0]}..{ms.plan.pairs[-1]} ({len(ms.plan.pairs)}), "
+        f"{n_groups} groups; {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return cfg, ms, params
+
+
+def mamba_generate(cfg, ms, params):
+    """The Mamba model through ``generate``: B = 4 prompts of 128, 64 new.
+    Returns (launches, metrics)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate, make_prefill
+
+    pc = ParallelContext()
+    n_groups = sum(s.count for s in ms.segments)
+    n_pairs = len(ms.plan.pairs)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 5),
+                            device="cuda")
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+    generate(params, prompts, 2, ms=ms, pc=pc, sv=sv)   # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    timings = {}
+    out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings)
+    launches = dict(ops.LAUNCHES)
+    steps = N_NEW - 1
+    want = {name: 0 for name in launches}
+    want.update(ssm_scan=n_groups, dual_rmsnorm=n_pairs * (1 + steps))
+    log(f"[mamba] generate launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"mamba generate launch counts {launches} != {want}")
+
+    logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+    if tuple(out.shape) != (B, N_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    dtypes = {(name, str(e.dtype)) for seg in caches for name, e in seg.items()}
+    if dtypes != {("conv0", "torch.bfloat16"), ("h0", "torch.float32"),
+                  ("conv", "torch.bfloat16"), ("h", "torch.float32")}:
+        raise AssertionError(f"cache entries {sorted(dtypes)}")
+    tok0 = logits.argmax(-1)
+    if not bool((tok0 == out[:, 0]).all()):
+        raise AssertionError("first generated token is not the prefill argmax")
+    # One decode step on the prefill state vs a prefill of the longer
+    # prompt: the recurrence by steps against the scan kernel.
+    step_logits, _ = T.decode_step(params, tok0, caches, S, ms=ms, pc=pc)
+    longer = torch.cat([prompts, tok0[:, None]], dim=1)
+    full_logits, _, _ = T.forward_full(params, longer, ms=ms, pc=pc,
+                                       attn_impl=sv.attn_impl)
+    scale = full_logits[:, -1].abs().max().item()
+    diff = (step_logits - full_logits[:, -1]).abs().max().item()
+    log(f"[mamba] decode-step vs prefill logits: max_abs_diff={diff:.4f} "
+        f"(logit scale {scale:.3f}, tol 0.1 x scale)")
+    if diff > 0.1 * scale:
+        raise AssertionError("mamba decode step disagrees with prefill of the same stream")
+    del logits, caches, step_logits, full_logits
+    e2e = {"prefill_ms": timings["prefill_s"] * 1e3,
+           "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
+           "decode_tok_per_s": B * steps / timings["decode_s"]}
+    log("[mamba] generate " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
+    e2e["busy_share"] = profile_decode(
+        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv),
+        "mamba generate(9 new)")
+    return launches, e2e
+
+
+def mamba_engine_parity(cfg, ms, params):
+    """fp32 weights and pool: the engine's streams against ``generate``'s on
+    the card, with phase 6's traffic. Returns the count of equal streams."""
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import PagedEngine, ServeConfig, generate
+
+    pc = ParallelContext()
+    work = engine_traffic(cfg.vocab_size)
+    eng = PagedEngine(params, ms, engine_config(torch.float32))
+    if eng.prefix is not None or eng._buckets:
+        raise AssertionError("prefix cache or bucket ladder on for a recurrent mixer")
+    got = serve(eng, work)
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    n_equal, worst = 0, 0.0
+    for (_, prompt, n), stream in zip(work, got):
+        want = generate(params, torch.from_numpy(prompt).cuda()[None], n, ms=ms,
+                        pc=pc, sv=sv)[0].cpu().numpy()
+        if want.tolist() == stream.tolist():
+            n_equal += 1
+            continue
+        i, margin, scale = first_divergence(params, ms, pc, prompt, want, stream)
+        worst = max(worst, margin / scale)
+        log(f"[mamba] stream of a {len(prompt)}-token prompt leaves generate at "
+            f"token {i}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
+            f"({margin / scale:.5f}, limit {MARGIN_FRAC})")
+    log(f"[mamba] engine parity (fp32 weights and pool): {n_equal}/{len(work)} "
+        f"streams equal to generate on the card")
+    if worst > MARGIN_FRAC:
+        raise AssertionError("a mamba engine stream diverged from generate away "
+                             "from a near-tie")
+    return n_equal
+
+
+def mamba_engine(cfg, ms, params):
+    """The Mamba model (bf16) behind ``PagedEngine`` with phase 6's geometry
+    and traffic. Returns (launches of the timed run, metrics)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PagedEngine
+
+    n_groups = sum(s.count for s in ms.segments)
+    n_pairs = len(ms.plan.pairs)
+    work = engine_traffic(cfg.vocab_size)
+
+    # Timed run: bf16 pool (the state h stays fp32), every launch counted.
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    serve(eng, work[:2])                            # warm-up
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    steps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve(eng, work, steps)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    c = dict(eng.counters)
+    prefills = c["full_prefills"]
+    decode_launches = sum(1 for _, st in steps if st["decoded"])
+    want = {name: 0 for name in launches}
+    want.update(ssm_scan=n_groups * prefills,
+                dual_rmsnorm=n_pairs * (prefills + decode_launches))
+    log(f"[mamba] engine launches {launches} (want {want}; {prefills} exact "
+        f"prefills for {c['admitted']} admissions, {decode_launches} decode launches)")
+    if launches != want:
+        raise AssertionError(f"mamba engine launch counts {launches} != {want}")
+    if (prefills != c["admitted"] or c["bucket_groups"] or c["suffix_prefills"]
+            or c["prefix_hits"]):
+        raise AssertionError(f"mamba engine prefills not all exact and cold: {c}")
+    if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size
+           for o in out):
+        raise AssertionError("engine streams of the wrong length or out of range")
+    if eng.pool.live != 0:
+        raise AssertionError("pages still held after drain")
+    dec = [dt for dt, st in steps if st["decoded"] and not st["admitted"]]
+    dec_tokens = sum(st["decoded"] for _, st in steps
+                     if st["decoded"] and not st["admitted"])
+    metrics = {"wall_ms": wall_s * 1e3, "steps": len(steps),
+               "decode_ms_per_step": sum(dec) / len(dec) * 1e3,
+               "decode_tok_per_s": dec_tokens / sum(dec),
+               "decoded": c["decoded"],
+               "prefill_launches": {"bucket": 0, "exact": prefills},
+               "prefix_hits": c["prefix_hits"]}
+    log("[mamba] engine " + " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in metrics.items()))
+
+    # Profiled window: 8 decode steps with all slots running.
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
+    for _, prompt, n in work[:N_SLOTS]:
+        eng.add_request(prompt, n)
+    eng.step()
+    eng.step()
+    metrics["busy_share"] = profile_decode(lambda: [eng.step() for _ in range(8)],
+                                           "mamba engine 8 decode steps")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("triton", "src/repro_torch/kernels/dual_rmsnorm.py",
@@ -701,6 +1022,8 @@ KERNELS = {
                                     "src/repro/kernels/decode_attention.py:273"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:92"),
+    "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:50"),
 }
 
 
@@ -731,26 +1054,46 @@ def main() -> int:
 
     rows = check_kernels()
     reduced_parity()
-    gen_launches, e2e = main_path()          # each path reads its own counts
-    eng_launches, engine = engine_path()
+    reduced_mamba_parity()
+    by_path = {}                              # each path reads its own counts
+    by_path["generate"], e2e = main_path()
+    by_path["engine"], engine = engine_path()
+    gc.collect()
+    torch.cuda.empty_cache()                  # the tinyllama weights are gone
+    cfg, ms, params = mamba_model()
+    n_equal = mamba_engine_parity(cfg, ms, params)
+    params.to(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mamba_generate"], mamba_gen = mamba_generate(cfg, ms, params)
+    by_path["mamba_engine"], mamba_eng = mamba_engine(cfg, ms, params)
+    mamba_eng.update(parity_streams_equal=n_equal,
+                     parity_streams=len(engine_traffic(cfg.vocab_size)))
+    del params
     for name in KERNELS:
-        if not gen_launches[name] + eng_launches[name]:
-            raise AssertionError(f"{name} was launched on neither main path")
+        if not sum(p[name] for p in by_path.values()):
+            raise AssertionError(f"{name} was launched on no main path")
+    for path in ("mamba_generate", "mamba_engine"):
+        if not by_path[path]["ssm_scan"]:
+            raise AssertionError(f"ssm_scan was not launched on {path}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
-        r = rows[(name, torch.bfloat16)]
+        # Times in the type the paths launch: bf16, except the scan, whose
+        # operands ssm_mix builds in fp32 whatever the weights' type.
+        dtype = torch.float32 if name == "ssm_scan" else torch.bfloat16
+        r = rows[(name, dtype)]
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces,
-                        "launches": gen_launches[name] + eng_launches[name],
-                        "launches_by_path": {"generate": gen_launches[name],
-                                             "engine": eng_launches[name]},
-                        "max_abs_err": max(r["max_abs_err"],
-                                           rows[(name, torch.float32)]["max_abs_err"]),
+                        "replaces": replaces, "dtype": str(dtype).split(".")[1],
+                        "launches": sum(p[name] for p in by_path.values()),
+                        "launches_by_path": {k: p[name] for k, p in by_path.items()},
+                        "max_abs_err": max(rows[(name, d)]["max_abs_err"]
+                                           for d in (torch.bfloat16, torch.float32)),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels, **e2e, "engine": engine}))
+    print(json.dumps({"kernels": kernels, **e2e, "engine": engine,
+                      "mamba": {"generate": mamba_gen, "engine": mamba_eng}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """Architecture registry. Importing this package registers the
-architectures the port runs so far (tinyllama-1.1b)."""
+architectures the port runs so far: tinyllama-1.1b (attention + MLP) and
+falcon-mamba-7b (Mamba-1, attention-free)."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
@@ -10,4 +11,4 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # Registration side effects — one module per architecture.
-from repro_torch.configs import tinyllama_1b  # noqa: F401
+from repro_torch.configs import falcon_mamba_7b, tinyllama_1b  # noqa: F401

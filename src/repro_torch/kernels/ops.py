@@ -20,7 +20,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"dual_rmsnorm": 0, "decode_attention": 0,
             "decode_attention_pair": 0, "decode_attention_paged": 0,
-            "decode_attention_pair_paged": 0, "flash_attention": 0}
+            "decode_attention_pair_paged": 0, "flash_attention": 0,
+            "ssm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -180,3 +181,29 @@ def decode_attention_pair_paged(q, k_pages, v_pages, block_tables, t_valid,
     o = K.launch_paged(q, k_pages, v_pages, block_tables, t_valid)
     LAUNCHES["decode_attention_pair_paged"] += 1
     return o
+
+
+# ---------------------------------------------------------------------------
+# selective scan (Mamba-1 / RG-LRU recurrence)
+# ---------------------------------------------------------------------------
+
+def ssm_scan_plain(a, b, h0, *, block_s=256, block_c=128):
+    """a, b: [B, S, C, N]; h0: [B, C, N] -> (y [B, S, C, N] in a's type,
+    hT [B, C, N] fp32): ``ssm_scan_ref`` in fp32. ``block_s``/``block_c``
+    are the TPU kernel's tiling, which the plain version does not have."""
+    y, hT = ref.ssm_scan_ref(a.float(), b.float(), h0.float())
+    return y.to(a.dtype), hT
+
+
+def ssm_scan(a, b, h0, *, block_s=256, block_c=128):
+    """h_t = a_t * h_{t-1} + b_t in fp32 over S. a, b: [B, S, C, N] of one
+    type; h0: [B, C, N] (any float type) -> (y [B, S, C, N] in a's type,
+    hT [B, C, N] fp32). The JAX signature: ``block_s``/``block_c`` tile the
+    TPU kernel and change nothing here (the card's kernel has no tiles
+    over S or C)."""
+    if not _on_card(a, b, h0):
+        return ssm_scan_plain(a, b, h0)
+    from repro_torch.kernels import ssm_scan as K
+    y, hT = K.launch(a, b, h0.float())
+    LAUNCHES["ssm_scan"] += 1
+    return y, hT

@@ -107,3 +107,14 @@ def decode_attention_pair_paged_ref(q, k_pages, v_pages, block_tables,
     return torch.stack([decode_attention_paged_ref(
         q[i], k_pages[i], v_pages[i], block_tables, t_valid)
         for i in range(2)])
+
+
+def ssm_scan_ref(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t. a, b: [B, S, C, N]; h0: [B, C, N].
+    Returns (h_1..S [B,S,C,N], h_S), in the type the operands promote to."""
+    h = h0
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1), h

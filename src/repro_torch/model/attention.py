@@ -46,6 +46,8 @@ def attn_dims(cfg, tp: int) -> AttnDims:
     """Head counts at world size 1 (tensor parallelism is not ported)."""
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported")
+    if cfg.n_heads == 0:  # attention-free arch (falcon-mamba)
+        return AttnDims(0, 0, 1, cfg.head_dim or 1)
     assert cfg.n_heads % cfg.n_kv_heads == 0, (cfg.n_heads, cfg.n_kv_heads)
     return AttnDims(cfg.n_heads, cfg.n_kv_heads,
                     cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)

@@ -1,4 +1,4 @@
-"""Layer and LP-pair application (attention + MLP groups).
+"""Layer and LP-pair application (attention + MLP groups, Mamba groups).
 
 A ``Group`` is either one layer or an LP pair of two consecutive layers. The
 pair path is the paper's Fig. 2b rewrite:
@@ -14,8 +14,15 @@ into ``attention.decode_attn_standard(pair=True)``, or
 ``decode_attn_paged(pair=True)`` over the engine's page pool. Decode
 updates the caches in place.
 
-Only attention mixers with an MLP are ported so far: mamba, RG-LRU, MoE,
-cross-attention and pairs of mixed attention kinds raise
+A Mamba group (falcon-mamba: one mixer per layer, no FFN) runs its phase
+through ``ssm.ssm_mix`` with the pair's paths on one leading axis. Its
+decode state is the conv window ``conv`` [B, K-1, d_inner] in the cache
+type and the recurrent state ``h`` [B, d_inner, N] in fp32, stacked on the
+pair axis under bare names like k/v (``conv0``/``h0`` for a single layer),
+and updated in place.
+
+Ported so far: attention mixers with an MLP, and Mamba mixers. RG-LRU,
+MoE, cross-attention and pairs of mixed mixer kinds raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.model import attention as A
 from repro_torch.model import mlp as M
+from repro_torch.model import ssm as SSM
 from repro_torch.model.norms import apply_norm, dual_norm
 from repro_torch.model.params import PD, tree_map
 from repro_torch.parallel.context import ParallelContext
@@ -46,7 +54,7 @@ class Group:
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port runs "
-                               "attention + MLP layers)")
+                               "attention + MLP layers and Mamba layers)")
 
 
 # ---------------------------------------------------------------------------
@@ -62,11 +70,15 @@ def _norm_tmpl(cfg):
 
 
 def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
-    if not spec.mixer.startswith("attn"):
-        raise _not_ported(f"mixer {spec.mixer!r}")
     if spec.cross_attn:
         raise _not_ported("cross-attention")
-    t: Dict[str, Any] = {"ln1": _norm_tmpl(cfg), "attn": A.attn_template(cfg, tp)}
+    t: Dict[str, Any] = {"ln1": _norm_tmpl(cfg)}
+    if spec.mixer.startswith("attn"):
+        t["attn"] = A.attn_template(cfg, tp)
+    elif spec.mixer == "mamba":
+        t["mamba"] = SSM.ssm_template(cfg, tp)
+    else:
+        raise _not_ported(f"mixer {spec.mixer!r}")
     if spec.ffn == "mlp":
         t["ln2"] = _norm_tmpl(cfg)
         t["mlp"] = M.mlp_template(cfg, tp)
@@ -90,7 +102,7 @@ def _norm_inputs(gp, key, x, cfg, group: Group):
 def _homogeneous_kind(group: Group) -> str:
     kinds = {s.mixer for s in group.specs}
     if len(kinds) != 1:
-        raise _not_ported(f"a pair of mixed attention kinds {sorted(kinds)}")
+        raise _not_ported(f"a pair of mixed mixer kinds {sorted(kinds)}")
     return kinds.pop()
 
 
@@ -214,16 +226,23 @@ def fill_cache(k, L: int, *, mixer, cfg):
 def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
                      dtype=torch.bfloat16):
     """{entry name: (shape, dtype)} for one group's decode cache. A pair
-    stores one stacked entry per tensor under a bare name ("k", "v") with a
-    leading pair axis of 2; a single layer keeps indexed names ("k0",
-    "v0")."""
+    stores one stacked entry per tensor under a bare name ("k", "v"; "conv",
+    "h") with a leading pair axis of 2; a single layer keeps indexed names
+    ("k0", "v0"; "conv0", "h0"). The Mamba state ``h`` is fp32 whatever the
+    cache type."""
     mixer = _homogeneous_kind(group)
-    if not mixer.startswith("attn"):
+    if mixer.startswith("attn"):
+        shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
+        entries = {"k": (shp, dtype), "v": (shp, dtype)}
+    elif mixer == "mamba":
+        di = cfg.d_inner
+        entries = {"conv": ((batch, cfg.ssm_conv - 1, di), dtype),
+                   "h": ((batch, di, cfg.ssm_state), torch.float32)}
+    else:
         raise _not_ported(f"mixer {mixer!r}")
-    shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
     if group.pair:
-        return {"k": ((2, *shp), dtype), "v": ((2, *shp), dtype)}
-    return {"k0": (shp, dtype), "v0": (shp, dtype)}
+        return {name: ((2, *shp), dt) for name, (shp, dt) in entries.items()}
+    return {f"{name}0": spec for name, spec in entries.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -242,21 +261,35 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     absolute ``q0``); the caller places it after the context."""
     cache: Dict[str, Any] = {}
     mixer = _homogeneous_kind(group)
-    if not mixer.startswith("attn"):
-        raise _not_ported(f"mixer {mixer!r}")
 
-    # ---- phase 1: attention ---------------------------------------------
+    # ---- phase 1: the mixer ---------------------------------------------
     xn = _norm_inputs(gp, "ln1", pc.phase_in(x), cfg, group)
-    out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
-                                    positions=positions, attn_impl=attn_impl,
-                                    ctx_kv=ctx_kv, q0=q0)
-    if emit_cache:
-        fks = [fill_cache(k, max_len, mixer=mixer, cfg=cfg) for k, _ in kvs]
-        fvs = [fill_cache(v, max_len, mixer=mixer, cfg=cfg) for _, v in kvs]
-        if group.pair:  # stacked-contiguous pair layout for the fused decode
-            cache["k"], cache["v"] = torch.stack(fks), torch.stack(fvs)
-        else:
-            cache["k0"], cache["v0"] = fks[0], fvs[0]
+    if mixer.startswith("attn"):
+        out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
+                                        positions=positions,
+                                        attn_impl=attn_impl, ctx_kv=ctx_kv,
+                                        q0=q0)
+        if emit_cache:
+            fks = [fill_cache(k, max_len, mixer=mixer, cfg=cfg) for k, _ in kvs]
+            fvs = [fill_cache(v, max_len, mixer=mixer, cfg=cfg) for _, v in kvs]
+            if group.pair:  # stacked-contiguous layout for the fused decode
+                cache["k"], cache["v"] = torch.stack(fks), torch.stack(fvs)
+            else:
+                cache["k0"], cache["v0"] = fks[0], fvs[0]
+    elif mixer == "mamba":
+        if ctx_kv is not None:
+            raise NotImplementedError(
+                "suffix prefill needs attention mixers (recurrent state "
+                "cannot resume from cached kv)")
+        out, (conv, h) = SSM.ssm_mix(_mamba_params(gp, group),
+                                     xn if group.pair else xn[None], cfg, pc)
+        if emit_cache:
+            if group.pair:  # already stacked [2, ...]
+                cache["conv"], cache["h"] = conv, h
+            else:
+                cache["conv0"], cache["h0"] = conv[0], h[0]
+    else:
+        raise _not_ported(f"mixer {mixer!r}")
     x = x + pc.phase_out(out).to(x.dtype)
 
     # ---- phase 2: FFN ---------------------------------------------------
@@ -266,6 +299,12 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
         out, aux = ffn_phase(gp, xn2, cfg, pc, group=group)
         x = x + pc.phase_out(out).to(x.dtype)
     return x, aux, cache
+
+
+def _mamba_params(gp, group: Group):
+    """The group's Mamba weights with the leading path axis P (a single
+    layer gets P = 1 as views)."""
+    return gp["mamba"] if group.pair else tree_map(lambda w: w[None], gp["mamba"])
 
 
 # ---------------------------------------------------------------------------
@@ -285,21 +324,37 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     cache_layout="paged" (continuous batching): ``t`` is an int32 [B]
     tensor of per-slot positions and the k/v entries are page pools
     indirected through ``block_tables`` [B, n_pg]; the pair stays one
-    decode_attn_paged(pair=True) call."""
-    mixer = _homogeneous_kind(group)
-    if not mixer.startswith("attn"):
-        raise _not_ported(f"mixer {mixer!r}")
+    decode_attn_paged(pair=True) call.
 
+    A Mamba group advances its state (``conv``/``h``, batch-indexed in both
+    layouts: the pool keeps it per decode slot) by one token, for both
+    halves of a pair in one ``ssm_mix`` call, and writes it back in
+    place."""
+    mixer = _homogeneous_kind(group)
     xn = _norm_inputs(gp, "ln1", x, cfg, group)
-    names = ("k", "v") if group.pair else ("k0", "v0")
-    if cache_layout == "paged":
-        out, _, _ = A.decode_attn_paged(
-            gp["attn"], xn, cache[names[0]], cache[names[1]], t, block_tables,
-            cfg, dims, kind=mixer, pair=group.pair)
+    if mixer == "mamba":
+        names = ("conv", "h") if group.pair else ("conv0", "h0")
+        conv, h = cache[names[0]], cache[names[1]]
+        if not group.pair:
+            conv, h = conv[None], h[None]
+        out, (nconv, nh) = SSM.ssm_mix(_mamba_params(gp, group),
+                                       xn if group.pair else xn[None], cfg,
+                                       pc, state=(conv, h))
+        conv.copy_(nconv)
+        h.copy_(nh)
+    elif mixer.startswith("attn"):
+        names = ("k", "v") if group.pair else ("k0", "v0")
+        if cache_layout == "paged":
+            out, _, _ = A.decode_attn_paged(
+                gp["attn"], xn, cache[names[0]], cache[names[1]], t,
+                block_tables, cfg, dims, kind=mixer, pair=group.pair)
+        else:
+            out, _, _ = A.decode_attn_standard(
+                gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg,
+                dims, kind=mixer, pair=group.pair, window=cfg.window,
+                chunk=cfg.chunk)
     else:
-        out, _, _ = A.decode_attn_standard(
-            gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg, dims,
-            kind=mixer, pair=group.pair, window=cfg.window, chunk=cfg.chunk)
+        raise _not_ported(f"mixer {mixer!r}")
     x = x + pc.psum_tp(out).to(x.dtype)
 
     if group.specs[0].ffn is not None:

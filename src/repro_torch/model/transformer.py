@@ -150,10 +150,20 @@ def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
 
 def cache_batch_axis(entry_name: str) -> int:
     """Axis of the BATCH dim in a count-stacked cache entry [count, ...]:
-    stacked pair entries ("k", "v") carry a leading pair axis of 2, so batch
-    sits at axis 2; per-layer entries ("k0", ...) keep it at axis 1. In a
-    paged pool the same axis holds the pages."""
+    stacked pair entries ("k", "v", "conv", "h") carry a leading pair axis
+    of 2, so batch sits at axis 2; per-layer entries ("k0", ...) keep it at
+    axis 1. In a paged pool the same axis holds the pages of k/v entries
+    and the decode slots of state entries."""
     return 1 if entry_name[-1].isdigit() else 2
+
+
+def cast_cache(caches, dtype):
+    """The cache cast of ``prefill``: float entries to ``dtype``, except the
+    recurrent state ``h`` (Mamba), which stays fp32 as ``cache_meta``
+    declares it."""
+    return [{k: (c.to(dtype) if c.dtype in (torch.float32, torch.bfloat16)
+                 and k.rstrip("0123456789") != "h" else c)
+             for k, c in seg.items()} for seg in caches]
 
 
 def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
@@ -162,9 +172,7 @@ def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
     logits, _, caches = forward_full(
         params, tokens, ms=ms, pc=pc, emit_cache=True, max_len=max_len,
         attn_impl=attn_impl)
-    caches = [{k: (c.to(cache_dtype) if c.dtype in (torch.float32, torch.bfloat16)
-                   else c) for k, c in seg.items()} for seg in caches]
-    return logits[:, -1], caches
+    return logits[:, -1], cast_cache(caches, cache_dtype)
 
 
 def decode_step(params, tok, caches, t, *, ms: ModelStructure,

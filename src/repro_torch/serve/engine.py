@@ -44,9 +44,17 @@ requests carry deadlines and can be cancelled; ``max_queue`` bounds the
 queue with deadline-aware shedding; a ``serve.faults.FaultPlan`` injects
 seeded faults through the same hooks.
 
-This is the JAX engine's main cohort at world size 1: the degraded cohort
-and speculative decoding (ROADMAP item 9) and tensor parallelism (item 10)
-raise ``NotImplementedError``.
+Recurrent mixers (Mamba): the state lives per decode slot beside the
+pages (``serve.paged_cache``), so there is nothing to share or to pad. The
+prefix cache and the bucket ladder switch off for such a model (as in the
+JAX engine): every admission prefills its exact prompt in its own launch,
+and a preempted request resumes by a full re-prefill and a replay that
+leaves every other slot's state as it was.
+
+This is the JAX engine's main cohort at world size 1, for attention + MLP
+models and Mamba models: the degraded cohort and speculative decoding
+(ROADMAP item 9) and tensor parallelism (item 10) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -161,12 +169,6 @@ def generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
 # Continuous batching over the paged pair-KV pool
 # ---------------------------------------------------------------------------
 
-def _cast_cache(seq, dtype):
-    """The cast ``T.prefill`` applies to the ring cache."""
-    return [{k: (c.to(dtype) if c.dtype in (torch.float32, torch.bfloat16)
-                 else c) for k, c in seg.items()} for seg in seq]
-
-
 def _rows_finite(logits, seq) -> torch.Tensor:
     """[rows] bool: each row's logits and emitted cache are all finite."""
     ok = torch.isfinite(logits).all(-1)
@@ -200,22 +202,22 @@ def make_paged_decode_fn(ms: T.ModelStructure, pc: ParallelContext, psv):
 def make_paged_prefill_fn(ms: T.ModelStructure, pc: ParallelContext, psv,
                           prompt_len: int):
     """Exact-length prefill + page scatter: (params, caches, prompt
-    [1, prompt_len], page_ids, generator) -> (first_tok [1], ok [1],
+    [1, prompt_len], page_ids, slot, generator) -> (first_tok [1], ok [1],
     caches). ``ok`` covers the sampled position's logits AND the emitted
     cache (a poisoned prompt corrupts the kv it writes, not just the
     logits). The cache emission rounds up to whole pages; the forward is
-    the exact prompt, no padding."""
+    the exact prompt, no padding. State entries (Mamba) land at ``slot``."""
     emit_len = -(-prompt_len // psv.page_size) * psv.page_size
 
-    def f(params, caches, prompt, page_ids, generator=None):
+    def f(params, caches, prompt, page_ids, slot, generator=None):
         logits, _, seq = T.forward_full(
             params, prompt, ms=ms, pc=pc, emit_cache=True, max_len=emit_len,
             attn_impl=BK.PREFILL_ATTN_IMPL)
-        seq = _cast_cache(seq, psv.cache_dtype)
+        seq = T.cast_cache(seq, psv.cache_dtype)
         last = logits[:, prompt_len - 1]
         ok = _rows_finite(last, seq)
         tok0 = _choose(last, generator, psv, pc)
-        PG.scatter_prefill(caches, seq, page_ids)
+        PG.scatter_prefill(caches, seq, page_ids, slot)
         return tok0, ok, caches
     return f
 
@@ -251,7 +253,7 @@ def make_paged_bucket_prefill_fn(ms: T.ModelStructure, pc: ParallelContext,
         logits, _, seq = T.forward_full(
             params, prompts, ms=ms, pc=pc, emit_cache=True, max_len=bucket,
             ctx_kv=ctx, start=start, attn_impl=BK.PREFILL_ATTN_IMPL)
-        seq = _cast_cache(seq, psv.cache_dtype)
+        seq = T.cast_cache(seq, psv.cache_dtype)
         idx = (true_lens.long() - 1)[:, None, None].expand(-1, 1, logits.shape[-1])
         last = logits.gather(1, idx)[:, 0]
         ok = _rows_finite(last, seq)
@@ -279,7 +281,7 @@ def make_paged_suffix_prefill_fn(ms: T.ModelStructure, pc: ParallelContext,
         logits, _, seq = T.forward_full(
             params, suffix, ms=ms, pc=pc, emit_cache=True, max_len=emit_len,
             ctx_kv=ctx, start=start, attn_impl=BK.PREFILL_ATTN_IMPL)
-        seq = _cast_cache(seq, psv.cache_dtype)
+        seq = T.cast_cache(seq, psv.cache_dtype)
         last = logits[:, suffix_len - 1]
         ok = _rows_finite(last, seq)
         tok0 = _choose(last, generator, psv, pc)
@@ -517,8 +519,14 @@ class PagedEngine:
         self._programs = ProgramCache(self.telemetry)
         self.pool = PagePool(psv.n_pages)
         self.prefix = (PrefixCache(psv.page_size, telemetry=self.telemetry)
-                       if psv.prefix_cache else None)
-        if psv.prefill_buckets is None:
+                       if psv.prefix_cache and self._prefix_eligible(ms)
+                       else None)
+        # Bucketed prefill needs the pinned-tile attention's padding
+        # transparency, which only attention mixers have: the prefix
+        # cache's gate. None = auto ladder, () = off.
+        if psv.prefill_buckets == () or not self._prefix_eligible(ms):
+            self._buckets: Tuple[int, ...] = ()
+        elif psv.prefill_buckets is None:
             self._buckets = BK.default_buckets(psv.max_len, psv.page_size)
         else:
             self._buckets = psv.prefill_buckets
@@ -553,6 +561,15 @@ class PagedEngine:
         self._poison_slots: set = set()   # slots NaN-poisoned THIS step
         self._poison_next = 0             # deferred poison_prompt events
         self._storm_next = 0              # deferred deadline_storm victims
+
+    @staticmethod
+    def _prefix_eligible(ms: T.ModelStructure) -> bool:
+        """Prefix sharing resumes from cached kv alone, so every mixer must
+        be attention (recurrent conv/h state has no page representation)
+        and the FFN a plain MLP or none."""
+        return all(spec.mixer.startswith("attn") and not spec.cross_attn
+                   and spec.ffn in ("mlp", None)
+                   for seg in ms.segments for spec in seg.group.specs)
 
     @property
     def counters(self) -> Dict[str, int]:
@@ -710,7 +727,7 @@ class PagedEngine:
                 ids = np.full((self.psv.pages_per_slot,), PG.GARBAGE_PAGE,
                               np.int32)
                 ids[:len(private)] = private
-                self._scrub_fn()(self.caches, self._to_device(ids)[0])
+                self._scrub_fn()(self.caches, self._to_device(ids)[0], slot)
         donated = list(r.donated_pages)
         self.sched.fail(r, self.step_count, error)
         if slot >= 0:
@@ -810,7 +827,7 @@ class PagedEngine:
             prompt, ids = self._to_device(r.prompt[None],
                                           np.asarray(r.pages[:n_pg_prompt]))
             tok0, ok, _ = self._prefill_fn(Lp)(
-                self.params, self.caches, prompt, ids, self.generator)
+                self.params, self.caches, prompt, ids, r.slot, self.generator)
             self.counters["prefill_tokens"] += Lp
             self.counters["full_prefills"] += 1
         else:
@@ -833,14 +850,34 @@ class PagedEngine:
         rows ignored). With greedy sampling and an fp32 pool the replayed
         prediction must reproduce the parked token, which the engine
         asserts. Returns False if the finite guard trips mid-replay.
-        (Attention only: there is no recurrent state to protect.)"""
-        size, loc = self.n_main, r.slot
+
+        Recurrent state (Mamba conv/h) needs protection: the masked slots'
+        attention writes land on the garbage page, but the decode advances
+        EVERY slot's state. The state entries are snapshot before the
+        replay and every row but the replaying slot's is restored after it
+        (their timeline has no step here)."""
         Lp = r.prompt_len
         end = Lp + len(r.out) - 1      # exclusive; kv for end-1 is the
         if start >= end:               # resumed decode step's own write
             return True
         self.telemetry.span_event(r.rid, REPLAY, self.step_count,
                                   tokens=end - start)
+        saved = [{name: e.clone() for name, e in seg.items()
+                  if not PG.is_paged_entry(name)} for seg in self.caches]
+        survived = self._replay_steps(r, start, end)
+        for seg, snap in zip(self.caches, saved):
+            for name, old in snap.items():
+                ba = T.cache_batch_axis(name)
+                keep = torch.tensor([r.slot], device=old.device)
+                old.index_copy_(ba, keep, seg[name].index_select(ba, keep))
+                seg[name].copy_(old)
+        return survived
+
+    def _replay_steps(self, r: Request, start: int, end: int) -> bool:
+        """Teacher-force positions [start, end) of ``r`` through the decode
+        program; False when the finite guard trips."""
+        size, loc = self.n_main, r.slot
+        Lp = r.prompt_len
         for p in range(start, end):
             tok_v = np.zeros((size,), np.int32)
             pos_v = np.zeros((size,), np.int32)

@@ -20,8 +20,11 @@ Page 0 is RESERVED as the garbage page: idle slots and the unused tail of
 every block-table row point at it, so the fixed-shape decode batch writes
 and reads it harmlessly. The free list never hands out page 0.
 
-The port runs attention mixers only, so every pool entry is a paged k/v
-entry: there is no slot-indexed recurrent state to place or scrub.
+Mamba state entries (``conv``/``h``) are O(1) per request and are not
+paged: they stay slot-indexed, ``[count, (2,) n_slots, ...]``, with the
+decode slot as their batch axis. ``scatter_prefill`` writes a request's
+state at its slot and ``scrub_pages`` clears it. The state ``h`` stays
+fp32 whatever the pool's type.
 
 Every write here is IN PLACE (``index_copy_`` / ``index_fill_`` on the pool
 tensors); the functions return the same pool list for convenience. The
@@ -43,7 +46,8 @@ Pool = List[Dict[str, torch.Tensor]]
 
 
 def is_paged_entry(name: str) -> bool:
-    """Self-attention k/v entries are paged (per-token length dim)."""
+    """Self-attention k/v entries are paged (per-token length dim); state
+    entries (conv/h) are slot-indexed."""
     return name.rstrip("0123456789") in ("k", "v")
 
 
@@ -55,13 +59,13 @@ def pages_needed(prompt_len: int, max_new: int, page_size: int) -> int:
 def validate_paged_support(ms: T.ModelStructure, max_len: int) -> None:
     """The paged layout needs one cache slot per absolute position: ring
     kinds whose cache is a reused window/chunk ring (``attn_local``,
-    ``attn_chunked``) are rejected. (Encoder, prefix-LM and non-attention
-    mixers are not ported at all; ``build_structure`` refuses them.)"""
+    ``attn_chunked``) are rejected. (Encoder and prefix-LM inputs are not
+    ported at all; ``build_structure`` refuses them.)"""
     cfg = ms.cfg
     for seg in ms.segments:
         for spec in seg.group.specs:
             m = spec.mixer
-            if B.ring_len(cfg, m, max_len) != max_len:
+            if m.startswith("attn") and B.ring_len(cfg, m, max_len) != max_len:
                 raise ValueError(
                     f"{cfg.name}: {m} reuses a ring of "
                     f"{B.ring_len(cfg, m, max_len)} < {max_len} slots; paged "
@@ -71,17 +75,19 @@ def validate_paged_support(ms: T.ModelStructure, max_len: int) -> None:
 def paged_cache_meta(ms: T.ModelStructure, *, n_slots: int, n_pages: int,
                      page_size: int, dtype=torch.bfloat16):
     """Per segment, {entry name: (shape, dtype)} of the pool: the ring cache
-    meta with the ``[B, L]`` prefix of every entry replaced by
-    ``[n_pages, page_size]``."""
+    meta with the ``[B, L]`` prefix of every k/v entry replaced by
+    ``[n_pages, page_size]``; state entries keep ``n_slots`` as their batch
+    and their own type (``h`` is fp32)."""
     meta = T.cache_meta(ms, batch=n_slots, max_len=n_pages * page_size,
                         dtype=dtype)
     out = []
     for seg in meta:
         nseg = {}
-        for name, (shape, _) in seg.items():
-            ba = T.cache_batch_axis(name)   # [count, (2,) B, L, H, hd]
-            nseg[name] = ((*shape[:ba], n_pages, page_size, *shape[ba + 2:]),
-                          dtype)
+        for name, (shape, dt) in seg.items():
+            if is_paged_entry(name):
+                ba = T.cache_batch_axis(name)   # [count, (2,) B, L, H, hd]
+                shape = (*shape[:ba], n_pages, page_size, *shape[ba + 2:])
+            nseg[name] = (shape, dt)
         out.append(nseg)
     return out
 
@@ -146,31 +152,48 @@ def gather_ctx_rows(pool: Pool, page_ids) -> Pool:
     return out
 
 
-def scrub_pages(pool: Pool, page_ids) -> Pool:
-    """Zero a departing request's pages, in place (fault containment: a
-    FAILED request may have written non-finite values, and the next holder
-    of a recycled page must not find them). ``page_ids`` may be padded
-    with ``GARBAGE_PAGE``: zeroing the garbage page is harmless."""
+def _slot_ids(slot, pv: torch.Tensor, name: str) -> torch.Tensor:
+    if slot is None:
+        raise ValueError(f"state entry {name!r} needs the request's slot")
+    return _ids([int(slot)], pv)
+
+
+def scrub_pages(pool: Pool, page_ids, slot=None) -> Pool:
+    """Zero a departing request's pages and its slot's state rows, in place
+    (fault containment: a FAILED request may have written non-finite
+    values, and the next holder of a recycled page or slot must not find
+    them). ``page_ids`` may be padded with ``GARBAGE_PAGE``: zeroing the
+    garbage page is harmless. ``slot`` (the request's decode slot) is
+    needed when the pool has state entries."""
     for seg in pool:
         for name, pv in seg.items():
-            pv.index_fill_(T.cache_batch_axis(name), _ids(page_ids, pv), 0)
+            ids = (_ids(page_ids, pv) if is_paged_entry(name)
+                   else _slot_ids(slot, pv, name))
+            pv.index_fill_(T.cache_batch_axis(name), ids, 0)
     return pool
 
 
-def scatter_prefill(pool: Pool, seq: Pool, page_ids) -> Pool:
-    """Place one request's prefill caches into its pages, in place.
+def scatter_prefill(pool: Pool, seq: Pool, page_ids, slot=None) -> Pool:
+    """Place one request's prefill caches into its pages and its decode
+    slot, in place.
 
     seq: a batch-1 cache tree from ``forward_full(emit_cache=True,
     max_len=n_scatter_pages * page_size)`` (the cache length is a whole
     number of pages). page_ids: [n_scatter_pages], the FIRST
     ceil(prompt_len / page_size) pages the request owns. Positions of the
     last page past the true prompt length receive junk; they stay masked
-    (pos > horizon) until the decode loop overwrites each of them."""
+    (pos > horizon) until the decode loop overwrites each of them.
+    ``slot``: the request's decode slot, which receives the state entries
+    (needed when the pool has any)."""
     for pool_seg, seq_seg in zip(pool, seq):
         for name, pv in pool_seg.items():
             ba = T.cache_batch_axis(name)
+            s = seq_seg[name]
+            if not is_paged_entry(name):
+                pv.index_copy_(ba, _slot_ids(slot, pv, name), s.to(pv.dtype))
+                continue
             ids = _ids(page_ids, pv)
-            s = seq_seg[name].squeeze(ba)            # length at ba
+            s = s.squeeze(ba)                        # length at ba
             s = s.reshape(*s.shape[:ba], ids.shape[0], pv.shape[ba + 1],
                           *s.shape[ba + 1:])
             pv.index_copy_(ba, ids, s.to(pv.dtype))

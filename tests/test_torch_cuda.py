@@ -1,6 +1,7 @@
 """The port's hand-written kernels against their plain versions (and the
-paged kernel against the ring kernel, bit for bit), and the engine against
-``generate``, on an NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
+paged kernel against the ring kernel, the selective scan against its plain
+version in fp32, bit for bit), and the engine against ``generate``, on an
+NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
 skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
@@ -53,6 +54,31 @@ def test_kernels_match_plain_on_gpu(cuda, dtype):
         torch.testing.assert_close(ops.flash_attention(q, k, v, block_n=16, **kw),
                                    ops.flash_attention_plain(q, k, v, **kw),
                                    atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_matches_plain_on_gpu(cuda, dtype):
+    """Mamba (N = 16) and RG-LRU (N = 1) widths, S and C off any tile
+    size. In fp32 the kernel rounds as the plain version does: bit for bit.
+    A sequence split across two calls equals one call."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for R, S, C, N in ((2, 100, 48, 8), (1, 33, 16, 1), (3, 70, 130, 16)):
+        a = (0.5 + 0.5 * torch.rand((R, S, C, N), generator=gen, device=cuda)).to(td)
+        b = torch.randn((R, S, C, N), generator=gen, device=cuda).to(td)
+        h0 = torch.randn((R, C, N), generator=gen, device=cuda)
+        y, h = ops.ssm_scan(a, b, h0)
+        ry, rh = ops.ssm_scan_plain(a, b, h0)
+        assert y.dtype == td and h.dtype == torch.float32
+        torch.testing.assert_close(y, ry, atol=tol, rtol=tol)
+        torch.testing.assert_close(h, rh, atol=tol, rtol=tol)
+        if td == torch.float32:
+            assert torch.equal(y, ry) and torch.equal(h, rh)
+        y1, h1 = ops.ssm_scan(a[:, :20].contiguous(), b[:, :20].contiguous(), h0)
+        y2, h2 = ops.ssm_scan(a[:, 20:].contiguous(), b[:, 20:].contiguous(), h1)
+        assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssm_scan(a[:, ::2], b[:, ::2], h0)
 
 
 def _paginate(cache, ps):

@@ -163,6 +163,12 @@ eng = PagedEngine(params, ms, PagedServeConfig(n_slots=2, page_size=8,
                                                n_pages=9, max_len=16))
 rid = eng.add_request([1, 2, 3], 4)
 assert len(eng.drain()[rid]) == 4
+cfg = reduced_config(get_config("falcon-mamba-7b"), n_layers=4)
+ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
+out = generate(params, torch.zeros((2, 5), dtype=torch.int64), 4, ms=ms,
+               pc=ParallelContext(), sv=ServeConfig(max_len=16))
+assert out.shape == (2, 4), out.shape
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), \
     [m for m in sys.modules if m.startswith("repro.")]
 print("OK")
