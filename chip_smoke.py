@@ -11,10 +11,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      flash mask kind at a small size), with times of the kernel, the plain
      version and, where one PyTorch call computes the same function, that
      call. The paged decode kernel also equals the ring kernel bit for bit
-     on a paginated copy of the same cache, the flash kernel with a
-     per-row q0 tensor of equal entries equals its scalar launch, and the
-     selective scan equals its plain version bit for bit in fp32 (and a
-     sequence split across two calls equals one call).
+     on a paginated copy of the same cache, and each of its rows equals,
+     bit for bit, the same row launched alone and inside a 40-row launch
+     (batch invariance); the flash kernel with a per-row q0 tensor of
+     equal entries equals its scalar launch, its rows below Lq equal a
+     launch cut to Lq (padding transparency, also with junk keys past Lq),
+     and it is timed at the engine's bucket shape beside SDPA with a
+     boolean mask; the selective scan equals its plain version bit for bit
+     in fp32 (and a sequence split across two calls equals one call).
   4. reduced parity: tinyllama and falcon-mamba cut to 4 layers in fp32,
      LP pairs (0,1), (2,3): greedy tokens on the card equal the port's CPU
      path, prefill logits agree within 2e-4; the continuous-batching
@@ -262,6 +266,8 @@ def check_kernels():
                    lambda: ops.flash_attention_plain(q, k, v),
                    2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs,
                    library=lib if timed else None)
+            if timed:
+                check_flash_padding(ops, q, k, v, rand)
         # every other mask kind, offsets and ragged edges, at a small size
         for kw, s_len, t_len, hd, g, bn in (
                 (dict(kind="window", window=7), 40, 40, 64, 2, 16),
@@ -296,6 +302,28 @@ def check_kernels():
                 raise AssertionError("flash with equal per-row q0 differs from "
                                      "the scalar launch")
             log(f"  flash q0 rows H={H}: equal entries == scalar q0, bit for bit")
+            if H == 2 * HKV:   # the pair layer's bucket launch, timed
+                qpos = q0[:, None] + torch.arange(Sb, device=dev)          # [8, Sb]
+                mask = (torch.arange(Tc + Sb, device=dev)[None, None, :]
+                        <= qpos[:, :, None])[:, None]                     # [8, 1, Sb, T]
+                ql = q.permute(0, 2, 3, 1, 4).reshape(N_SLOTS, H * G, Sb, HD)
+                kl, vl = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+                lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                             enable_gqa=True)
+                compare(f"flash q0 rows H={H} against SDPA with a boolean mask",
+                        ops.flash_attention(q, k, v, q0=q0, block_n=16),
+                        lib().reshape(N_SLOTS, H, G, Sb, HD).permute(0, 3, 1, 2, 4), tol)
+                pairs = int((qpos + 1).sum()) * H * G   # allowed (query, key) pairs
+                b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * HD * pairs,
+                                   str(dtype).split(".")[1])
+                rows[("flash_attention_bucket", dtype)] = entry = {
+                    "shape": f"8 rows x {Sb}-token bucket after {Tc} context keys, "
+                             f"per-row q0, {H} kv heads, g={G}, hd={HD}",
+                    "ms": time_ms(lambda: ops.flash_attention(q, k, v, q0=q0, block_n=16)),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
+                log(f"  flash engine bucket H={H} {dtype}: ms={entry['ms']:.5f} "
+                    f"bound_ms={b_ms:.6f} ({b_by}) library_ms={entry['library_ms']:.5f} "
+                    f"(SDPA, boolean mask)")
 
         log(f"[kernels] paged decode attention {dtype}")
         # The engine's decode: 8 slots of 16 pages, ragged horizons, slot 1
@@ -326,6 +354,7 @@ def check_kernels():
                 raise AssertionError(f"paged decode differs from the ring kernel "
                                      f"on a paginated cache (slot {b})")
         log("  paged == ring kernel on the paginated cache, bit for bit (7 slots)")
+        check_decode_batch_invariance(ops, qp, kp, vp, bt, tv, pair)
         keys = int((tv + 1).sum())               # keys 0..t[b] of each row
         kv_bytes = 2 * keys * HKV * HD * kp.element_size()
         record("decode_attention_pair_paged", dtype, err,
@@ -378,6 +407,47 @@ def check_kernels():
             del a, bb, h0
         torch.cuda.empty_cache()
     return rows
+
+
+def check_flash_padding(ops, q, k, v, rand):
+    """Right-padding is bit-transparent (causal, block_n = 16): the rows
+    below Lq of the S = 128 launch equal the launch cut to Lq, bit for bit,
+    also when the keys and values at and past Lq hold large finite junk."""
+    import torch
+    full = ops.flash_attention(q, k, v, block_n=16)
+    for lq in (37, 64, 100):
+        cut = ops.flash_attention(q[:, :lq], k[:, :lq], v[:, :lq], block_n=16)
+        kj, vj = k.clone(), v.clone()
+        kj[:, lq:] = 1e4 * rand(*kj[:, lq:].shape, dtype=k.dtype)
+        vj[:, lq:] = 1e4 * rand(*vj[:, lq:].shape, dtype=v.dtype)
+        junk = ops.flash_attention(q, kj, vj, block_n=16)[:, :lq]
+        if not (torch.equal(cut, full[:, :lq]) and torch.equal(cut, junk)):
+            raise AssertionError(f"flash {q.dtype}: rows below Lq={lq} depend on "
+                                 f"the keys past Lq")
+    log(f"  flash padding {q.dtype}: rows below Lq in (37, 64, 100) == launch "
+        f"cut to Lq, with and without junk past Lq, bit for bit")
+
+
+def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv, pair):
+    """Each row of the 8-slot paged pair launch ``pair`` equals, bit for
+    bit, the same row launched alone (B = 1) and inside a 40-row launch
+    (the 8 rows five times: the speculative verifier's width at k = 4)."""
+    import torch
+    n = bt.shape[0]
+    for b in range(n):
+        alone = ops.decode_attention_pair_paged(qp[:, b:b + 1], kp, vp,
+                                                bt[b:b + 1], tv[b:b + 1])
+        if not torch.equal(alone, pair[:, b:b + 1]):
+            raise AssertionError(f"paged decode row {b} alone differs from the "
+                                 f"{n}-row launch")
+    wide = ops.decode_attention_pair_paged(torch.cat([qp] * 5, 1), kp, vp,
+                                           torch.cat([bt] * 5), torch.cat([tv] * 5))
+    for i in range(5):
+        if not torch.equal(wide[:, i * n:(i + 1) * n], pair):
+            raise AssertionError(f"paged decode rows in a {5 * n}-row launch "
+                                 f"differ from the {n}-row launch")
+    log(f"  decode batch invariance {qp.dtype}: each of {n} rows == alone "
+        f"(B = 1) == inside a {5 * n}-row launch, bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1162,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if name == "flash_attention":
+            kernels[-1]["engine_bucket"] = rows[("flash_attention_bucket", dtype)]
     print(json.dumps({"kernels": kernels, **e2e, "engine": engine,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng}}))
     print(json.dumps({"ok": True, "device": {

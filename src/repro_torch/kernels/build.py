@@ -103,6 +103,21 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def strides(x: torch.Tensor, n: int) -> list:
+    """The first ``n`` element strides of ``x`` for a kernel's address
+    arithmetic. A dim of size 1 is never stepped, so its stride is given as
+    0 (torch may report any stride there)."""
+    return [s if d > 1 else 0 for d, s in zip(x.shape[:n], x.stride()[:n])]
+
+
+def aligned16(x: torch.Tensor, n: int) -> bool:
+    """True when ``x``'s pointer and its first ``n`` strides (as
+    ``strides`` gives them) are multiples of 16 bytes: what a kernel that
+    copies rows in 16-byte pieces needs."""
+    return x.data_ptr() % 16 == 0 and all(
+        s * x.element_size() % 16 == 0 for s in strides(x, n))
+
+
 def stream_for(device: torch.device) -> int:
     """Handle of the current CUDA stream, for tensors on the current device
     (a kernel launched on another device's stream would be refused)."""

@@ -1,10 +1,14 @@
 """Host side of the decode attention kernel (csrc/decode_attention.cu).
 
-One body serves the ring cache and the paged pool, single layer and pair:
-a single layer is the pair form with one half (as ``_kernel``/``_launch``
+Each kernel body serves the ring cache and the paged pool, single layer and
+pair: a single layer is the pair form with one half (as ``_kernel``/``_launch``
 and ``_paged_kernel``/``_launch_paged`` in the JAX package). The cache is
 passed in its stored layout with its strides; nothing is transposed,
-gathered or padded.
+gathered or padded. The kernel copies cache rows in 16-byte pieces, so the
+cache's pointer and strides must be multiples of 16 bytes; the wrapper
+raises on anything else. Each row is split across a cluster of 4 blocks;
+a refused cluster launch raises. bf16 with g <= 16 runs on the tensor
+cores; fp32, and bf16 with wider groups, on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ def _check(q, k, v, hd, G):
     if hd not in (16, 32, 64, 128) or G * hd > 2048:
         raise ValueError(f"decode attention is built for hd in 16/32/64/128 "
                          f"and g*hd <= 2048, got hd={hd}, g={G}")
+    if not (build.aligned16(k, 4) and build.aligned16(v, 4)):
+        raise ValueError("decode attention needs the cache's pointers and "
+                         "strides in multiples of 16 bytes")
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,8 +73,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if t < 0:
         raise ValueError(f"decode attention horizon t={t} < 0")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 16)(*q.stride()[:4], *k.stride()[:4],
-                                       *v.stride()[:4], *o.stride()[:4])
+    strides = (ctypes.c_longlong * 16)(*build.strides(q, 4), *build.strides(k, 4),
+                                       *build.strides(v, 4), *build.strides(o, 4))
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                DTYPES[q.dtype], P, B, H, G, L, hd, strides, int(t),
                hd ** -0.5, build.stream_for(q.device))
@@ -97,8 +104,10 @@ def launch_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             raise ValueError(f"paged decode needs {name} as a contiguous int32 "
                              f"tensor on {q.device}, got {x.dtype} on {x.device}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 16)(*q.stride()[:4], *k_pages.stride()[:4],
-                                       *v_pages.stride()[:4], *o.stride()[:4])
+    strides = (ctypes.c_longlong * 16)(*build.strides(q, 4),
+                                       *build.strides(k_pages, 4),
+                                       *build.strides(v_pages, 4),
+                                       *build.strides(o, 4))
     rc = _paged_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      o.data_ptr(), block_tables.data_ptr(), t.data_ptr(),
                      DTYPES[q.dtype], P, B, H, G, n_pg, ps, hd, strides,

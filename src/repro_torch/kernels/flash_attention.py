@@ -3,6 +3,11 @@
 The kernel takes the attention core's grouped layout directly — q and the
 output as [B, S, H, g, hd], k and v as [B, T, H, hd] — through strides, so
 the GQA fold (row = position * g + head) costs no transpose copy.
+
+bfloat16 runs on the tensor cores and copies rows in 16-byte pieces: it
+takes ``block_n`` in 16/32/64/128 and pointers and strides in multiples of
+16 bytes, and raises on anything else. float32 runs on the CUDA cores and
+takes any ``block_n`` and any strides with hd contiguous.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from repro_torch.kernels import build
 SOURCE = "flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KINDS = {"causal": 0, "window": 1, "chunk": 2, "bidir": 3}
+BF16_BLOCK_N = (16, 32, 64, 128)   # the tensor-core body's softmax tiles
 
 
 @functools.cache
@@ -54,6 +60,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
                          f"got {hd}")
     if kind not in KINDS or block_n <= 0:
         raise ValueError(f"flash attention kind={kind!r} block_n={block_n}")
+    if q.dtype == torch.bfloat16:
+        if block_n not in BF16_BLOCK_N:
+            raise ValueError(f"bf16 flash attention takes block_n in "
+                             f"{BF16_BLOCK_N}, got {block_n}")
+        if not (build.aligned16(q, 4) and build.aligned16(k, 3)
+                and build.aligned16(v, 3)):
+            raise ValueError("bf16 flash attention needs q, k and v pointers "
+                             "and strides in multiples of 16 bytes")
     q0_rows = None
     if torch.is_tensor(q0):
         if (q0.shape != (B,) or q0.dtype != torch.int32 or q0.device != q.device
@@ -63,8 +77,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
                              f"{q0.dtype} on {q0.device}")
         q0_rows, q0 = q0.data_ptr(), 0
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 14)(*q.stride()[:4], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:4])
+    strides = (ctypes.c_longlong * 14)(*build.strides(q, 4), *build.strides(k, 3),
+                                       *build.strides(v, 3), *build.strides(o, 4))
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                DTYPES[q.dtype], B, H, S, G, T, hd, strides, KINDS[kind],
                window, chunk, prefix_len, int(q0), q0_rows, k0, block_n,

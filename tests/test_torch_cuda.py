@@ -1,7 +1,8 @@
 """The port's hand-written kernels against their plain versions (and the
 paged kernel against the ring kernel, the selective scan against its plain
-version in fp32, bit for bit), and the engine against ``generate``, on an
-NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
+version in fp32, bit for bit), the flash kernel's padding transparency and
+the decode kernel's batch invariance (bit for bit), and the engine against
+``generate``, on an NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
 skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
@@ -124,6 +125,39 @@ def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,hd", [(8, 64), (32, 64), (3, 128), (16, 16)])
+def test_decode_group_widths_on_gpu(cuda, dtype, g, hd):
+    """GQA groups on both sides of 16 heads (in bf16, up to 16 heads run on
+    the tensor cores, wider groups on the CUDA cores): ring and paged pair
+    against their plain versions, paged == ring bit for bit, horizons that
+    make a block walk two chunks."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    B, L, H, ps = 3, 320, 2, 16
+    k, v = rand(2, B, L, H, hd), rand(2, B, L, H, hd)
+    q = rand(2, B, H, g, hd)
+    kp, bt = _paginate(k, ps)
+    vp, _ = _paginate(v, ps)
+    t = torch.tensor([319, 5, 200], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention_pair_paged(q, kp, vp, bt, t)
+    torch.testing.assert_close(
+        got, ops.decode_attention_pair_paged_plain(q, kp, vp, bt, t),
+        atol=tol, rtol=tol)
+    for b in range(B):
+        ring = ops.decode_attention_pair(q[:, b:b + 1], k[:, b:b + 1],
+                                         v[:, b:b + 1], int(t[b]))
+        torch.testing.assert_close(
+            ring, ops.decode_attention_pair_plain(q[:, b:b + 1], k[:, b:b + 1],
+                                                  v[:, b:b + 1], int(t[b])),
+            atol=tol, rtol=tol)
+        assert torch.equal(got[:, b:b + 1], ring), b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_per_row_q0_on_gpu(cuda, dtype):
     td, tol = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -139,6 +173,74 @@ def test_flash_per_row_q0_on_gpu(cuda, dtype):
     same = torch.full((3,), 32, dtype=torch.int32, device=cuda)
     assert torch.equal(ops.flash_attention(q, k, v, q0=same, block_n=16),
                        ops.flash_attention(q, k, v, q0=32, block_n=16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_padding_transparent_on_gpu(cuda, dtype):
+    """Causal, block_n = 16: the rows below Lq of a launch at S = 64 equal
+    the launch cut to Lq, bit for bit, also when the keys and values at and
+    past Lq hold large finite junk."""
+    td, _ = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    q, k, v = rand(2, 64, 2, 4, 32), rand(2, 64, 2, 32), rand(2, 64, 2, 32)
+    full = ops.flash_attention(q, k, v, block_n=16)
+    for lq in (13, 37, 50):
+        cut = ops.flash_attention(q[:, :lq], k[:, :lq], v[:, :lq], block_n=16)
+        assert torch.equal(cut, full[:, :lq]), lq
+        kj, vj = k.clone(), v.clone()
+        kj[:, lq:] = 1e4 * rand(2, 64 - lq, 2, 32)
+        vj[:, lq:] = 1e4 * rand(2, 64 - lq, 2, 32)
+        assert torch.equal(ops.flash_attention(q, kj, vj, block_n=16)[:, :lq], cut), lq
+
+
+def test_flash_bf16_refuses_what_it_does_not_take_on_gpu(cuda):
+    """The tensor-core body takes block_n in 16/32/64/128 and 16-byte
+    aligned pointers and strides; it raises on anything else."""
+    q = torch.zeros((1, 8, 1, 2, 16), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 1, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="block_n"):
+        ops.flash_attention(q, k, k, block_n=8)
+    shifted = torch.zeros(k.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(q, shifted, k, block_n=16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_batch_invariant_on_gpu(cuda, dtype):
+    """Each row of an 8-slot paged pair launch equals, bit for bit, the
+    same row launched alone and inside a 40-row launch (the 8 rows five
+    times, the speculative verifier's width at k = 4). Horizons up to 319
+    make a block of the split walk two chunks; slot 1 is idle."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    B, L, H, G, hd, ps = 8, 320, 2, 4, 64, 16
+    kp, bt = _paginate(rand(2, B, L, H, hd), ps)
+    vp, _ = _paginate(rand(2, B, L, H, hd), ps)
+    q = rand(2, B, H, G, hd)
+    t = torch.tensor([319, 0, 17, 100, 160, 63, 200, 256], dtype=torch.int32,
+                     device=cuda)
+    bt[1] = 0
+    out = ops.decode_attention_pair_paged(q, kp, vp, bt, t)
+    torch.testing.assert_close(
+        out, ops.decode_attention_pair_paged_plain(q, kp, vp, bt, t),
+        atol=tol, rtol=tol)
+    for b in range(B):
+        alone = ops.decode_attention_pair_paged(q[:, b:b + 1], kp, vp,
+                                                bt[b:b + 1], t[b:b + 1])
+        assert torch.equal(alone, out[:, b:b + 1]), b
+    wide = ops.decode_attention_pair_paged(torch.cat([q] * 5, 1), kp, vp,
+                                           torch.cat([bt] * 5), torch.cat([t] * 5))
+    for i in range(5):
+        assert torch.equal(wide[:, i * B:(i + 1) * B], out), i
 
 
 def test_engine_matches_generate_on_gpu(cuda):

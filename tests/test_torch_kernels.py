@@ -152,3 +152,30 @@ def test_wrappers_reject_other_devices():
         ops.dual_rmsnorm(x, s, s)
     with pytest.raises(ValueError):
         ops.dual_rmsnorm(x.to("meta"), s, s)
+
+
+def _view(kind):
+    x = torch.zeros((2, 40, 2, 16), dtype=torch.bfloat16)
+    if kind == "contiguous":
+        return x
+    if kind == "later_positions":
+        return x[:, 5:]
+    if kind == "one_batch_row":
+        return x[1:2]
+    if kind == "shifted_pointer":
+        return torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    return torch.zeros((2, 40, 2, 20), dtype=x.dtype)[..., :16]  # 40-byte rows
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("contiguous", True), ("later_positions", True), ("one_batch_row", True),
+    ("shifted_pointer", False), ("padded_rows", False)])
+def test_kernel_strides_and_alignment(kind, ok):
+    """The host side of the kernels that copy rows in 16-byte pieces: a
+    size-1 dim's stride is passed as 0, and a pointer or stride that is not
+    a multiple of 16 bytes is refused."""
+    from repro_torch.kernels import build
+    x = _view(kind)
+    assert build.aligned16(x, 3) is ok
+    want = [0 if d == 1 else s for d, s in zip(x.shape[:3], x.stride()[:3])]
+    assert build.strides(x, 3) == want
