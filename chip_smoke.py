@@ -18,7 +18,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launch cut to Lq (padding transparency, also with junk keys past Lq),
      and it is timed at the engine's bucket shape beside SDPA with a
      boolean mask; the selective scan equals its plain version bit for bit
-     in fp32 (and a sequence split across two calls equals one call).
+     in fp32 (and a sequence split across two calls equals one call). The
+     dual RMSNorm's rows equal, bit for bit, the same row launched alone,
+     inside an 8-row launch and at three offsets of a 2048-row launch (D =
+     2048, 4096 and 100, plus_one both ways; scales that are not 16-byte
+     aligned give the bits of an aligned copy). At every path's shape
+     (``NORM_SHAPES``) it is held against its plain version in bf16 and
+     fp32, and timed in bf16 beside two ``F.rms_norm`` calls (its
+     yardstick) and beside the launch floor: an empty one-block kernel
+     timed the same way, launched plainly and as the norm is (programmatic
+     dependent launch). It is timed back to back and between the path's
+     neighbours (a residual add before, a GEMM after, in one graph).
   4. reduced parity: tinyllama and falcon-mamba cut to 4 layers in fp32,
      LP pairs (0,1), (2,3): greedy tokens on the card equal the port's CPU
      path, prefill logits agree within 2e-4; the continuous-batching
@@ -54,6 +64,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 The second-to-last line is the kernels JSON (with every path's metrics),
 the last line the device JSON.
+
+    python3 chip_smoke.py --norm-times
+
+times only the dual RMSNorm at ``NORM_SHAPES`` through the ``repro_torch``
+beside this script, and prints one JSON line: so a copy of this script in
+another checkout times that checkout's kernel on the same card.
 """
 from __future__ import annotations
 
@@ -87,6 +103,12 @@ MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
 # Mamba path: falcon-mamba-7b, d_inner 8192, state 16, 48 LP groups.
 MAMBA = "falcon-mamba-7b"
 MAMBA_EFF_DEPTH, DI, NS = 48, 8192, 16
+# Dual RMSNorm (D, M) on the paths: tinyllama decode (generate, engine) and
+# prefill (generate's 4 x 128 and the engine's 8 x 64 bucket); falcon-mamba
+# decode, an exact engine admission of 97 tokens, and generate's prefill.
+NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
+               (4096, 4), (4096, 8), (4096, 97), (4096, 512))
+NORM_EPS = 1e-6
 
 
 def log(msg):
@@ -208,7 +230,19 @@ def check_kernels():
                        (lambda: ops.dual_rmsnorm(x, sa, sb)) if timed else None,
                        lambda: ops.dual_rmsnorm_plain(x, sa, sb),
                        nbytes(x, sa, sb) + 2 * nbytes(x), 6 * M * D,
+                       library=two_rms_norms(x, sa, sb) if timed else None,
                        flops_peak=PEAK_OPS["float32"])
+        check_norm_rows(ops, rand, dtype)
+        if dtype == torch.bfloat16:
+            from repro_torch.kernels import dual_rmsnorm as K
+            device = torch.device(dev, torch.cuda.current_device())
+            for pdl, key in ((False, "launch_floor_ms"), (True, "launch_floor_pdl_ms")):
+                rows[key] = time_ms(lambda: K.noop(device, pdl=pdl))
+            log(f"  launch floor (empty one-block kernel, graph replay): "
+                f"ms={rows['launch_floor_ms']:.5f}; launched as the dual RMSNorm "
+                f"(PDL): ms={rows['launch_floor_pdl_ms']:.5f}")
+            rows["dual_rmsnorm_shapes"] = norm_times(
+                ops, lambda pdl: K.noop(device, pdl=pdl))
 
         log(f"[kernels] decode attention {dtype}")
         k1, v1 = rand(B, MAX_LEN, HKV, HD, dtype=dtype), rand(B, MAX_LEN, HKV, HD, dtype=dtype)
@@ -407,6 +441,104 @@ def check_kernels():
             del a, bb, h0
         torch.cuda.empty_cache()
     return rows
+
+
+def two_rms_norms(x, sa, sb):
+    """The dual RMSNorm's yardstick: ``F.rms_norm`` once per path. No single
+    PyTorch call computes both norms; the port never calls this."""
+    import torch.nn.functional as F
+    return lambda: (F.rms_norm(x, (x.shape[-1],), sa, NORM_EPS),
+                    F.rms_norm(x, (x.shape[-1],), sb, NORM_EPS))
+
+
+def norm_times(ops, noop=None):
+    """The dual RMSNorm at every ``NORM_SHAPES`` entry: held against its
+    plain version in fp32 and bf16, and timed in bf16 beside it and two
+    ``F.rms_norm`` calls: back to back (``time_ms``), and between the path's
+    neighbours (``between_ms``: a residual add before it and a GEMM of the
+    pair's ``[2, D, D]`` shape after it in one graph, less the time of the
+    add and the GEMM alone). With ``noop(pdl)``, the empty kernel is timed
+    between the same neighbours, launched plainly and as the dual RMSNorm
+    is (programmatic dependent launch): the floors of the two launches."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = []
+    for d, m in NORM_SHAPES:
+        errs = {}
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            x, sa, sb = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                         for shape in ((m, d), (d,), (d,)))
+            got, want = ops.dual_rmsnorm(x, sa, sb), ops.dual_rmsnorm_plain(x, sa, sb)
+            errs[dtype] = max(compare(f"dual_rmsnorm {str(dtype)[6:]} D={d} M={m} {half}",
+                                      got[i], want[i], tol) for i, half in enumerate("ab"))
+        b_ms, b_by = bound(nbytes(x, sa, sb) + 2 * nbytes(x), 6 * m * d, "float32")
+        e = {"D": d, "M": m, "max_abs_err": errs[torch.bfloat16],
+             "fp32_max_abs_err": errs[torch.float32],
+             "ms": time_ms(lambda: ops.dual_rmsnorm(x, sa, sb)),
+             "plain_ms": time_ms(lambda: ops.dual_rmsnorm_plain(x, sa, sb)),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(two_rms_norms(x, sa, sb))}
+        h = torch.randn((m, d), generator=gen, device="cuda").to(x.dtype)
+        w = torch.randn((2, d, d), generator=gen, device="cuda").to(x.dtype)
+        y0 = torch.empty((2, m, d), dtype=x.dtype, device="cuda")
+
+        def least(fn):   # the GEMM's time spreads by tenths of a microsecond
+            return min(time_ms(fn) for _ in range(3))
+
+        base = least(lambda: (x + h, torch.matmul(y0, w)))
+
+        def between(fn):
+            return least(lambda: torch.matmul(fn(x + h), w)) - base
+
+        e["between_ms"] = between(lambda r: ops.dual_rmsnorm(r, sa, sb))
+        if noop is not None:
+            e["floor_between_ms"] = between(lambda r: (noop(False), y0)[1])
+            e["floor_pdl_between_ms"] = between(lambda r: (noop(True), y0)[1])
+        log(f"  dual_rmsnorm bf16 D={d} M={m}: " + " ".join(
+            f"{k}={v:.5f}" for k, v in e.items() if k.endswith("ms")) + f" ({b_by})")
+        out.append(e)
+    return out
+
+
+def check_norm_rows(ops, rand, dtype):
+    """Each dual RMSNorm row equals, bit for bit, the same row launched
+    alone (M = 1), inside an 8-row launch and at three offsets of a
+    2048-row launch (8 rows x a 256-token bucket), plus_one both ways: at
+    D = 2048 and 4096, and at D = 100, where the scales are the two rows of
+    a [2, D] pair as the model slices them (in bf16 the second starts 200
+    bytes in: element-wise loads), also held against the plain version. A
+    16-byte-misaligned sb gives the bits of an aligned copy."""
+    import torch
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    offsets = (0, 1001, 2040)
+    for d in (2048, 4096, 100):
+        scales = rand(2, d, dtype=dtype)
+        sa, sb = scales[0], scales[1]
+        x8, big = rand(8, d, dtype=dtype), rand(2048, d, dtype=dtype)
+        for o in offsets:
+            big[o:o + 8] = x8
+        for plus_one in (False, True):
+            y8 = ops.dual_rmsnorm(x8, sa, sb, plus_one=plus_one)
+            want = ops.dual_rmsnorm_plain(x8, sa, sb, plus_one=plus_one)
+            compare(f"dual_rmsnorm D={d} M=8 plus_one={plus_one}", y8, want, tol)
+            wide = ops.dual_rmsnorm(big, sa, sb, plus_one=plus_one)
+            for i in range(8):
+                alone = ops.dual_rmsnorm(x8[i:i + 1], sa, sb, plus_one=plus_one)
+                if not torch.equal(alone, y8[:, i:i + 1]):
+                    raise AssertionError(f"dual_rmsnorm {dtype} D={d}: row {i} alone "
+                                         f"differs from the 8-row launch")
+            for o in offsets:
+                if not torch.equal(wide[:, o:o + 8], y8):
+                    raise AssertionError(f"dual_rmsnorm {dtype} D={d}: rows at {o} of "
+                                         f"a 2048-row launch differ from the 8-row launch")
+    d = 2048
+    x8, sa = rand(8, d, dtype=dtype), rand(d, dtype=dtype)
+    sb = rand(d + 1, dtype=dtype)[1:]        # 2 or 4 bytes past a 16-byte line
+    if not torch.equal(ops.dual_rmsnorm(x8, sa, sb), ops.dual_rmsnorm(x8, sa, sb.clone())):
+        raise AssertionError(f"dual_rmsnorm {dtype}: a misaligned sb changes the bits")
+    log(f"  dual_rmsnorm rows {dtype}: alone == in 8 rows == at {offsets} of 2048 rows, "
+        f"bit for bit (D = 2048, 4096, 100; plus_one both ways); misaligned sb == "
+        f"aligned copy")
 
 
 def check_flash_padding(ops, q, k, v, rand):
@@ -1080,7 +1212,7 @@ def mamba_engine(cfg, ms, params):
 # ---------------------------------------------------------------------------
 
 KERNELS = {
-    "dual_rmsnorm": ("triton", "src/repro_torch/kernels/dual_rmsnorm.py",
+    "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
                      "src/repro/kernels/dual_rmsnorm.py:37"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:130"),
@@ -1122,6 +1254,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
+    if sys.argv[1:] == ["--norm-times"]:
+        from repro_torch.kernels import ops
+        print(json.dumps({"norm_times": norm_times(ops), "smi": smi.splitlines()[0]}))
+        return 0
     rows = check_kernels()
     reduced_parity()
     reduced_mamba_parity()
@@ -1164,7 +1300,12 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if name == "flash_attention":
             kernels[-1]["engine_bucket"] = rows[("flash_attention_bucket", dtype)]
-    print(json.dumps({"kernels": kernels, **e2e, "engine": engine,
+        if name == "dual_rmsnorm":
+            kernels[-1].update(library="two F.rms_norm calls, one per path (timed only)",
+                               shapes=rows["dual_rmsnorm_shapes"])
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": rows["launch_floor_ms"],
+                      "launch_floor_pdl_ms": rows["launch_floor_pdl_ms"],
+                      **e2e, "engine": engine,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

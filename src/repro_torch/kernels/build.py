@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention.cu", "flash_attention.cu", "ssm_scan.cu")
+SOURCES = ("decode_attention.cu", "dual_rmsnorm.cu", "flash_attention.cu",
+           "ssm_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

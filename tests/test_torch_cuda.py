@@ -1,8 +1,8 @@
 """The port's hand-written kernels against their plain versions (and the
 paged kernel against the ring kernel, the selective scan against its plain
-version in fp32, bit for bit), the flash kernel's padding transparency and
-the decode kernel's batch invariance (bit for bit), and the engine against
-``generate``, on an NVIDIA GPU (CUDA C++ and Triton have no CPU mode):
+version in fp32, bit for bit), the flash kernel's padding transparency, the
+decode and dual RMSNorm kernels' batch invariance (bit for bit), and the
+engine against ``generate``, on an NVIDIA GPU (CUDA C++ has no CPU mode):
 skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
@@ -25,7 +25,7 @@ DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("the CUDA and Triton kernels run only on an NVIDIA GPU")
+        pytest.skip("the CUDA kernels run only on an NVIDIA GPU")
     return torch.device("cuda")
 
 
@@ -241,6 +241,59 @@ def test_decode_batch_invariant_on_gpu(cuda, dtype):
                                            torch.cat([bt] * 5), torch.cat([t] * 5))
     for i in range(5):
         assert torch.equal(wide[:, i * B:(i + 1) * B], out), i
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2048, 4096])
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_dual_rmsnorm_rows_bit_identical_on_gpu(cuda, dtype, d, plus_one):
+    """A dual RMSNorm row comes out bit for bit the same launched alone, in
+    an 8-row launch (the engine's decode) and at three offsets of a 2048-row
+    launch (8 rows x a 256-token bucket)."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    scales = torch.randn((2, d), generator=gen, device=cuda).to(td)
+    sa, sb = scales[0], scales[1]
+    x8 = torch.randn((8, d), generator=gen, device=cuda).to(td)
+    big = torch.randn((2048, d), generator=gen, device=cuda).to(td)
+    offsets = (0, 1001, 2040)
+    for o in offsets:
+        big[o:o + 8] = x8
+    y8 = ops.dual_rmsnorm(x8, sa, sb, plus_one=plus_one)
+    torch.testing.assert_close(y8, ops.dual_rmsnorm_plain(x8, sa, sb, plus_one=plus_one),
+                               atol=tol, rtol=tol)
+    for i in range(8):
+        assert torch.equal(ops.dual_rmsnorm(x8[i:i + 1], sa, sb, plus_one=plus_one),
+                           y8[:, i:i + 1]), i
+    wide = ops.dual_rmsnorm(big, sa, sb, plus_one=plus_one)
+    for o in offsets:
+        assert torch.equal(wide[:, o:o + 8], y8), o
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dual_rmsnorm_unaligned_and_widest_on_gpu(cuda, dtype):
+    """D = 100 with the scales as the two rows of a [2, D] pair (in bf16 sb
+    starts 200 bytes in: element-wise loads), D = 8192 (the widest row) and
+    D = 2056 with rows off a 16-byte line, against the plain version;
+    a 16-byte-misaligned sb gives the bits of an aligned copy; D = 8193 is
+    refused."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    rows = rand(40, 2058)[:, 2:]
+    for x, (sa, sb) in ((rand(40, 100), rand(2, 100)), (rand(24, 8192), rand(2, 8192)),
+                        (rows, rand(2, 2056))):
+        for plus_one in (False, True):
+            for got, want in zip(ops.dual_rmsnorm(x, sa, sb, plus_one=plus_one),
+                                 ops.dual_rmsnorm_plain(x, sa, sb, plus_one=plus_one)):
+                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    x, sa, sb = rand(8, 2048), rand(2048), rand(2049)[1:]
+    assert torch.equal(ops.dual_rmsnorm(x, sa, sb), ops.dual_rmsnorm(x, sa, sb.clone()))
+    with pytest.raises(ValueError):
+        ops.dual_rmsnorm(rand(2, 8193), rand(8193), rand(8193))
 
 
 def test_engine_matches_generate_on_gpu(cuda):

@@ -4,6 +4,8 @@ Pallas kernels (interpret mode on the CPU), on the same numpy inputs.
 Tolerances as tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16. The
 kernels themselves run only on an NVIDIA GPU: tests/test_torch_cuda.py.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -13,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as JOPS  # noqa: E402
 from repro.kernels import ref as JREF  # noqa: E402
+from repro_torch.kernels import dual_rmsnorm as KNORM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,6 +68,93 @@ def test_dual_rmsnorm_plain(m, d, dtype, plus_one):
     w = ops.dual_rmsnorm(tx.reshape(m, 1, d), tsa, tsb, plus_one=plus_one)
     assert w.shape == (2, m, 1, d)
     assert torch.equal(w[0].reshape(m, d), ya) and torch.equal(w[1].reshape(m, d), yb)
+
+
+@pytest.mark.parametrize("d", [1, 100, 128, 2048, 4096, 8192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dual_rmsnorm_row_layout_ignores_m(d, dtype):
+    """The CUDA kernel launches one block a row (the grid is M), laid out by
+    ``row_layout``: vector width, warps a row and vectors a thread, so the
+    order of every sum. It takes D and the dtype and nothing of M, so a
+    row's layout is the same at M = 1, 8 and 2048. Every layout fits the
+    kernel, covers the row and leaves no warp idle."""
+    td = DTYPES[dtype][1]
+    assert list(inspect.signature(KNORM.row_layout).parameters) == ["D", "dtype"]
+    lay = KNORM.row_layout(d, td)
+    assert lay.vec * td.itemsize == 16
+    assert 1 <= lay.warps <= 8 and 1 <= lay.vecs_per_thread <= 8
+    assert lay.warps * 32 * lay.vecs_per_thread * lay.vec >= d   # covers the row
+    assert (lay.warps - 1) * 32 * lay.vec < d or lay.warps == 8  # no idle warp
+    assert (lay.vecs_per_thread - 1) * lay.warps * 32 * lay.vec < d  # no idle vector
+
+
+def test_dual_rmsnorm_row_layout_at_the_paths_widths():
+    """The paths' rows (D = 2048 and 4096) take 8 warps a row: in bf16 one
+    or two 16-byte vectors a lane, in fp32 (the parity runs) two or four.
+    A narrow row takes the warps it fills."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert KNORM.row_layout(2048, bf) == KNORM.RowLayout(8, 8, 1)
+    assert KNORM.row_layout(4096, bf) == KNORM.RowLayout(8, 8, 2)
+    assert KNORM.row_layout(2048, f32) == KNORM.RowLayout(4, 8, 2)
+    assert KNORM.row_layout(4096, f32) == KNORM.RowLayout(4, 8, 4)
+    assert KNORM.row_layout(8192, f32) == KNORM.RowLayout(4, 8, 8)
+    assert KNORM.row_layout(128, bf) == KNORM.RowLayout(8, 1, 1)
+    assert KNORM.row_layout(100, f32) == KNORM.RowLayout(4, 1, 1)
+
+
+def _norm_inputs(case):
+    d, dt = 64, torch.bfloat16
+    x, sa, sb = torch.zeros(8, d, dtype=dt), torch.zeros(d, dtype=dt), torch.zeros(d, dtype=dt)
+    if case == "dtype":
+        return x.half(), sa.half(), sb.half()
+    if case == "mixed dtypes":
+        return x, sa.float(), sb
+    if case == "D > 8192":
+        return (torch.zeros(2, 8200, dtype=dt), torch.zeros(8200, dtype=dt),
+                torch.zeros(8200, dtype=dt))
+    if case == "no rows":
+        return x[:0], sa, sb
+    if case == "strided rows":
+        return torch.zeros(8, 2 * d, dtype=dt)[:, ::2], sa, sb
+    if case == "strided scales":
+        return x, torch.zeros(2 * d, dtype=dt)[::2], sb
+    if case == "scale shape":
+        return x, sa[:-1], sb
+    assert case == "x not 2-d"
+    return x[None], sa, sb
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed dtypes", "D > 8192", "no rows",
+                                  "strided rows", "strided scales", "scale shape",
+                                  "x not 2-d"])
+def test_dual_rmsnorm_kernel_refuses(case):
+    """What the CUDA kernel does not take is refused before any launch (on
+    any device), and a CPU tensor never reaches the kernel's launch."""
+    with pytest.raises((TypeError, ValueError)):
+        KNORM.check(*_norm_inputs(case))
+    with pytest.raises((TypeError, ValueError)):
+        KNORM.launch(*_norm_inputs(case), eps=1e-6, plus_one=False)
+
+
+def test_dual_rmsnorm_kernel_misaligned_pointers_take_element_loads():
+    """Pointers or row strides off a 16-byte line are not refused: the
+    kernel reads and writes them element by element (the same arithmetic).
+    The model's scales are the two rows of a [2, D] pair, so at D = 100 in
+    bf16 sb starts 200 bytes in. In fp32 that row is aligned."""
+    bf, f32 = torch.bfloat16, torch.float32
+    pair = torch.zeros(2, 100, dtype=bf)
+    assert KNORM.check(torch.zeros(8, 128, dtype=bf), torch.zeros(128, dtype=bf),
+                       torch.zeros(128, dtype=bf))
+    assert not KNORM.check(torch.zeros(8, 100, dtype=bf), pair[0], pair[1])
+    pair32 = torch.zeros(2, 100, dtype=f32)
+    assert KNORM.check(torch.zeros(8, 100, dtype=f32), pair32[0], pair32[1])
+    off = torch.zeros(2049, dtype=bf)[1:]          # 2 bytes past a 16-byte line
+    assert not KNORM.check(torch.zeros(4, 2048, dtype=bf), torch.zeros(2048, dtype=bf), off)
+    rows = torch.zeros(4, 2056, dtype=f32)[:, 1:2049]  # rows 4 bytes off the line
+    assert not KNORM.check(rows, torch.zeros(2048, dtype=f32), torch.zeros(2048, dtype=f32))
+    with pytest.raises(ValueError):   # a CPU tensor: the kernel's launch refuses it
+        KNORM.launch(torch.zeros(8, 100, dtype=bf), pair[0], pair[1], eps=1e-6,
+                     plus_one=False)
 
 
 # ---------------------------------------------------------------------------
