@@ -11,10 +11,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      flash mask kind at a small size), with times of the kernel, the plain
      version and, where one PyTorch call computes the same function, that
      call. The paged decode kernel also equals the ring kernel bit for bit
-     on a paginated copy of the same cache, and each of its rows equals,
-     bit for bit, the same row launched alone and inside a 40-row launch
-     (batch invariance); the flash kernel with a per-row q0 tensor of
-     equal entries equals its scalar launch, its rows below Lq equal a
+     on a paginated copy of the same cache. Each row of both paged
+     kernels (pair and single layer) equals, bit for bit, the same row
+     launched alone, in the first 2 and 6 rows (the degraded engine's
+     cohorts) and inside a 40-row launch (batch invariance); both are held
+     against their plain versions and timed at the speculative verify's
+     shape (8 slots x 5 probe rows = 40 rows). The flash kernel with a
+     per-row q0 tensor of equal entries equals its scalar launch, its rows
+     below Lq equal a
      launch cut to Lq (padding transparency, also with junk keys past Lq),
      and it is timed at the engine's bucket shape beside SDPA with a
      boolean mask; the selective scan equals its plain version bit for bit
@@ -47,6 +51,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      divergence must sit at a near-tie), then a timed bf16-pool run whose
      kernel launches reconcile exactly with the engine's own counters, and
      a profiled window of 8 engine steps.
+  8. speculative and degraded engine paths, with phase 6's model, geometry
+     and traffic. Speculative decoding (k = 4 drafts at plan_range(0, 22),
+     11 pairs; verify at 8 x 5 = 40 rows): an fp32-pool run whose streams
+     are held against phase 6's plain engine (near-tie rule), a timed
+     bf16-pool run whose launches reconcile with the spec counters, its
+     trace (``dump_trace``) through ``validate_trace``, runs with the
+     segment weights scaled by 0.1, where drafts agree (fp32 pools: spec
+     streams held against a plain engine on the same weights, with drafts
+     accepted; bf16: accept per verify and engine steps), and a profiled
+     window of 8 steps. The degraded cohort
+     (the top 2 slots at plan_range(0, 22), SLO pressure at queue depth 1):
+     an fp32-pool run whose streams are held against ``generate`` at their
+     cohort's plan, and a timed bf16-pool run whose launches reconcile per
+     cohort with the engine's spans.
   7. Mamba path: LP falcon-mamba-7b at full width (64 layers, d 4096,
      d_inner 8192, N 16, vocab 65024; plan_for_depth 48 -> 16 pairs + 32
      single layers), random weights made on the card from a seed, after
@@ -62,8 +80,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      engine run whose launches reconcile with the engine's counters, each
      with a profiled window.
 
-The second-to-last line is the kernels JSON (with every path's metrics),
-the last line the device JSON.
+Phase 8 runs between 6 and 7, while the tinyllama weights are loaded. The
+second-to-last line is the kernels JSON (with every path's metrics and
+each phase's seconds), the last line the device JSON.
 
     python3 chip_smoke.py --norm-times
 
@@ -99,6 +118,9 @@ D, HKV, G, HD = 2048, 4, 8, 64
 N_SLOTS, PS, N_PAGES = 8, 16, 129
 N_PG = MAX_LEN // PS
 ENGINE_NEW = 32
+# Speculative engine: 4 drafts a verify (verify launch of 8 x 5 = 40 rows);
+# degraded cohort: the top 2 of the 8 slots, at maximal pairing.
+SPEC_K, DEG_SLOTS = 4, 2
 MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
 # Mamba path: falcon-mamba-7b, d_inner 8192, state 16, 48 LP groups.
 MAMBA = "falcon-mamba-7b"
@@ -388,7 +410,7 @@ def check_kernels():
                 raise AssertionError(f"paged decode differs from the ring kernel "
                                      f"on a paginated cache (slot {b})")
         log("  paged == ring kernel on the paginated cache, bit for bit (7 slots)")
-        check_decode_batch_invariance(ops, qp, kp, vp, bt, tv, pair)
+        check_decode_batch_invariance(ops, qp, kp, vp, bt, tv)
         keys = int((tv + 1).sum())               # keys 0..t[b] of each row
         kv_bytes = 2 * keys * HKV * HD * kp.element_size()
         record("decode_attention_pair_paged", dtype, err,
@@ -401,6 +423,10 @@ def check_kernels():
                lambda: ops.decode_attention_paged_plain(qp[0], kp[0], vp[0], bt, tv),
                2 * nbytes(qp[0]) + kv_bytes + nbytes(bt, tv),
                4 * keys * HKV * G * HD)
+        for name, e in check_verify_shape(ops, rand, kp, vp, bt, tv, tol,
+                                          rows["launch_floor_ms"]).items():
+            rows[("verify", name, dtype)] = e
+            record(name, dtype, e["max_abs_err"], None, None, 0, 0)
 
         log(f"[kernels] ssm_scan {dtype}")
         # generate's pair and single-layer prefill, one engine admission of
@@ -560,26 +586,72 @@ def check_flash_padding(ops, q, k, v, rand):
         f"cut to Lq, with and without junk past Lq, bit for bit")
 
 
-def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv, pair):
-    """Each row of the 8-slot paged pair launch ``pair`` equals, bit for
-    bit, the same row launched alone (B = 1) and inside a 40-row launch
-    (the 8 rows five times: the speculative verifier's width at k = 4)."""
+def check_verify_shape(ops, rand, kp, vp, bt, tv, tol, floor_ms):
+    """Both paged decode kernels at the speculative verify's shape (k = 4):
+    8 slots x 5 probe rows = 40 rows; row j of slot s reads the slot's
+    block table up to t[s] + j (slot 1 idle: garbage table, t = 0). Each
+    held against its plain version and timed beside the launch floor, the
+    bytes bound (each slot's keys read once) and the plain version.
+    Returns {kernel name: entry}."""
+    import torch
+    probes = SPEC_K + 1
+    dev = kp.device
+    bt_v = bt.repeat_interleave(probes, 0)
+    t_v = (tv.repeat_interleave(probes)
+           + torch.arange(probes, device=dev).repeat(N_SLOTS)).clamp(max=MAX_LEN - 1)
+    t_v[probes:2 * probes] = 0
+    t_v = t_v.to(torch.int32)
+    qv = rand(N_SLOTS * probes, 2, HKV, G, HD, dtype=kp.dtype).transpose(0, 1)
+    keys_read = int((t_v.reshape(N_SLOTS, probes).max(1).values + 1).sum())
+    keys_rows = int((t_v + 1).sum())
+    kv_bytes = 2 * keys_read * HKV * HD * kp.element_size()
+    out = {}
+    for name, n_kv, q, k, v in (("decode_attention_pair_paged", 2, qv, kp, vp),
+                                ("decode_attention_paged", 1, qv[0], kp[0], vp[0])):
+        run = lambda: getattr(ops, name)(q, k, v, bt_v, t_v)   # noqa: E731
+        plain = lambda: getattr(ops, name + "_plain")(q, k, v, bt_v, t_v)  # noqa: E731
+        err = compare(f"{name} verify {N_SLOTS * probes} rows", run(), plain(), tol)
+        nb = 2 * nbytes(q) + n_kv * kv_bytes + nbytes(bt_v, t_v)
+        b_ms, b_by = bound(nb, n_kv * 4 * keys_rows * HKV * G * HD,
+                           str(kp.dtype).split(".")[1])
+        out[name] = e = {
+            "shape": f"{N_SLOTS} slots x {probes} probe rows, ragged t, Hkv={HKV}, "
+                     f"g={G}, hd={HD}",
+            "max_abs_err": err, "ms": time_ms(run), "floor_ms": floor_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "plain_ms": time_ms(plain)}
+        log(f"  {name} verify {kp.dtype}: ms={e['ms']:.5f} floor_ms={floor_ms:.5f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) plain_ms={e['plain_ms']:.5f}")
+    return out
+
+
+def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv):
+    """For both paged decode kernels, each row of the 8-slot launch equals,
+    bit for bit, the same row launched alone (B = 1), inside the first 2
+    and first 6 rows (the degraded engine's two cohorts) and inside a
+    40-row launch (the 8 rows five times: the speculative verifier's width
+    at k = 4)."""
     import torch
     n = bt.shape[0]
-    for b in range(n):
-        alone = ops.decode_attention_pair_paged(qp[:, b:b + 1], kp, vp,
-                                                bt[b:b + 1], tv[b:b + 1])
-        if not torch.equal(alone, pair[:, b:b + 1]):
-            raise AssertionError(f"paged decode row {b} alone differs from the "
-                                 f"{n}-row launch")
-    wide = ops.decode_attention_pair_paged(torch.cat([qp] * 5, 1), kp, vp,
-                                           torch.cat([bt] * 5), torch.cat([tv] * 5))
-    for i in range(5):
-        if not torch.equal(wide[:, i * n:(i + 1) * n], pair):
-            raise AssertionError(f"paged decode rows in a {5 * n}-row launch "
-                                 f"differ from the {n}-row launch")
-    log(f"  decode batch invariance {qp.dtype}: each of {n} rows == alone "
-        f"(B = 1) == inside a {5 * n}-row launch, bit for bit")
+    for name, q, k, v, cat in (
+            ("decode_attention_pair_paged", qp, kp, vp, lambda x: torch.cat([x] * 5, 1)),
+            ("decode_attention_paged", qp[0], kp[0], vp[0], lambda x: torch.cat([x] * 5))):
+        fn = getattr(ops, name)
+        rows = lambda x, lo, hi: x[:, lo:hi] if x.dim() == 5 else x[lo:hi]  # noqa: E731
+        full = fn(q, k, v, bt, tv)
+        for lo, hi in [(b, b + 1) for b in range(n)] + [(0, DEG_SLOTS),
+                                                        (0, N_SLOTS - DEG_SLOTS)]:
+            part = fn(rows(q, lo, hi), k, v, bt[lo:hi], tv[lo:hi])
+            if not torch.equal(part, rows(full, lo, hi)):
+                raise AssertionError(f"{name} rows {lo}..{hi - 1} launched as "
+                                     f"B = {hi - lo} differ from the {n}-row launch")
+        wide = fn(cat(q), k, v, torch.cat([bt] * 5), torch.cat([tv] * 5))
+        for i in range(5):
+            if not torch.equal(rows(wide, i * n, (i + 1) * n), full):
+                raise AssertionError(f"{name} rows in a {5 * n}-row launch differ "
+                                     f"from the {n}-row launch")
+        log(f"  decode batch invariance {name} {qp.dtype}: each of {n} rows == "
+            f"alone (B = 1) == in the first {DEG_SLOTS} and {N_SLOTS - DEG_SLOTS} "
+            f"rows == inside a {5 * n}-row launch, bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -865,11 +937,11 @@ def engine_traffic(vocab):
     return [(0, p, ENGINE_NEW) for p in wave1] + [(4, p, ENGINE_NEW) for p in wave2]
 
 
-def engine_config(cache_dtype):
+def engine_config(cache_dtype, **kw):
     from repro_torch.serve import PagedServeConfig
     return PagedServeConfig(n_slots=N_SLOTS, page_size=PS, max_len=MAX_LEN,
                             n_pages=N_PAGES, prefix_cache=True,
-                            cache_dtype=cache_dtype)
+                            cache_dtype=cache_dtype, **kw)
 
 
 def shared_bucket_launches(eng):
@@ -907,24 +979,70 @@ def first_divergence(params, ms, pc, prompt, want, got):
     return i, float(top[0] - top[1]), float(logits[0].abs().max())
 
 
-def engine_path():
-    """Returns (kernel launches of the timed run, engine metrics)."""
+def generate_streams(models, work):
+    """``generate``'s greedy stream of each request (fp32 ring cache);
+    ``models[i]`` is request i's (params, structure)."""
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    return [generate(p, torch.from_numpy(prompt).cuda()[None], n, ms=m,
+                     pc=ParallelContext(), sv=sv)[0].cpu().numpy()
+            for (p, m), (_, prompt, n) in zip(models, work)]
+
+
+def held_to(what, models, work, got, want):
+    """Each stream equal to ``want`` or leaving it at a near-tie of
+    generate's logits (top-2 margin <= MARGIN_FRAC of scale); ``models[i]``
+    is request i's (params, structure). Returns the count of equal
+    streams."""
+    from repro_torch.parallel.context import ParallelContext
+    n_equal, worst = 0, 0.0
+    for (p, m), (_, prompt, _), stream, ref in zip(models, work, got, want):
+        if ref.tolist() == stream.tolist():
+            n_equal += 1
+            continue
+        j, margin, scale = first_divergence(p, m, ParallelContext(), prompt, ref,
+                                            stream)
+        worst = max(worst, margin / scale)
+        log(f"[{what}] stream of a {len(prompt)}-token prompt leaves its reference "
+            f"at token {j}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
+            f"({margin / scale:.5f}, limit {MARGIN_FRAC})")
+    if worst > MARGIN_FRAC:
+        raise AssertionError(f"{what}: a stream diverged away from a near-tie")
+    return n_equal
+
+
+def tinyllama_model():
+    """tinyllama-1.1b under plan_for_depth(16), bf16 random weights from
+    the seed, made on the card: the model of phases 6 and 8."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.lp import plan_for_depth
-    from repro_torch.kernels import ops
     from repro_torch.model import transformer as T
-    from repro_torch.parallel.context import ParallelContext
-    from repro_torch.serve import (PagedEngine, ServeConfig, default_buckets,
-                                   generate)
 
-    pc = ParallelContext()
     cfg = get_config("tinyllama-1.1b")
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 16))
-    n_groups = sum(s.count for s in ms.segments)
-    n_pairs = len(ms.plan.pairs)
     params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
                            torch.bfloat16, device="cuda")
+    return cfg, ms, params
+
+
+def model_counts(ms):
+    """(groups, pairs) of a model structure: per launch a prefill runs one
+    flash launch per group and 2 dual RMSNorms per pair; a decode one paged
+    decode launch per group (pair or single) and 2 norms per pair."""
+    return sum(s.count for s in ms.segments), len(ms.plan.pairs)
+
+
+def engine_path(cfg, ms, params):
+    """Returns (kernel launches of the timed run, engine metrics, the
+    fp32-pool run's streams)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PagedEngine, default_buckets
+
+    n_groups, n_pairs = model_counts(ms)
     work = engine_traffic(cfg.vocab_size)
     log(f"[engine] {cfg.name} LP {ms.plan.pairs}: {len(work)} requests, "
         f"{N_SLOTS} slots, pages of {PS}, {N_PAGES} pages, buckets "
@@ -934,25 +1052,11 @@ def engine_path():
     eng = PagedEngine(params, ms, engine_config(torch.float32))
     got = serve(eng, work)
     shared = shared_bucket_launches(eng)
-    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
-    n_equal, worst = 0, 0.0
-    for (_, prompt, n), stream in zip(work, got):
-        want = generate(params, torch.from_numpy(prompt).cuda()[None], n, ms=ms,
-                        pc=pc, sv=sv)[0].cpu().numpy()
-        if want.tolist() == stream.tolist():
-            n_equal += 1
-            continue
-        i, margin, scale = first_divergence(params, ms, pc, prompt, want, stream)
-        worst = max(worst, margin / scale)
-        log(f"[engine] stream of a {len(prompt)}-token prompt leaves generate at "
-            f"token {i}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
-            f"({margin / scale:.5f}, limit {MARGIN_FRAC})")
+    models = [(params, ms)] * len(work)
+    n_equal = held_to("engine", models, work, got, generate_streams(models, work))
     log(f"[engine] parity (fp32 pool): {n_equal}/{len(work)} streams equal to "
         f"generate on the card; bucket launches holding hit and cold rows "
         f"(hit, cold): {shared}")
-    if worst > MARGIN_FRAC:
-        raise AssertionError("an engine stream diverged from generate away from "
-                             "a near-tie")
     if not shared:
         raise AssertionError("no bucket launch held both a radix-hit row and a "
                              "cold row")
@@ -1015,6 +1119,235 @@ def engine_path():
     eng.step()
     metrics["busy_share"] = profile_decode(lambda: [eng.step() for _ in range(8)],
                                            "engine 8 decode steps")
+    return launches, metrics, got
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the speculative and degraded engine paths at full width
+# ---------------------------------------------------------------------------
+
+def spec_config(cache_dtype):
+    return engine_config(cache_dtype, spec_k=SPEC_K)
+
+
+def degraded_config(cache_dtype):
+    return engine_config(cache_dtype, degrade_delta=True, degrade_slots=DEG_SLOTS,
+                         degrade_queue_depth=1, degrade_eff_depth=0)
+
+
+def timed_serve(eng, work):
+    """Serve ``work`` with every kernel launch counted from 0; returns
+    (launches, wall seconds, per-step log, streams)."""
+    import torch
+    from repro_torch.kernels import ops
+    steps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve(eng, work, steps)
+    wall_s = time.perf_counter() - t0
+    return dict(ops.LAUNCHES), wall_s, steps, out
+
+
+def decode_metrics(wall_s, steps):
+    """Wall ms and steps; decode ms per step and decoded tok/s over the
+    steps that admitted nothing."""
+    dec = [dt for dt, st in steps if st["decoded"] and not st["admitted"]]
+    dec_tokens = sum(st["decoded"] for _, st in steps
+                     if st["decoded"] and not st["admitted"])
+    return {"wall_ms": wall_s * 1e3, "steps": len(steps),
+            "decode_ms_per_step": sum(dec) / len(dec) * 1e3,
+            "decode_tok_per_s": dec_tokens / sum(dec)}
+
+
+def reconcile(what, launches, want):
+    log(f"[{what}] launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"{what} launch counts {launches} != {want}")
+
+
+def spec_path(cfg, ms, params, plain_streams, plain_steps):
+    """The speculative engine (k = 4 drafts at plan_range(0, 22), verify at
+    40 rows). Returns (launches of the timed bf16 run, metrics)."""
+    import torch
+    from repro_torch.model.params import tree_map
+    from repro_torch.serve import PagedEngine, validate_trace
+
+    work = engine_traffic(cfg.vocab_size)
+    n_groups, n_pairs = model_counts(ms)
+
+    # Parity run: fp32 pool, streams against phase 6's plain engine.
+    eng = PagedEngine(params, ms, spec_config(torch.float32))
+    d_groups, d_pairs = model_counts(eng.ms_draft)
+    log(f"[spec] drafter pairs {eng.ms_draft.plan.pairs[0]}..{eng.ms_draft.plan.pairs[-1]} "
+        f"({d_pairs} pairs, {d_groups} groups), k={SPEC_K}, verify "
+        f"{N_SLOTS * (SPEC_K + 1)} rows")
+    if (d_groups, d_pairs) != (11, 11):
+        raise AssertionError(f"drafter structure {d_groups} groups, {d_pairs} pairs")
+    got = serve(eng, work)
+    n_equal = held_to("spec", [(params, ms)] * len(work), work, got, plain_streams)
+    c = eng.counters
+    log(f"[spec] parity (fp32 pool): {n_equal}/{len(work)} streams equal to the "
+        f"plain engine's; verify steps {c['verify_steps']}, accepted "
+        f"{c['spec_accepted']}, rewound {c['spec_rewound']}")
+
+    # Timed run: bf16 pool, every launch counted and reconciled.
+    serve(PagedEngine(params, ms, spec_config(torch.bfloat16)), work[:N_SLOTS])
+    eng = PagedEngine(params, ms, spec_config(torch.bfloat16))
+    launches, wall_s, steps, out = timed_serve(eng, work)
+    c = dict(eng.counters)
+    if c["preempted"] or c["failed"] or c["verify_steps"] * SPEC_K != c["draft_steps"]:
+        raise AssertionError(f"spec engine counters {c}")
+    exact = c["full_prefills"] + c["suffix_prefills"] - c["bucket_prefills"]
+    prefills = c["bucket_groups"] + exact
+    # Every main bucket launch has its draft mirror; every request the
+    # mirror did not prime (radix hits, exact prefills) gets a full-prompt
+    # draft prefill.
+    primed = sum(1 for sp in eng.telemetry.spans.values()
+                 for e in sp.events_of("prefill")
+                 if e.attrs.get("batched") and e.attrs["kind"] == "full")
+    draft_prefills = c["bucket_groups"] + c["admitted"] - primed
+    v, kd = c["verify_steps"], c["draft_steps"]
+    want = {"dual_rmsnorm": 2 * n_pairs * (prefills + v) + 2 * d_pairs * (draft_prefills + kd),
+            "decode_attention": 0, "decode_attention_pair": 0,
+            "decode_attention_paged": (n_groups - n_pairs) * v + (d_groups - d_pairs) * kd,
+            "decode_attention_pair_paged": n_pairs * v + d_pairs * kd,
+            "flash_attention": n_groups * prefills + d_groups * draft_prefills,
+            "ssm_scan": 0}
+    reconcile("spec", launches, want)
+    if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size for o in out):
+        raise AssertionError("spec engine streams of the wrong length or out of range")
+    snap = eng.metrics_snapshot()["spec"]
+    metrics = decode_metrics(wall_s, steps)
+    metrics.update({k: c[k] for k in ("decoded", "draft_steps", "verify_steps",
+                                      "spec_accepted", "spec_rejected", "spec_rewound")})
+    metrics.update(accept_per_verify=snap["accept_per_verify"],
+                   accept_rate=snap["accept_rate"], draft_prefills=draft_prefills,
+                   parity_streams_equal=n_equal, parity_streams=len(work),
+                   plain_engine_steps=plain_steps)
+    trace = ROOT / "build" / "spec_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    eng.dump_trace(str(trace))
+    doc = json.loads(trace.read_text())
+    validate_trace(doc)
+    n_spec = sum(1 for e in doc["traceEvents"] if e.get("cat") == "spec")
+    if n_spec != len(eng.telemetry.spec_log) or not n_spec:
+        raise AssertionError("trace spec slices != episodes")
+    metrics["trace_events"] = len(doc["traceEvents"])
+    log(f"[spec] trace {trace.relative_to(ROOT)}: {metrics['trace_events']} events "
+        f"({n_spec} spec episodes), valid")
+    log("[spec] " + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                             for k, v in metrics.items()))
+
+    # The agreement regime: segments scaled by 0.1 (drafts agree more).
+    # fp32 pools: spec streams held against a plain engine on the same
+    # weights, with multi-token commits and partial rewinds; bf16: counted.
+    tree = params.tree()
+    scaled = dict(tree, segments=tree_map(lambda x: x * 0.1, tree["segments"]))
+    eng = PagedEngine(scaled, ms, spec_config(torch.float32))
+    got = serve(eng, work)
+    want = serve(PagedEngine(scaled, ms, engine_config(torch.float32)), work)
+    n_scaled = held_to("spec x0.1", [(scaled, ms)] * len(work), work, got, want)
+    c = eng.counters
+    log(f"[spec] segments x 0.1 parity (fp32 pool): {n_scaled}/{len(work)} streams "
+        f"equal to the plain engine's; accepted {c['spec_accepted']}, rejected "
+        f"{c['spec_rejected']}, rewound {c['spec_rewound']}")
+    if not c["spec_accepted"]:
+        raise AssertionError("the x0.1 parity run accepted no draft")
+    scaled_fp32 = {"parity_streams_equal": n_scaled, "spec_accepted": c["spec_accepted"],
+                   "spec_rejected": c["spec_rejected"], "spec_rewound": c["spec_rewound"]}
+    eng = PagedEngine(scaled, ms, spec_config(torch.bfloat16))
+    serve(eng, work)
+    if not eng.counters["spec_accepted"]:
+        raise AssertionError("the x0.1 bf16 run accepted no draft")
+    metrics["scaled"] = {"accept_per_verify": eng.metrics_snapshot()["spec"]["accept_per_verify"],
+                         "steps": eng.step_count, "plain_engine_steps": plain_steps,
+                         "fp32": scaled_fp32}
+    log(f"[spec] segments x 0.1: accept_per_verify "
+        f"{metrics['scaled']['accept_per_verify']:.3f}, {eng.step_count} engine "
+        f"steps (plain engine: {plain_steps})")
+    del eng, scaled
+
+    # Profiled window: 8 speculative steps with all slots running.
+    eng = PagedEngine(params, ms, spec_config(torch.bfloat16))
+    for _, prompt, n in work[:N_SLOTS]:
+        eng.add_request(prompt, n)
+    eng.step()
+    metrics["busy_share"] = profile_decode(lambda: [eng.step() for _ in range(8)],
+                                           "spec engine 8 steps")
+    return launches, metrics
+
+
+def cohort_launches(eng, cohort):
+    """(prefill launches, decode launches) of one cohort, from the engine's
+    spans (no preemption, every prefill bucketed): one bucket launch per
+    (step, bucket) of the cohort's batched prefills, one decode launch per
+    step in which a request of the cohort was on a slot."""
+    from repro_torch.serve import bucket_for
+    groups, dec = set(), set()
+    for span in eng.telemetry.spans.values():
+        if span.cohort != cohort:
+            continue
+        adm = span.events_of("admitted")[0].step
+        dec.update(range(adm, span.events[-1].step + 1))
+        for e in span.events_of("prefill"):
+            if not e.attrs.get("batched"):
+                raise AssertionError("an exact prefill in the degraded run")
+            groups.add((e.step, bucket_for(e.attrs["tokens"], eng._buckets)))
+    return len(groups), len(dec)
+
+
+def degraded_path(cfg, ms, params):
+    """The degraded-cohort engine (2 of 8 slots at plan_range(0, 22)).
+    Returns (launches of the timed bf16 run, metrics)."""
+    import torch
+    from repro_torch.serve import COHORT_DEGRADED, COHORT_MAIN, PagedEngine
+
+    work = engine_traffic(cfg.vocab_size)
+    n_groups, n_pairs = model_counts(ms)
+
+    # Parity run: fp32 pool, each stream against generate at its cohort's plan.
+    eng = PagedEngine(params, ms, degraded_config(torch.float32))
+    got = serve(eng, work)
+    cohorts = [eng.request(r).cohort for r in sorted(eng._requests)]
+    models = [(eng.params_deg, eng.ms_deg) if co == COHORT_DEGRADED else (params, ms)
+              for co in cohorts]
+    n_equal = held_to("degraded", models, work, got, generate_streams(models, work))
+    n_deg = cohorts.count(COHORT_DEGRADED)
+    log(f"[degraded] parity (fp32 pool): {n_equal}/{len(work)} streams equal to "
+        f"generate at their cohort's plan; cohorts: {n_deg} degraded, "
+        f"{cohorts.count(COHORT_MAIN)} main, degraded_admissions "
+        f"{eng.counters['degraded_admissions']}")
+    if not (n_deg and eng.counters["degraded_admissions"] and COHORT_MAIN in cohorts):
+        raise AssertionError("the degraded engine did not serve both cohorts")
+    g_groups, g_pairs = model_counts(eng.ms_deg)
+
+    # Timed run: bf16 pool, launches reconciled per cohort.
+    serve(PagedEngine(params, ms, degraded_config(torch.bfloat16)), work[:N_SLOTS])
+    eng = PagedEngine(params, ms, degraded_config(torch.bfloat16))
+    launches, wall_s, steps, out = timed_serve(eng, work)
+    c = dict(eng.counters)
+    if c["preempted"] or c["failed"]:
+        raise AssertionError(f"degraded engine counters {c}")
+    mp, md = cohort_launches(eng, COHORT_MAIN)
+    dp, dd = cohort_launches(eng, COHORT_DEGRADED)
+    if mp + dp != c["bucket_groups"]:
+        raise AssertionError(f"bucket launches {mp} + {dp} != {c['bucket_groups']}")
+    want = {"dual_rmsnorm": 2 * n_pairs * (mp + md) + 2 * g_pairs * (dp + dd),
+            "decode_attention": 0, "decode_attention_pair": 0,
+            "decode_attention_paged": (n_groups - n_pairs) * md + (g_groups - g_pairs) * dd,
+            "decode_attention_pair_paged": n_pairs * md + g_pairs * dd,
+            "flash_attention": n_groups * mp + g_groups * dp, "ssm_scan": 0}
+    reconcile("degraded", launches, want)
+    if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size for o in out):
+        raise AssertionError("degraded engine streams of the wrong length or out of range")
+    metrics = decode_metrics(wall_s, steps)
+    metrics.update(decoded=c["decoded"], degraded_admissions=c["degraded_admissions"],
+                   launches_by_cohort={"main": {"prefill": mp, "decode": md},
+                                       "degraded": {"prefill": dp, "decode": dd}},
+                   parity_streams_equal=n_equal, parity_streams=len(work))
+    log("[degraded] " + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                                 for k, v in metrics.items()))
     return launches, metrics
 
 
@@ -1115,33 +1448,17 @@ def mamba_engine_parity(cfg, ms, params):
     """fp32 weights and pool: the engine's streams against ``generate``'s on
     the card, with phase 6's traffic. Returns the count of equal streams."""
     import torch
-    from repro_torch.parallel.context import ParallelContext
-    from repro_torch.serve import PagedEngine, ServeConfig, generate
+    from repro_torch.serve import PagedEngine
 
-    pc = ParallelContext()
     work = engine_traffic(cfg.vocab_size)
     eng = PagedEngine(params, ms, engine_config(torch.float32))
     if eng.prefix is not None or eng._buckets:
         raise AssertionError("prefix cache or bucket ladder on for a recurrent mixer")
     got = serve(eng, work)
-    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
-    n_equal, worst = 0, 0.0
-    for (_, prompt, n), stream in zip(work, got):
-        want = generate(params, torch.from_numpy(prompt).cuda()[None], n, ms=ms,
-                        pc=pc, sv=sv)[0].cpu().numpy()
-        if want.tolist() == stream.tolist():
-            n_equal += 1
-            continue
-        i, margin, scale = first_divergence(params, ms, pc, prompt, want, stream)
-        worst = max(worst, margin / scale)
-        log(f"[mamba] stream of a {len(prompt)}-token prompt leaves generate at "
-            f"token {i}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
-            f"({margin / scale:.5f}, limit {MARGIN_FRAC})")
+    models = [(params, ms)] * len(work)
+    n_equal = held_to("mamba", models, work, got, generate_streams(models, work))
     log(f"[mamba] engine parity (fp32 weights and pool): {n_equal}/{len(work)} "
         f"streams equal to generate on the card")
-    if worst > MARGIN_FRAC:
-        raise AssertionError("a mamba engine stream diverged from generate away "
-                             "from a near-tie")
     return n_equal
 
 
@@ -1209,6 +1526,23 @@ def mamba_engine(cfg, ms, params):
     return launches, metrics
 
 
+def mamba_path():
+    """Phase 7: engine parity in fp32, then generate and the timed engine in
+    bf16. Returns (generate's launches, the engine's launches, their
+    metrics)."""
+    import torch
+    cfg, ms, params = mamba_model()
+    n_equal = mamba_engine_parity(cfg, ms, params)
+    params.to(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_launches, gen = mamba_generate(cfg, ms, params)
+    eng_launches, eng = mamba_engine(cfg, ms, params)
+    eng.update(parity_streams_equal=n_equal,
+               parity_streams=len(engine_traffic(cfg.vocab_size)))
+    return gen_launches, eng_launches, gen, eng
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -1258,30 +1592,41 @@ def main() -> int:
         from repro_torch.kernels import ops
         print(json.dumps({"norm_times": norm_times(ops), "smi": smi.splitlines()[0]}))
         return 0
-    rows = check_kernels()
-    reduced_parity()
-    reduced_mamba_parity()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[time] {name}: {phase_s[name]:.1f}s")
+        return out
+
+    phase_s["build"] = time.perf_counter() - t0
+    rows = phase("3 kernels", check_kernels)
+    phase("4 reduced parity", lambda: (reduced_parity(), reduced_mamba_parity()))
     by_path = {}                              # each path reads its own counts
-    by_path["generate"], e2e = main_path()
-    by_path["engine"], engine = engine_path()
+    by_path["generate"], e2e = phase("5 generate", main_path)
+    cfg, ms, params = tinyllama_model()
+    by_path["engine"], engine, plain = phase("6 engine", engine_path, cfg, ms, params)
+    by_path["engine_spec"], spec = phase("8 spec engine", spec_path, cfg, ms, params,
+                                         plain, engine["steps"])
+    by_path["engine_degraded"], degraded = phase("8 degraded engine", degraded_path,
+                                                 cfg, ms, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()                  # the tinyllama weights are gone
-    cfg, ms, params = mamba_model()
-    n_equal = mamba_engine_parity(cfg, ms, params)
-    params.to(torch.bfloat16)
-    gc.collect()
-    torch.cuda.empty_cache()
-    by_path["mamba_generate"], mamba_gen = mamba_generate(cfg, ms, params)
-    by_path["mamba_engine"], mamba_eng = mamba_engine(cfg, ms, params)
-    mamba_eng.update(parity_streams_equal=n_equal,
-                     parity_streams=len(engine_traffic(cfg.vocab_size)))
-    del params
+    by_path["mamba_generate"], by_path["mamba_engine"], mamba_gen, mamba_eng = phase(
+        "7 mamba", mamba_path)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
     for path in ("mamba_generate", "mamba_engine"):
         if not by_path[path]["ssm_scan"]:
             raise AssertionError(f"ssm_scan was not launched on {path}")
+    for path in ("engine_spec", "engine_degraded"):
+        for name in ("dual_rmsnorm", "decode_attention_pair_paged", "flash_attention"):
+            if not by_path[path][name]:
+                raise AssertionError(f"{name} was not launched on {path}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -1300,13 +1645,18 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if name == "flash_attention":
             kernels[-1]["engine_bucket"] = rows[("flash_attention_bucket", dtype)]
+        if name in ("decode_attention_paged", "decode_attention_pair_paged"):
+            kernels[-1]["verify"] = {str(d).split(".")[1]: rows[("verify", name, d)]
+                                     for d in (torch.bfloat16, torch.float32)}
         if name == "dual_rmsnorm":
             kernels[-1].update(library="two F.rms_norm calls, one per path (timed only)",
                                shapes=rows["dual_rmsnorm_shapes"])
     print(json.dumps({"kernels": kernels, "launch_floor_ms": rows["launch_floor_ms"],
                       "launch_floor_pdl_ms": rows["launch_floor_pdl_ms"],
-                      **e2e, "engine": engine,
-                      "mamba": {"generate": mamba_gen, "engine": mamba_eng}}))
+                      **e2e, "engine": engine, "engine_spec": spec,
+                      "engine_degraded": degraded,
+                      "mamba": {"generate": mamba_gen, "engine": mamba_eng},
+                      "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,13 @@ from repro_torch.serve.telemetry import (  # noqa: F401
     SpanStateError,
     Telemetry,
 )
+from repro_torch.serve.trace import (  # noqa: F401
+    build_trace,
+    dumps_trace,
+    strip_wall,
+    validate_trace,
+    write_trace,
+)
 from repro_torch.serve.prefix_cache import (  # noqa: F401
     PrefixCache,
     RadixNode,
@@ -60,4 +67,21 @@ from repro_torch.serve.scheduler import (  # noqa: F401
     PagePool,
     Request,
     Scheduler,
+)
+from repro_torch.serve.speculative import (  # noqa: F401
+    COHORT_SPEC_DRAFT,
+    COHORT_SPEC_VERIFY,
+    SpecEpisode,
+    accept_length,
+    build_draft_step,
+    build_verify_batch,
+    commit_tokens,
+    draft_plan_for,
+    spec_eligible,
+    stale_span,
+)
+from repro_torch.serve.paged_cache import (  # noqa: F401
+    rewind_plan,
+    rewind_tokens,
+    scatter_prefill_rows,
 )

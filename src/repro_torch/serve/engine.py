@@ -51,21 +51,41 @@ JAX engine): every admission prefills its exact prompt in its own launch,
 and a preempted request resumes by a full re-prefill and a replay that
 leaves every other slot's state as it was.
 
-This is the JAX engine's main cohort at world size 1, for attention + MLP
-models and Mamba models: the degraded cohort and speculative decoding
-(ROADMAP item 9) and tensor parallelism (item 10) raise
+Overload degradation (``degrade_delta``): the engine re-pairs the SAME
+weights under a more aggressive Δ plan (``core.lp.replan``, no reload, no
+retraining) and reserves ``degrade_slots`` decode slots as a DEGRADED
+cohort with its own decode program over its own pool tree (same page-id
+space). Under SLO pressure (queue depth >= ``degrade_queue_depth``) new
+admissions overflow into that cohort; its greedy streams equal an engine
+built wholly at the aggressive plan, and the cohorts never share radix
+pages (kv bits are plan-specific).
+
+Self-speculative decoding (``spec_k > 0``, ``serve.speculative``): the
+same weights re-paired at an aggressive Δ draft ``spec_k`` tokens per slot,
+and ONE full-depth verify launch at batch ``n_slots * (spec_k + 1)``
+accepts the drafts the full model agrees with plus its own bonus token.
+The whole episode (drafts, probe-row packing, verify) is one device
+episode with one host-to-device copy in and one copy out; rejected
+positions are then un-written in both pool trees. Greedy streams equal the
+``spec_k = 0`` engine's. Recurrent mixers turn speculation off with a
+warning.
+
+This is the JAX engine at world size 1, for attention + MLP models and
+Mamba models: tensor parallelism (``mesh``, ROADMAP item 10) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import lp as LP
 from repro_torch.model import embedding as E
 from repro_torch.model import transformer as T
 from repro_torch.model.params import as_tree
@@ -73,15 +93,18 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.serve import bucketing as BK
 from repro_torch.serve import faults as F
 from repro_torch.serve import paged_cache as PG
+from repro_torch.serve import speculative as SP
 from repro_torch.serve.faults import (BlockTableCorruptionError,
                                       InvalidRequestError, LoadShedError,
                                       NonFiniteLogitsError,
                                       PoisonedPromptError, QueueFullError)
 from repro_torch.serve.prefix_cache import PrefixCache
-from repro_torch.serve.scheduler import (COHORT_MAIN, TERMINAL_STATES,
-                                         PagePool, Request, Scheduler)
+from repro_torch.serve.scheduler import (COHORT_DEGRADED, COHORT_MAIN,
+                                         TERMINAL_STATES, PagePool, Request,
+                                         Scheduler)
 from repro_torch.serve.telemetry import (DECODE, PREFILL, REPLAY,
                                          ProgramCache, Telemetry)
+from repro_torch.serve.trace import write_trace
 
 
 @dataclass(frozen=True)
@@ -199,6 +222,54 @@ def make_paged_decode_fn(ms: T.ModelStructure, pc: ParallelContext, psv):
     return f
 
 
+def make_spec_step_fn(ms_draft: T.ModelStructure, ms: T.ModelStructure,
+                      pc: ParallelContext, psv, k: int):
+    """Speculative step: (params_draft, params, caches_draft, caches, tok,
+    pos, bt, poison, remaining) -> (drafts [k, n], yhat [n*(k+1)],
+    ok [n*(k+1)]); both pools are updated in place.
+
+    One device episode: ``k`` greedy draft steps at the drafter's plan (the
+    device-side twin of ``speculative.build_draft_step``: a slot whose
+    commit budget ends mid-episode feeds token 0 at position 0 against the
+    garbage page), the probe-row packing (twin of
+    ``speculative.build_verify_batch``: row ``s*(k+1)+j`` feeds slot s's
+    token j at p0+j), and ONE full-depth verify through the regular paged
+    decode at batch ``n*(k+1)``. Nothing in it reads a value back to the
+    host. Draft rows are never poisoned and their finite flags are ignored
+    (garbage proposals are simply refused by the verify, whose own per-row
+    ``ok`` is returned); a poisoned slot's flag goes to each of its live
+    verify rows."""
+    draft = make_paged_decode_fn(ms_draft, pc, psv)
+    verify = make_paged_decode_fn(ms, pc, psv)
+
+    def f(params_draft, params, caches_draft, caches, tok, pos, bt, poison,
+          remaining):
+        n = tok.shape[0]
+        no_poison = torch.zeros((n,), dtype=torch.bool, device=tok.device)
+        garbage = torch.full_like(bt, PG.GARBAGE_PAGE)
+        prev, drafts = tok, []
+        for j in range(k):
+            act = (remaining >= 0) & (j <= remaining)
+            d, _, _ = draft(params_draft, caches_draft,
+                            torch.where(act, prev, 0),
+                            torch.where(act, pos + j, 0),
+                            torch.where(act[:, None], bt, garbage), no_poison)
+            prev = d.to(tok.dtype)
+            drafts.append(prev)
+        drafts = torch.stack(drafts)                            # [k, n]
+        j = torch.arange(k + 1, dtype=pos.dtype, device=pos.device)
+        act = (remaining[:, None] >= 0) & (j <= remaining[:, None])  # [n, k+1]
+        u = torch.cat([tok[:, None], drafts.T], dim=1)
+        tok_v = torch.where(act, u, 0).reshape(-1)
+        pos_v = torch.where(act, pos[:, None] + j, 0).reshape(-1)
+        bt_v = torch.where(act[:, :, None], bt[:, None], garbage[:, None])
+        poison_v = (poison[:, None] & act).reshape(-1)
+        yhat, ok, _ = verify(params, caches, tok_v, pos_v,
+                             bt_v.reshape(n * (k + 1), -1), poison_v)
+        return drafts, yhat, ok
+    return f
+
+
 def make_paged_prefill_fn(ms: T.ModelStructure, pc: ParallelContext, psv,
                           prompt_len: int):
     """Exact-length prefill + page scatter: (params, caches, prompt
@@ -304,7 +375,7 @@ class AdmissionConfig:
 
 @dataclass(frozen=True)
 class DegradeConfig:
-    """Overload degradation: the aggressive-Δ slot cohort (not ported)."""
+    """Overload degradation: the aggressive-Δ slot cohort."""
     enabled: bool = False
     slots: int = 0
     queue_depth: int = 1
@@ -313,7 +384,7 @@ class DegradeConfig:
 
 @dataclass(frozen=True)
 class SpecConfig:
-    """Self-speculative decoding (not ported)."""
+    """Self-speculative decoding: draft length and drafter depth."""
     k: int = 0
     delta: int = 0
 
@@ -346,8 +417,9 @@ class PagedServeConfig:
     (deadline-aware shedding, else ``QueueFullError``). telemetry=False
     drops span/gauge-series/wall retention; profile_decode wraps each
     decode launch in a ``torch.profiler.record_function`` range.
-    degrade_delta and spec_k are the JAX engine's degraded cohort and
-    speculative decoding, not ported (the engine raises).
+    degrade_delta: the aggressive-Δ overload cohort on the top
+    ``degrade_slots`` slots. spec_k: self-speculative decoding with that
+    many drafts per verify.
     """
     n_slots: int = 8              # concurrent decode slots (fixed batch)
     page_size: int = 16           # tokens per cache page
@@ -463,16 +535,18 @@ class PagedEngine:
     One ``step()`` is: chaos injection (when armed) -> deadline expiry ->
     FCFS admission (prompts and prefill outputs pass fault guards; bucket
     groups prefill in one launch each) -> block-table validation -> ONE
-    fixed-shape decode launch over the slots. Finished requests release
+    fixed-shape decode launch per active cohort (the main cohort's is a
+    speculative episode when ``spec_k > 0``). Finished requests release
     their slot and pages the same step; FAILED/CANCELLED/EXPIRED requests
     release within the step that terminates them.
 
     Greedy outputs per request equal one-shot ``generate(params,
-    prompt[None], max_new)`` with this engine's ``max_len``: every
-    cross-request interaction is row-independent, which is also why
-    failing one slot leaves the survivors' streams untouched. The engine
-    runs on the weights' device: the card, or the CPU when the caller put
-    the weights there (kernels' plain versions).
+    prompt[None], max_new)`` with this engine's ``max_len`` (at the
+    degraded plan for a degraded-cohort request): every cross-request
+    interaction is row-independent, which is also why failing one slot
+    leaves the survivors' streams untouched. The engine runs on the
+    weights' device: the card, or the CPU when the caller put the weights
+    there (kernels' plain versions).
 
     ``fault_plan``: a ``serve.faults.FaultPlan``; each step applies that
     step's events through the same hooks real faults take, and
@@ -486,7 +560,9 @@ class PagedEngine:
         "replay_tokens", "full_prefills", "suffix_prefills", "prefix_hits",
         "bucket_prefills", "bucket_groups", "pad_tokens",
         "submitted", "admitted", "decoded", "finished", "preempted",
-        "failed", "expired", "cancelled", "shed")
+        "failed", "expired", "cancelled", "shed", "degraded_admissions",
+        "draft_steps", "verify_steps", "spec_accepted", "spec_rejected",
+        "spec_rewound")
     #: The subset ``step()`` reports as per-step deltas.
     STEP_STAT_KEYS = ("admitted", "decoded", "finished", "preempted",
                       "failed", "expired")
@@ -496,10 +572,6 @@ class PagedEngine:
                  generator: Optional[torch.Generator] = None, mesh=None,
                  fault_plan: Optional[F.FaultPlan] = None):
         psv.validate()
-        if psv.degrade_delta or psv.spec_k:
-            raise NotImplementedError(
-                "the degraded cohort (degrade_delta) and speculative decoding "
-                "(spec_k) are not ported yet: ROADMAP item 9")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet: ROADMAP "
@@ -510,7 +582,42 @@ class PagedEngine:
         self.pc = pc if pc is not None else ParallelContext()
         self.params = as_tree(params)
         self.device = self.params["embed"]["tok"].device
-        self.n_main = psv.n_slots
+        self.n_main = psv.n_slots - (psv.degrade_slots
+                                     if psv.degrade_delta else 0)
+        self.n_deg = psv.n_slots - self.n_main
+        cfg = ms.cfg
+        # Degraded-cohort model: the SAME weights re-paired under an
+        # aggressive Δ plan. Only the re-paired segments are new tensors;
+        # the embedding and head are shared.
+        self.ms_deg = self.params_deg = None
+        if psv.degrade_delta:
+            deg_plan = (LP.plan_for_depth(cfg, psv.degrade_eff_depth,
+                                          end=cfg.n_layers)
+                        if psv.degrade_eff_depth > 0
+                        else LP.plan_range(cfg, 0, cfg.n_layers))
+            if len(deg_plan.pairs) <= len(ms.plan.pairs):
+                raise ValueError(
+                    f"degraded plan pairs {len(deg_plan.pairs)} vs base "
+                    f"{len(ms.plan.pairs)}: the degraded cohort must be "
+                    "strictly MORE aggressive than the base plan (lower "
+                    "degrade_eff_depth, or use a shallower base)")
+            self.ms_deg, self.params_deg = self._replanned(deg_plan)
+        # Speculative drafter: the same weights re-paired at an aggressive
+        # Δ. Recurrent mixers turn speculation off with a warning, and the
+        # engine then behaves exactly as spec_k=0.
+        self.spec_k = psv.spec_k
+        self.ms_draft = self.params_draft = None
+        if self.spec_k and not SP.spec_eligible(ms):
+            warnings.warn(
+                f"{cfg.name}: speculative decoding auto-disabled — "
+                "recurrent mixer state (mamba conv/h, RG-LRU h) advances "
+                "on every launch and has no per-position representation "
+                "to rewind; serving continues non-speculatively",
+                stacklevel=2)
+            self.spec_k = 0
+        if self.spec_k:
+            self.ms_draft, self.params_draft = self._replanned(
+                SP.draft_plan_for(cfg, ms.plan, psv.spec_delta))
         self.telemetry = Telemetry(enabled=psv.telemetry)
         self.telemetry.seed_counters(self.COUNTER_KEYS)
         self.telemetry.fault_counts.update({k: 0 for k in F.ALL_FAULT_KINDS})
@@ -535,24 +642,60 @@ class PagedEngine:
             max_len=psv.max_len,
             prefill_token_budget=psv.prefill_token_budget,
             prefix_cache=self.prefix, preempt_after=psv.preempt_after,
-            telemetry=self.telemetry, prefill_buckets=self._buckets)
-        self.caches = PG.init_paged_caches(
-            ms, n_slots=self.n_main, n_pages=psv.n_pages,
-            page_size=psv.page_size, dtype=psv.cache_dtype,
-            device=self.device)
-        self.block_tables = np.full((self.n_main, psv.pages_per_slot),
-                                    PG.GARBAGE_PAGE, np.int32)
+            degrade_slots=self.n_deg, telemetry=self.telemetry,
+            prefill_buckets=self._buckets)
+
+        def pool_for(model, n_slots):
+            return PG.init_paged_caches(
+                model, n_slots=n_slots, n_pages=psv.n_pages,
+                page_size=psv.page_size, dtype=psv.cache_dtype,
+                device=self.device)
+
+        self.caches = pool_for(ms, self.n_main)
+        # The degraded and draft trees span the SAME page-id space (one
+        # host PagePool hands out ids to both cohorts; one block table
+        # serves the main and draft trees). The draft tree holds
+        # aggressive-plan kv that only feeds proposals: the verify reads
+        # the MAIN tree, so draft bits can move acceptance but never
+        # committed output.
+        self.caches_deg = (pool_for(self.ms_deg, self.n_deg) if self.n_deg
+                           else None)
+        self.caches_draft = (pool_for(self.ms_draft, self.n_main)
+                             if self.spec_k else None)
+        P_slot = psv.pages_per_slot
+        self.block_tables = np.full((self.n_main, P_slot), PG.GARBAGE_PAGE,
+                                    np.int32)
         self.tok = np.zeros((self.n_main,), np.int32)
         self.pos = np.zeros((self.n_main,), np.int32)
+        self.block_tables_deg = np.full((self.n_deg, P_slot),
+                                        PG.GARBAGE_PAGE, np.int32)
+        self.tok_deg = np.zeros((self.n_deg,), np.int32)
+        self.pos_deg = np.zeros((self.n_deg,), np.int32)
         if psv.temperature > 0 and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
         self.step_count = 0
         self.results: Dict[int, np.ndarray] = {}
         self._requests: Dict[int, Request] = {}
-        self._decode = self._programs.get(
-            COHORT_MAIN, "decode", self.n_main,
-            lambda: make_paged_decode_fn(ms, self.pc, psv))
+        self._decode = self._make_decode(COHORT_MAIN)
+        self._decode_deg = (self._make_decode(COHORT_DEGRADED)
+                            if self.n_deg else None)
+        self._spec_step = None
+        if self.spec_k:
+            # One program holds both speculative bodies: the k-step draft
+            # episode at the aggressive plan (batch n_main) and the
+            # verifier, which IS the regular decode at batch
+            # n_main * (spec_k + 1). It lives under the draft key and the
+            # verify body is note()d, so the compile stream shows both.
+            self._spec_step = self._programs.get(
+                SP.COHORT_SPEC_DRAFT, "decode", self.n_main,
+                lambda: make_spec_step_fn(self.ms_draft, ms, self.pc, psv,
+                                          self.spec_k))
+            self._programs.note(SP.COHORT_SPEC_VERIFY, "decode",
+                                self.n_main * (self.spec_k + 1))
+        # rids whose draft tree a bucketed draft-mirror launch primed this
+        # step: _spec_prime then skips its full-prompt draft prefill.
+        self._spec_primed: set = set()
         # Greedy + fp32 pool => replay recomputation reproduces the
         # original run; the engine then self-checks the replay.
         self._exact = (psv.temperature == 0.0
@@ -561,6 +704,17 @@ class PagedEngine:
         self._poison_slots: set = set()   # slots NaN-poisoned THIS step
         self._poison_next = 0             # deferred poison_prompt events
         self._storm_next = 0              # deferred deadline_storm victims
+
+    def _replanned(self, plan) -> Tuple[T.ModelStructure, Dict[str, Any]]:
+        """(structure, params) of the same weights re-paired under
+        ``plan``: new tensors for the re-stacked segments only."""
+        cfg = self.ms.cfg
+        segs, seg_params = LP.replan(cfg, self.params["segments"],
+                                     self.ms.segments, plan)
+        ms2 = T.build_structure(cfg, plan=plan, tp=self.ms.tp)
+        assert tuple(s.group.specs for s in ms2.segments) == \
+            tuple(s.group.specs for s in segs)
+        return ms2, dict(self.params, segments=seg_params)
 
     @staticmethod
     def _prefix_eligible(ms: T.ModelStructure) -> bool:
@@ -584,6 +738,35 @@ class PagedEngine:
     def fault_counts(self) -> Dict[str, int]:
         return self.telemetry.fault_counts
 
+    # -- cohort plumbing ------------------------------------------------
+    def _cohort_of_slot(self, slot: int) -> str:
+        return COHORT_MAIN if slot < self.n_main else COHORT_DEGRADED
+
+    def _arrays(self, cohort: str):
+        """(tok, pos, block_tables, slot_base) for a cohort; slot indices
+        into these arrays are ``global_slot - slot_base``."""
+        if cohort == COHORT_MAIN:
+            return self.tok, self.pos, self.block_tables, 0
+        return self.tok_deg, self.pos_deg, self.block_tables_deg, self.n_main
+
+    def _model(self, cohort: str):
+        """(params, structure) of a cohort's programs."""
+        if cohort == COHORT_MAIN:
+            return self.params, self.ms
+        if cohort == SP.COHORT_SPEC_DRAFT:
+            return self.params_draft, self.ms_draft
+        return self.params_deg, self.ms_deg
+
+    def _get_caches(self, cohort: str):
+        if cohort == COHORT_MAIN:
+            return self.caches
+        if cohort == SP.COHORT_SPEC_DRAFT:
+            return self.caches_draft
+        return self.caches_deg
+
+    def _decode_fn(self, cohort: str):
+        return self._decode if cohort == COHORT_MAIN else self._decode_deg
+
     # -- host <-> device ------------------------------------------------
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Int arrays -> int32 tensors on the engine's device in ONE copy
@@ -599,44 +782,79 @@ class PagedEngine:
         return out
 
     @staticmethod
-    def _to_host(tok, ok) -> Tuple[np.ndarray, np.ndarray]:
-        """Tokens and finite flags -> host in ONE copy."""
-        both = torch.stack([tok.to(torch.int32), ok.to(torch.int32)]).cpu()
-        return both[0].numpy(), both[1].numpy().astype(bool)
+    def _to_host(*tensors) -> List[np.ndarray]:
+        """Int or bool tensors (tokens, finite flags) -> int32 host arrays
+        in ONE copy, each in its own shape."""
+        flat = torch.cat([t.reshape(-1).to(torch.int32)
+                          for t in tensors]).cpu()
+        out, i = [], 0
+        for t in tensors:
+            out.append(flat[i:i + t.numel()].numpy().reshape(t.shape))
+            i += t.numel()
+        return out
 
     # -- programs ---------------------------------------------------------
     # The build callables record nothing: callers go through
     # ``self._programs.get``, which records a compile event exactly once
     # per key.
-    def _prefill_fn(self, prompt_len: int):
+    def _make_decode(self, cohort: str):
         return self._programs.get(
-            COHORT_MAIN, "prefill_full", prompt_len,
-            lambda: make_paged_prefill_fn(self.ms, self.pc, self.psv,
-                                          prompt_len))
+            cohort, "decode", len(self._arrays(cohort)[0]),
+            lambda: make_paged_decode_fn(self._model(cohort)[1], self.pc,
+                                         self.psv))
 
-    def _bucket_ctx_pages(self) -> int:
-        """Ctx-page width of the bucket programs: prefix-on engines route
-        EVERY bucket launch through the ctx-aware program (cold rows pass
-        ctx_len 0), so hits and colds share one program. A radix match
-        always leaves a >= 2-token suffix (``Scheduler._match_cap``), so
-        ctx pages <= pages_per_slot - 1."""
-        return self.psv.pages_per_slot - 1 if self.prefix is not None else 0
-
-    def _bucket_prefill_fn(self, bucket: int, rows: int):
-        ctx_pages = self._bucket_ctx_pages()
+    def _prefill_fn(self, prompt_len: int, cohort: str):
+        """Exact-length prefill for a cohort (the cohorts differ in the
+        model structure and the pool tree)."""
         return self._programs.get(
-            COHORT_MAIN, "prefill_bucket", (bucket, rows),
-            lambda: make_paged_bucket_prefill_fn(self.ms, self.pc, self.psv,
-                                                 bucket, rows, ctx_pages))
+            cohort, "prefill_full", prompt_len,
+            lambda: make_paged_prefill_fn(self._model(cohort)[1], self.pc,
+                                          self.psv, prompt_len))
+
+    def _bucket_ctx_pages(self, cohort: str) -> int:
+        """Ctx-page width of the cohort's bucket programs: prefix-on main
+        cohorts route EVERY bucket launch through the ctx-aware program
+        (cold rows pass ctx_len 0), so hits and colds share one program. A
+        radix match always leaves a >= 2-token suffix
+        (``Scheduler._match_cap``), so ctx pages <= pages_per_slot - 1.
+        Draft-mirror and degraded launches keep the plain program (the
+        radix tree never holds their plan's pages)."""
+        if self.prefix is not None and cohort == COHORT_MAIN:
+            return self.psv.pages_per_slot - 1
+        return 0
+
+    def _bucket_prefill_fn(self, bucket: int, rows: int, cohort: str):
+        ctx_pages = self._bucket_ctx_pages(cohort)
+        return self._programs.get(
+            cohort, "prefill_bucket", (bucket, rows),
+            lambda: make_paged_bucket_prefill_fn(
+                self._model(cohort)[1], self.pc, self.psv, bucket, rows,
+                ctx_pages))
 
     def _suffix_fn(self, n_ctx_pages: int, suffix_len: int):
+        """Prefix-hit exact-shape prefill (main cohort only: the radix tree
+        never holds degraded-plan pages)."""
         return self._programs.get(
             COHORT_MAIN, "prefill_suffix", (n_ctx_pages, suffix_len),
             lambda: make_paged_suffix_prefill_fn(self.ms, self.pc, self.psv,
                                                  n_ctx_pages, suffix_len))
 
-    def _scrub_fn(self):
-        return self._programs.get(COHORT_MAIN, "scrub",
+    def _draft_decode_fn(self):
+        """Single-step draft decode: only the resume catch-up needs it (the
+        decode phase runs the speculative step instead)."""
+        return self._programs.get(
+            SP.COHORT_SPEC_DRAFT, "decode_catchup", self.n_main,
+            lambda: make_paged_decode_fn(self.ms_draft, self.pc, self.psv))
+
+    def _spec_prefill_fn(self, prompt_len: int):
+        """Draft-tree prefill at the aggressive plan."""
+        return self._programs.get(
+            SP.COHORT_SPEC_DRAFT, "prefill_full", prompt_len,
+            lambda: make_paged_prefill_fn(self.ms_draft, self.pc, self.psv,
+                                          prompt_len))
+
+    def _scrub_fn(self, cohort: str):
+        return self._programs.get(cohort, "scrub",
                                   self.psv.pages_per_slot,
                                   lambda: PG.scrub_pages)
 
@@ -711,9 +929,25 @@ class PagedEngine:
 
     # -- fault containment ---------------------------------------------
     def _clear_slot(self, slot: int) -> None:
-        self.block_tables[slot] = PG.GARBAGE_PAGE
-        self.tok[slot] = 0
-        self.pos[slot] = 0
+        tok, pos, bt, lo = self._arrays(self._cohort_of_slot(slot))
+        bt[slot - lo] = PG.GARBAGE_PAGE
+        tok[slot - lo] = 0
+        pos[slot - lo] = 0
+
+    def _scrub_slot(self, r: Request, private: List[int]) -> None:
+        """Zero a failing request's private pages (and its slot's state
+        rows) in its cohort's tree, and in the draft tree, which scattered
+        the same request's kv into the same page ids."""
+        cohort = self._cohort_of_slot(r.slot)
+        lo = self._arrays(cohort)[3]
+        ids = np.full((self.psv.pages_per_slot,), PG.GARBAGE_PAGE, np.int32)
+        ids[:len(private)] = private
+        ids = self._to_device(ids)[0]
+        trees = [cohort]
+        if self.spec_k and cohort == COHORT_MAIN:
+            trees.append(SP.COHORT_SPEC_DRAFT)
+        for c in trees:
+            self._scrub_fn(c)(self._get_caches(c), ids, r.slot - lo)
 
     def _fail(self, r: Request, error, *, scrub: bool) -> None:
         """Contain a per-request fault: FAILED, slot row cleared, pages
@@ -724,10 +958,7 @@ class PagedEngine:
         if slot >= 0 and scrub:
             private = r.pages[r.n_shared:]
             if private:
-                ids = np.full((self.psv.pages_per_slot,), PG.GARBAGE_PAGE,
-                              np.int32)
-                ids[:len(private)] = private
-                self._scrub_fn()(self.caches, self._to_device(ids)[0], slot)
+                self._scrub_slot(r, private)
         donated = list(r.donated_pages)
         self.sched.fail(r, self.step_count, error)
         if slot >= 0:
@@ -756,13 +987,14 @@ class PagedEngine:
         exactly its request's pages followed by garbage padding; a mismatch
         fails that request before the decode reads a page it does not own."""
         for slot, r in sorted(self.sched.running.items()):
+            _, _, bt, lo = self._arrays(self._cohort_of_slot(slot))
             expect = np.full((self.psv.pages_per_slot,), PG.GARBAGE_PAGE,
                              np.int32)
             expect[:len(r.pages)] = r.pages
-            if not np.array_equal(self.block_tables[slot], expect):
+            if not np.array_equal(bt[slot - lo], expect):
                 self._fail(r, BlockTableCorruptionError(
                     f"rid={r.rid} slot {slot}: block-table row "
-                    f"{self.block_tables[slot].tolist()} != owned pages "
+                    f"{bt[slot - lo].tolist()} != owned pages "
                     f"{r.pages}"), scrub=False)
 
     # -- chaos ----------------------------------------------------------
@@ -789,9 +1021,10 @@ class PagedEngine:
                 if ev.kind == F.NAN_LOGITS:
                     self._poison_slots.add(slot)
                 else:
+                    _, _, bt, lo = self._arrays(self._cohort_of_slot(slot))
                     col = ev.index % self.psv.pages_per_slot
-                    self.block_tables[slot, col] = (
-                        int(self.block_tables[slot, col]) + ev.payload
+                    bt[slot - lo, col] = (
+                        int(bt[slot - lo, col]) + ev.payload
                     ) % self.psv.n_pages
                 self._log_fault(ev.kind, rid=self.sched.running[slot].rid,
                                 slot=slot)
@@ -819,15 +1052,19 @@ class PagedEngine:
     # -- per-request device work ----------------------------------------
     def _run_prefill(self, r: Request, ctx: int) -> Tuple[int, bool]:
         """Exact-shape prefill of the unmatched prompt suffix (the full
-        prompt when ctx == 0). Returns (first token, finite-guard flag)."""
+        prompt when ctx == 0) in the request's cohort. Returns (first
+        token, finite-guard flag)."""
         ps = self.psv.page_size
         Lp = r.prompt_len
         n_pg_prompt = -(-Lp // ps)
+        cohort = r.cohort
+        params, caches = self._model(cohort)[0], self._get_caches(cohort)
         if ctx == 0:
             prompt, ids = self._to_device(r.prompt[None],
                                           np.asarray(r.pages[:n_pg_prompt]))
-            tok0, ok, _ = self._prefill_fn(Lp)(
-                self.params, self.caches, prompt, ids, r.slot, self.generator)
+            tok0, ok, _ = self._prefill_fn(Lp, cohort)(
+                params, caches, prompt, ids, r.slot - self._arrays(cohort)[3],
+                self.generator)
             self.counters["prefill_tokens"] += Lp
             self.counters["full_prefills"] += 1
         else:
@@ -836,8 +1073,7 @@ class PagedEngine:
                 r.prompt[None, ctx:], np.asarray(r.pages[:m]),
                 np.asarray(r.pages[m:n_pg_prompt]))
             tok0, ok, _ = self._suffix_fn(m, Lp - ctx)(
-                self.params, self.caches, suffix, ctx_ids, sfx_ids,
-                self.generator)
+                params, caches, suffix, ctx_ids, sfx_ids, self.generator)
             self.counters["prefill_tokens"] += Lp - ctx
             self.counters["suffix_prefills"] += 1
         tok0, ok = self._to_host(tok0, ok)
@@ -845,11 +1081,11 @@ class PagedEngine:
 
     def _replay(self, r: Request, start: int) -> bool:
         """Resume catch-up: teacher-force the parked generated tokens whose
-        kv fell outside the surviving radix prefix through the REGULAR
-        decode program (all other slots masked to the garbage page, their
-        rows ignored). With greedy sampling and an fp32 pool the replayed
-        prediction must reproduce the parked token, which the engine
-        asserts. Returns False if the finite guard trips mid-replay.
+        kv fell outside the surviving radix prefix through the cohort's
+        REGULAR decode program (all other slots masked to the garbage page,
+        their rows ignored). With greedy sampling and an fp32 pool the
+        replayed prediction must reproduce the parked token, which the
+        engine asserts. Returns False if the finite guard trips mid-replay.
 
         Recurrent state (Mamba conv/h) needs protection: the masked slots'
         attention writes land on the garbage page, but the decode advances
@@ -862,33 +1098,46 @@ class PagedEngine:
             return True
         self.telemetry.span_event(r.rid, REPLAY, self.step_count,
                                   tokens=end - start)
+        caches = self._get_caches(r.cohort)
+        loc = r.slot - self._arrays(r.cohort)[3]
         saved = [{name: e.clone() for name, e in seg.items()
-                  if not PG.is_paged_entry(name)} for seg in self.caches]
+                  if not PG.is_paged_entry(name)} for seg in caches]
         survived = self._replay_steps(r, start, end)
-        for seg, snap in zip(self.caches, saved):
+        for seg, snap in zip(caches, saved):
             for name, old in snap.items():
                 ba = T.cache_batch_axis(name)
-                keep = torch.tensor([r.slot], device=old.device)
+                keep = torch.tensor([loc], device=old.device)
                 old.index_copy_(ba, keep, seg[name].index_select(ba, keep))
                 seg[name].copy_(old)
         return survived
 
+    def _teacher_force(self, decode, params, caches, r: Request, p: int):
+        """One decode launch feeding ``r``'s token at position ``p`` on its
+        slot, every other slot masked to the garbage page. Returns the
+        launch's (tokens, finite flags) on the device."""
+        tok_a, _, bt_a, lo = self._arrays(r.cohort)
+        size, loc = tok_a.shape[0], r.slot - lo
+        tok_v = np.zeros((size,), np.int32)
+        pos_v = np.zeros((size,), np.int32)
+        bt = np.full_like(bt_a, PG.GARBAGE_PAGE)
+        tok_v[loc] = r.out[p - r.prompt_len]
+        pos_v[loc] = p
+        bt[loc] = bt_a[loc]
+        args = self._to_device(tok_v, pos_v, bt, np.zeros((size,), np.int32))
+        nxt, ok, _ = decode(params, caches, *args[:3], args[3].bool(),
+                            self.generator)
+        return nxt, ok
+
     def _replay_steps(self, r: Request, start: int, end: int) -> bool:
-        """Teacher-force positions [start, end) of ``r`` through the decode
-        program; False when the finite guard trips."""
-        size, loc = self.n_main, r.slot
+        """Teacher-force positions [start, end) of ``r`` through its
+        cohort's decode program; False when the finite guard trips."""
+        decode = self._decode_fn(r.cohort)
+        params, caches = self._model(r.cohort)[0], self._get_caches(r.cohort)
+        loc = r.slot - self._arrays(r.cohort)[3]
         Lp = r.prompt_len
         for p in range(start, end):
-            tok_v = np.zeros((size,), np.int32)
-            pos_v = np.zeros((size,), np.int32)
-            bt = np.full_like(self.block_tables, PG.GARBAGE_PAGE)
-            tok_v[loc] = r.out[p - Lp]
-            pos_v[loc] = p
-            bt[loc] = self.block_tables[loc]
-            args = self._to_device(tok_v, pos_v, bt, np.zeros((size,), np.int32))
-            nxt, ok, _ = self._decode(self.params, self.caches, *args[:3],
-                                      args[3].bool(), self.generator)
-            nxt, ok = self._to_host(nxt, ok)
+            nxt, ok = self._to_host(*self._teacher_force(decode, params,
+                                                         caches, r, p))
             if not ok[loc]:
                 return False
             if self._exact:
@@ -898,19 +1147,47 @@ class PagedEngine:
             self.counters["replay_tokens"] += 1
         return True
 
+    def _spec_prime(self, r: Request) -> None:
+        """Warm the DRAFT tree for a freshly started main-cohort request: a
+        full-prompt prefill at the aggressive plan (unless a bucketed
+        draft-mirror launch already primed it), then teacher-forced
+        catch-up over any parked generated tokens (the resume path).
+
+        Always the FULL prompt, even on a radix hit: draft kv has no radix
+        representation (its bits are plan-specific), and re-deriving it
+        over shared pages writes the same bits the draft tree already
+        holds there. Quality-only work: the verify reads the MAIN tree, so
+        nothing here can move committed output, and its finite guards are
+        ignored for the same reason. No state snapshots: speculation is
+        attention-only."""
+        Lp = r.prompt_len
+        if r.rid in self._spec_primed:
+            self._spec_primed.discard(r.rid)
+        else:
+            prompt, ids = self._to_device(
+                r.prompt[None],
+                np.asarray(r.pages[:-(-Lp // self.psv.page_size)]))
+            self._spec_prefill_fn(Lp)(self.params_draft, self.caches_draft,
+                                      prompt, ids, r.slot, self.generator)
+        for p in range(Lp, Lp + len(r.out) - 1):
+            self._teacher_force(self._draft_decode_fn(), self.params_draft,
+                                self.caches_draft, r, p)
+
     def _start(self, r: Request,
                pre: Optional[Tuple[int, bool]] = None) -> bool:
         """Bring an admitted request onto its slot: link its block table,
         consume the bucketed-prefill result planned for it (``pre``) or run
         the exact-shape prefill itself (full / suffix / skipped when the
-        radix hit covers the whole prompt), and for resumed requests replay
-        the parked positions. Returns False when a fault guard FAILED the
-        request (slot and pages already released)."""
+        radix hit covers the whole prompt), for resumed requests replay
+        the parked positions, and under speculation prime the draft tree.
+        Returns False when a fault guard FAILED the request (slot and pages
+        already released)."""
         ps = self.psv.page_size
         ctx = r.n_shared * ps
         Lp = r.prompt_len
         resumed = bool(r.out)
-        row = self.block_tables[r.slot]
+        tok_a, pos_a, bt_a, lo = self._arrays(r.cohort)
+        row = bt_a[r.slot - lo]
         row[:] = PG.GARBAGE_PAGE
         row[:len(r.pages)] = r.pages
         # hit_tokens counts PROMPT tokens served from shared pages on fresh
@@ -950,15 +1227,18 @@ class PagedEngine:
                 # token must reproduce the parked one.
                 assert tok0 == r.out[0], (tok0, r.out[0], r.rid)
         # Early donation: the prompt pages are complete now, so same-prefix
-        # requests admitted from the NEXT step on can share them.
+        # requests admitted from the NEXT step on can share them (a no-op
+        # for the degraded cohort: its pages hold aggressive-plan bits).
         self.sched.donate_prefilled(r, self.step_count)
         if resumed and not self._replay(r, max(Lp, ctx)):
             self._fail(r, NonFiniteLogitsError(
                 f"rid={r.rid}: non-finite logits during decode replay"),
                 scrub=True)
             return False
-        self.tok[r.slot] = r.out[-1]
-        self.pos[r.slot] = r.pos
+        if self.spec_k:
+            self._spec_prime(r)
+        tok_a[r.slot - lo] = r.out[-1]
+        pos_a[r.slot - lo] = r.pos
         return True
 
     def _finish(self, r: Request) -> None:
@@ -970,15 +1250,15 @@ class PagedEngine:
     def _plan_prefills(self, admitted: List[Request]
                        ) -> Dict[int, Tuple[int, bool]]:
         """Pass 1 of admission: vocab-guard every admitted request, then
-        pack the bucket-eligible prefills into bucket groups and launch
-        each group ONCE. Returns rid -> (first token, finite-ok) for every
-        request whose prefill ran batched; ``_start`` consumes those.
+        pack the bucket-eligible prefills into (cohort, bucket) groups and
+        launch each group ONCE. Returns rid -> (first token, finite-ok) for
+        every request whose prefill ran batched; ``_start`` consumes those.
         Eligible: the ladder is on, suffix tokens remain (a full-prompt
         radix cover skips prefill), and a rung holds the SUFFIX length."""
         pre: Dict[int, Tuple[int, bool]] = {}
         ps = self.psv.page_size
         vocab = self.ms.cfg.vocab_size
-        groups: Dict[int, List[Request]] = {}
+        groups: Dict[Tuple[str, int], List[Request]] = {}
         for r in admitted:
             # Device-boundary prompt guard: the prompt may have been
             # corrupted since submit; an out-of-vocab id would index the
@@ -996,24 +1276,36 @@ class PagedEngine:
                 continue   # radix cover reaches the prompt: replay only
             b = BK.bucket_for(Ls, self._buckets)
             if b is not None:
-                groups.setdefault(b, []).append(r)
-        for b, grp in sorted(groups.items()):
-            pre.update(self._launch_bucket(b, grp))
+                groups.setdefault((r.cohort, b), []).append(r)
+        for (cohort, b), grp in sorted(groups.items()):
+            pre.update(self._launch_bucket(cohort, b, grp))
         return pre
 
-    def _launch_bucket(self, bucket: int, grp: List[Request]
+    def _launch_bucket(self, cohort: str, bucket: int, grp: List[Request]
                        ) -> Dict[int, Tuple[int, bool]]:
-        """One bucket group: right-pad each row's SUFFIX (the full prompt
-        when cold) to ``bucket``, launch chunks of the program's fixed row
-        count (short chunks pad with inert rows: zero prompts, all-garbage
-        page ids), and take each row's token at its true length. Under the
-        ctx-aware program radix-hit rows also carry their matched pages
-        (garbage-padded to the uniform width) and ctx length."""
+        """One bucket group of a cohort: right-pad each row's SUFFIX (the
+        full prompt when cold) to ``bucket``, launch chunks of the
+        program's fixed row count (short chunks pad with inert rows: zero
+        prompts, all-garbage page ids), and take each row's token at its
+        true length. Under the ctx-aware program radix-hit rows also carry
+        their matched pages (garbage-padded to the uniform width) and ctx
+        length.
+
+        Under speculation the main cohort's group also runs through the
+        draft-plan program (the draft mirror), which warms the draft tree;
+        its outputs are ignored and ``_spec_prime`` skips the full-prompt
+        draft prefill of rows primed here. Radix-hit rows are inert in the
+        mirror and not marked primed: the draft tree needs the full prompt,
+        so ``_spec_prime`` prefills it for them."""
         ps = self.psv.page_size
-        rows = BK.rows_for_bucket(bucket, self.n_main,
+        rows = BK.rows_for_bucket(bucket, len(self._arrays(cohort)[0]),
                                   self.psv.prefill_token_budget)
-        ctx_pages = self._bucket_ctx_pages()
-        fn = self._bucket_prefill_fn(bucket, rows)
+        ctx_pages = self._bucket_ctx_pages(cohort)
+        fn = self._bucket_prefill_fn(bucket, rows, cohort)
+        draft_fn = (self._bucket_prefill_fn(bucket, rows,
+                                            SP.COHORT_SPEC_DRAFT)
+                    if self.spec_k and cohort == COHORT_MAIN else None)
+        params, caches = self._model(cohort)[0], self._get_caches(cohort)
         n_pg = bucket // ps
         out: Dict[int, Tuple[int, bool]] = {}
         for i0 in range(0, len(grp), rows):
@@ -1033,24 +1325,41 @@ class PagedEngine:
                 if m:
                     ctx_ids[i, :m] = r.pages[:m]
                     ctx_lens[i] = m * ps
+            if draft_fn is not None:
+                hit = ctx_lens > 0
+                d_args = self._to_device(
+                    np.where(hit[:, None], 0, prompts),
+                    np.where(hit, 1, true_lens),
+                    np.where(hit[:, None], PG.GARBAGE_PAGE, page_ids))
+                draft_fn(self.params_draft, self.caches_draft, *d_args,
+                         self.generator)
             args = self._to_device(prompts, true_lens, page_ids,
                                    *((ctx_ids, ctx_lens) if ctx_pages else ()))
-            tok0, ok, _ = fn(self.params, self.caches, *args, self.generator)
+            tok0, ok, _ = fn(params, caches, *args, self.generator)
             tok0, ok = self._to_host(tok0, ok)
             for i, r in enumerate(chunk):
                 out[r.rid] = (int(tok0[i]), bool(ok[i]))
+                if draft_fn is not None and not r.n_shared:
+                    self._spec_primed.add(r.rid)
             self.counters["bucket_groups"] += 1
             self.counters["pad_tokens"] += rows * bucket - sum(
                 r.prompt_len - r.n_shared * ps for r in chunk)
         return out
 
     def _admit(self, *, count_blocked: bool) -> None:
+        # The SLO-pressure signal: a backlog at least degrade_queue_depth
+        # deep lets an unpinned head overflow into the degraded cohort.
+        degrade = (self.psv.degrade_delta
+                   and self.sched.n_queued >= self.psv.degrade_queue_depth)
         admitted = self.sched.admit(self.step_count,
-                                    count_blocked=count_blocked)
+                                    count_blocked=count_blocked,
+                                    degrade=degrade)
         pre = self._plan_prefills(admitted)
         for r in admitted:
             if r.status in TERMINAL_STATES:
                 continue          # failed by the pass-1 vocab guard
+            if r.cohort == COHORT_DEGRADED and not r.preemptions:
+                self.counters["degraded_admissions"] += 1
             if not self._start(r, pre.get(r.rid)):
                 continue
             # "admitted" counts requests that SURVIVED admission.
@@ -1060,42 +1369,145 @@ class PagedEngine:
             else:
                 self.telemetry.span_event(r.rid, DECODE, self.step_count)
 
-    def _decode_cohort(self) -> None:
-        """ONE decode launch over every slot; running rows take their next
-        token, idle rows are ignored."""
-        running = dict(self.sched.running)
+    def _running(self, cohort: str) -> Dict[int, Request]:
+        """slot -> request of the cohort's running slots."""
+        return {s: r for s, r in self.sched.running.items()
+                if self._cohort_of_slot(s) == cohort}
+
+    def _poison(self, cohort: str) -> np.ndarray:
+        """[cohort size] int32: the slots NaN-poisoned this step."""
+        tok, _, _, lo = self._arrays(cohort)
+        poison = np.zeros(tok.shape, np.int32)
+        for s in self._poison_slots:
+            if self._cohort_of_slot(s) == cohort:
+                poison[s - lo] = 1
+        return poison
+
+    def _decode_cohort(self, cohort: str) -> None:
+        """ONE decode launch over every slot of a cohort; running rows take
+        their next token, idle rows are ignored."""
+        running = self._running(cohort)
         if not running:
             return
-        poison = np.zeros((self.n_main,), np.int32)
-        for s in self._poison_slots:
-            poison[s] = 1
-        tok, pos, bt, poison = self._to_device(self.tok, self.pos,
-                                               self.block_tables, poison)
-        prof = (torch.profiler.record_function(f"paged_decode_{COHORT_MAIN}")
+        tok_a, pos_a, bt_a, lo = self._arrays(cohort)
+        tok, pos, bt, poison = self._to_device(tok_a, pos_a, bt_a,
+                                               self._poison(cohort))
+        prof = (torch.profiler.record_function(f"paged_decode_{cohort}")
                 if self.psv.profile_decode else contextlib.nullcontext())
         with prof:
-            nxt, ok, _ = self._decode(self.params, self.caches, tok, pos, bt,
-                                      poison.bool(), self.generator)
+            nxt, ok, _ = self._decode_fn(cohort)(
+                self._model(cohort)[0], self._get_caches(cohort), tok, pos,
+                bt, poison.bool(), self.generator)
         nxt, ok = self._to_host(nxt, ok)
         for slot, r in sorted(running.items()):
-            if not ok[slot]:
+            loc = slot - lo
+            if not ok[loc]:
                 # Non-finite logits on this row only: scrub its private
                 # pages on the way out; other rows are untouched.
                 self._fail(r, NonFiniteLogitsError(
                     f"rid={r.rid}: non-finite logits in decode at step "
                     f"{self.step_count} (slot {slot})"), scrub=True)
                 continue
-            r.out.append(int(nxt[slot]))
-            self.tok[slot] = nxt[slot]
-            self.pos[slot] += 1
+            r.out.append(int(nxt[loc]))
+            tok_a[loc] = nxt[loc]
+            pos_a[loc] += 1
             self.counters["decoded"] += 1
             if r.done():
                 self._finish(r)
 
+    def _rewind_pages(self, pairs: List[Tuple[int, int]]) -> None:
+        """Un-write rejected speculative positions in BOTH trees. Fixed
+        shape: at most ``n_main * spec_k`` positions can reject per step,
+        padded with ``(GARBAGE_PAGE, 0)`` (``paged_cache.rewind_tokens``)."""
+        cap = self.n_main * self.spec_k
+        assert len(pairs) <= cap, (len(pairs), cap)
+        pages = np.zeros((cap,), np.int32)
+        offs = np.zeros((cap,), np.int32)
+        for i, (p, o) in enumerate(pairs):
+            pages[i], offs[i] = p, o
+        rewind = self._programs.get(SP.COHORT_SPEC_VERIFY, "rewind", cap,
+                                    lambda: PG.rewind_tokens)
+        pg, of = self._to_device(pages, offs)
+        rewind(self.caches, pg, of)
+        rewind(self.caches_draft, pg, of)
+
+    def _decode_spec(self) -> None:
+        """Speculative main-cohort step: ONE device episode (``spec_k``
+        draft steps at the aggressive plan, the probe-row packing and ONE
+        full-depth verify at batch ``n_main * (spec_k + 1)``), host-side
+        acceptance, then an un-write of every rejected position
+        (``serve.speculative`` has the math and the soundness argument).
+        Replaces ``_decode_cohort(COHORT_MAIN)`` when spec_k > 0; greedy
+        streams equal it because every committed token is a full-depth
+        argmax over an exactly-committed history."""
+        running = self._running(COHORT_MAIN)
+        if not running:
+            return
+        tok_a, pos_a, bt_a, lo = self._arrays(COHORT_MAIN)
+        size, k = tok_a.shape[0], self.spec_k
+        remaining = np.full((size,), -1, np.int32)
+        for s, r in running.items():
+            remaining[s - lo] = r.max_new - len(r.out)
+        tok, pos, bt, poison, rem = self._to_device(
+            tok_a, pos_a, bt_a, self._poison(COHORT_MAIN), remaining)
+        prof = (torch.profiler.record_function("paged_decode_spec_step")
+                if self.psv.profile_decode else contextlib.nullcontext())
+        with prof:
+            d, yhat, ok = self._spec_step(
+                self.params_draft, self.params, self.caches_draft,
+                self.caches, tok, pos, bt, poison.bool(), rem)
+        drafts, yhat, okm = self._to_host(d, yhat.reshape(size, k + 1),
+                                          ok.reshape(size, k + 1))
+        self.counters["draft_steps"] += k
+        self.counters["verify_steps"] += 1
+        zero_pairs: List[Tuple[int, int]] = []
+        for slot, r in sorted(running.items()):
+            loc = slot - lo
+            rem = int(remaining[loc])
+            j_hi = min(k, rem)
+            if not okm[loc, :j_hi + 1].all():
+                # Any live probe row non-finite fails the slot (a poisoned
+                # slot emits no token); peers are untouched by row
+                # independence. The scrub covers the draft tree too.
+                self._fail(r, NonFiniteLogitsError(
+                    f"rid={r.rid}: non-finite logits in speculative "
+                    f"verify at step {self.step_count} (slot {slot})"),
+                    scrub=True)
+                continue
+            p0 = int(pos_a[loc])
+            a_max = min(k, rem - 1)
+            a = SP.accept_length(drafts[:, loc], yhat[loc], a_max)
+            self.counters["spec_accepted"] += a
+            self.counters["spec_rejected"] += a_max - a
+            committed = 0
+            for t in SP.commit_tokens(drafts[:, loc], yhat[loc], a):
+                r.out.append(t)
+                committed += 1
+                self.counters["decoded"] += 1
+                if r.done():     # EOS can cut inside the accepted run
+                    break
+            self.telemetry.observe("spec_accept", committed)
+            self.telemetry.spec_episode(self.step_count, slot, r.rid,
+                                        probed=a_max, accepted=a,
+                                        committed=committed)
+            if r.done():
+                self._finish(r)
+                continue
+            tok_a[loc] = r.out[-1]
+            pos_a[loc] = r.pos
+            start, stop = SP.stale_span(p0, a, j_hi)
+            if start < stop:
+                zero_pairs += PG.rewind_plan(
+                    r.pages, r.n_shared, start, stop,
+                    self.psv.page_size)[0]
+        if zero_pairs:
+            self._rewind_pages(zero_pairs)
+            self.counters["spec_rewound"] += len(zero_pairs)
+
     def _step_gauges(self, hit0: int, faults0: Dict[str, int]) -> None:
         """Per-step gauge samples, taken after the step's work: queue
-        depth, pool live/free/shared pages, per-step radix hit tokens, slot
-        occupancy, and faults by kind. Host reads only."""
+        depth, pool live/free/shared pages, per-step radix hit tokens,
+        per-cohort slot occupancy, and faults by kind. Host reads only."""
         tel, sc = self.telemetry, self.step_count
         tel.gauge("queue_depth", sc, self.sched.n_queued)
         tel.gauge("pages_live", sc, self.pool.live)
@@ -1104,7 +1516,11 @@ class PagedEngine:
         tel.gauge("hit_tokens_step", sc,
                   tel.counters["hit_tokens"]
                   + tel.counters["resume_hit_tokens"] - hit0)
-        tel.gauge(f"slots_live/{COHORT_MAIN}", sc, self.sched.n_running)
+        n_run_main = sum(1 for s in self.sched.running if s < self.n_main)
+        tel.gauge(f"slots_live/{COHORT_MAIN}", sc, n_run_main)
+        if self.n_deg:
+            tel.gauge(f"slots_live/{COHORT_DEGRADED}", sc,
+                      self.sched.n_running - n_run_main)
         for kind, n in tel.fault_counts.items():
             d = n - faults0.get(kind, 0)
             if d:
@@ -1114,8 +1530,10 @@ class PagedEngine:
     def step(self) -> Dict[str, int]:
         """One engine iteration: chaos injection (when armed) -> deadline
         expiry -> admission + prefill (with blocked-head preemption when
-        enabled) -> block-table validation -> one decode launch. Returns
-        the step's lifecycle event counts (telemetry counter deltas)."""
+        enabled) -> block-table validation -> one decode launch per active
+        cohort (a speculative episode for the main cohort when spec_k > 0).
+        Returns the step's lifecycle event counts (telemetry counter
+        deltas)."""
         tel = self.telemetry
         before = {k: tel.counters[k] for k in self.STEP_STAT_KEYS}
         hit0 = tel.counters["hit_tokens"] + tel.counters["resume_hit_tokens"]
@@ -1130,7 +1548,12 @@ class PagedEngine:
             # The freed pages/slot may unblock the head immediately.
             self._admit(count_blocked=False)
         self._validate_block_tables()
-        self._decode_cohort()
+        if self.spec_k:
+            self._decode_spec()
+        else:
+            self._decode_cohort(COHORT_MAIN)
+        if self.n_deg:
+            self._decode_cohort(COHORT_DEGRADED)
         self._poison_slots.clear()
         self.pool.check_balance()
         if self.prefix is not None:
@@ -1163,9 +1586,9 @@ class PagedEngine:
     def metrics_snapshot(self) -> Dict[str, Any]:
         """JSON-able metrics snapshot: counters, gauges, histograms,
         compile events, fault counts, request-state census, span-derived
-        latency, prefix hit rate, pool accounting and occupancy. Everything
-        outside ``wall*`` keys is a pure function of the step-denominated
-        event stream."""
+        latency, prefix hit rate, pool accounting, occupancy and, under
+        speculation, the ``spec`` section. Everything outside ``wall*``
+        keys is a pure function of the step-denominated event stream."""
         snap = self.telemetry.snapshot(step=self.step_count)
         snap["pool"] = {
             "allocated_total": self.pool.allocated_total,
@@ -1183,8 +1606,29 @@ class PagedEngine:
                 "max": round(max(vals) / cap, 3),
             }
         snap["preemptions"] = self.sched.preemptions_total
+        if self.spec_k:
+            c = self.telemetry.counters
+            probed = c["spec_accepted"] + c["spec_rejected"]
+            # One histogram observation per slot per verify = one episode;
+            # its mean is committed tokens per full-depth verification of a
+            # slot (> 1: each full-depth pass commits more than one token).
+            h = self.telemetry.hists.get("spec_accept")
+            snap["spec"] = {
+                "k": self.spec_k,
+                "draft_eff_depth": self.ms_draft.effective_depth,
+                "accept_per_verify": round(h.sum / h.count, 3)
+                                     if h and h.count else 0.0,
+                "accept_rate": round(c["spec_accepted"] / probed, 3)
+                               if probed else 0.0,
+            }
         return snap
 
     def metrics_text(self) -> str:
         """Prometheus-style text exposition of the scalar channels."""
         return self.telemetry.prom_text()
+
+    def dump_trace(self, path: str) -> str:
+        """Write the Chrome/Perfetto ``trace_event`` JSON of this run
+        (``serve.trace``). Needs spans and gauge series, so the engine must
+        run with ``telemetry=True`` (the default)."""
+        return write_trace(self.telemetry, path, n_slots=self.psv.n_slots)

@@ -32,7 +32,7 @@ pool is never copied, as the JAX package gets from XLA buffer donation.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -226,3 +226,66 @@ def scatter_prefill_rows(pool: Pool, seq: Pool, page_ids) -> Pool:
                                                   device=s.device))
             pv.index_copy_(ba, flat, s.to(pv.dtype))
     return pool
+
+
+def rewind_tokens(pool: Pool, page_ids, offsets) -> Pool:
+    """Un-write single token positions: zero ``(page_ids[i], offsets[i])``
+    across every paged entry, in place (both halves of a stacked pair entry
+    in one write).
+
+    Speculative-decoding rewind: rejected draft tokens left kv at positions
+    past the slot's committed horizon. Those bits are never read wrong (a
+    decode launch scatters every row's kv before any row gathers, and each
+    row masks positions past its own ``pos``), but the contract that pages
+    hold only committed-token kv is what prefix sharing and the page
+    accounting lean on, so the engine restores it eagerly. Fixed shape like
+    ``scrub_pages``: the pair lists are padded with ``(GARBAGE_PAGE, 0)``
+    (zeroing the garbage page is harmless; duplicate pairs all write the
+    same zero). Slot-state entries are left alone: speculation is
+    attention-only (``serve.speculative``)."""
+    for seg in pool:
+        for name, pv in seg.items():
+            if not is_paged_entry(name):
+                continue
+            idx = (slice(None),) * T.cache_batch_axis(name) + (
+                _ids(page_ids, pv), _ids(offsets, pv))
+            pv[idx] = 0
+    return pool
+
+
+def rewind_plan(pages: List[int], n_shared: int, new_len: int, old_len: int,
+                page_size: int) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """Host-side rewind bookkeeping: shrink a request's written horizon
+    from ``old_len`` to ``new_len`` tokens.
+
+    Returns ``(zero_pairs, free_pages)``:
+
+    - ``zero_pairs``: the ``(page, offset)`` of every position in
+      ``[new_len, old_len)``, to un-write with ``rewind_tokens``.
+    - ``free_pages``: the trailing pages left with NO live position. An
+      allocator that extends page holdings on demand returns these through
+      ``PagePool.free_rewound`` (which re-checks they are privately held).
+      The engine claims prompt + max_new pages up front and re-uses
+      rewound positions for later commits, so it ignores this list.
+
+    Radix-shared pages are read-only by refcount: a rewind may only
+    un-write this request's own writes, so ``new_len`` may never cut into
+    the shared prefix.
+    """
+    if not 0 <= new_len <= old_len:
+        raise ValueError(f"rewind to {new_len} from {old_len}: the new "
+                         "horizon must be within the written one")
+    if new_len < n_shared * page_size:
+        raise ValueError(
+            f"rewind to {new_len} tokens would cut into the "
+            f"{n_shared}-page radix-shared prefix "
+            f"({n_shared * page_size} tokens): shared pages are read-only "
+            "— only positions this request wrote itself can rewind")
+    if old_len > len(pages) * page_size:
+        raise ValueError(f"old_len={old_len} exceeds the "
+                         f"{len(pages)}-page holding")
+    zero_pairs = [(int(pages[t // page_size]), t % page_size)
+                  for t in range(new_len, old_len)]
+    first_keep = -(-new_len // page_size)
+    n_old = -(-old_len // page_size)
+    return zero_pairs, [int(p) for p in pages[first_keep:n_old]]

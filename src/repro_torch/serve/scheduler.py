@@ -49,10 +49,14 @@ never corrupt accounting. Misuse of ``PagePool`` itself (double-free,
 foreign/garbage page) raises ``PageAccountingError`` BEFORE any state
 mutates, so a caught abuse still leaves ``check_balance()`` green.
 
-Overload degradation (``degrade_slots > 0``) splits the slot range into a
-MAIN cohort and a DEGRADED one; the port's engine runs the main cohort
-only and always passes ``degrade_slots=0``, so every request here is a
-main-cohort request.
+Overload degradation (``degrade_slots > 0``): the slot range splits into a
+MAIN cohort ``[0, n_slots - degrade_slots)`` and a DEGRADED cohort that the
+engine runs with a more aggressively paired (shallower) variant of the
+same weights. The scheduler only tracks cohort membership: a request is
+pinned to its cohort at FIRST admission (its kv bits are plan-specific, so
+a preempted request resumes in the same cohort) and degraded requests
+never touch the radix tree (pages written under another pairing are not
+interchangeable with main-cohort pages).
 """
 from __future__ import annotations
 
@@ -193,6 +197,25 @@ class PagePool:
             if self._ref[p] == 0:
                 self._free.append(p)
                 self.freed_total += 1
+
+    def free_rewound(self, pages: List[int]) -> None:
+        """Return fully-rewound pages (``paged_cache.rewind_plan``'s free
+        list) to the pool. A rewind un-writes this holder's OWN token
+        writes; it can never release a reference someone else holds — so
+        any page here still refcounted above 1 (radix-shared or CoW-linked)
+        is a caller bug, refused before anything mutates. Accepted pages
+        go through the ordinary 1 -> 0 free, keeping
+        ``allocated - freed == live_unique`` exact through any
+        draft/accept/rewind interleaving."""
+        self._validate(pages, "free")
+        for p in set(pages):
+            if self._ref[p] != 1:
+                raise PageAccountingError(
+                    f"rewind-free of page {p} at refcount "
+                    f"{int(self._ref[p])}: rewound pages return to the "
+                    "pool only when privately held — a shared page's other "
+                    "holders still read it")
+        self.free(pages)
 
     def check_balance(self) -> None:
         assert self.allocated_total - self.freed_total == self.live, (

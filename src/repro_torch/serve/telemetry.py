@@ -4,7 +4,8 @@ lifecycle spans for the paged LP engine.
 Ported from the JAX package's ``serve/telemetry.py`` (host only). One
 registry for every engine event: each event increments exactly once here,
 per-step ``stats`` are counter DELTAS over the step, and every exporter
-(Prometheus text, JSON snapshot) reads the same records.
+(Prometheus text, JSON snapshot, Chrome/Perfetto trace via
+``serve.trace``) reads the same records.
 
 Metric semantics — step clock vs wall clock
 -------------------------------------------
@@ -17,8 +18,8 @@ what makes traces replayable EVIDENCE under the chaos schedule rather than
 noise. Wall-clock time is an optional ANNOTATION riding alongside
 (``SpanEvent.wall``, ``Telemetry.step_wall``): it never keys anything, it
 is only used to derive human-facing latency milliseconds, and every field
-carrying it has a name starting with ``wall`` so it can be dropped when
-comparing streams for determinism.
+carrying it has a name starting with ``wall`` so ``serve.trace.strip_wall``
+can drop all of it when comparing streams for determinism.
 
 What counts as a HIT TOKEN: a prompt token of a FRESH admission whose kv
 was served from a radix-shared page instead of the prefill forward
@@ -235,6 +236,12 @@ class ProgramCache:
             fn = self._programs[key] = build()
         return fn
 
+    def note(self, cohort: str, program: str, shape) -> None:
+        """Record a compile event for a program that rides inside another
+        key's build (the speculative step holds both the draft episode and
+        the wide verify: one build, two program bodies)."""
+        self._telemetry.compile_event(cohort, program, shape)
+
     def __len__(self) -> int:
         return len(self._programs)
 
@@ -282,6 +289,7 @@ class Telemetry:
         self.gauge_series: Dict[str, List[Tuple[int, float]]] = {}
         self.gauge_last: Dict[str, float] = {}
         self.hists: Dict[str, Histogram] = {}
+        self.spec_log: List[Dict[str, Any]] = []
         self.step_wall: Dict[int, float] = {}   # step -> perf_counter at end
 
     # -- scalar channels (always on) -----------------------------------
@@ -324,6 +332,20 @@ class Telemetry:
         h.observe(value)
 
     # -- growing channels (gated by ``enabled``) -----------------------
+    def spec_episode(self, step: int, slot: int, rid: int, *, probed: int,
+                     accepted: int, committed: int) -> None:
+        """One speculative draft/verify episode for a slot: ``probed``
+        drafts were checked, ``accepted`` matched the full model,
+        ``committed`` tokens landed (accepted + bonus, EOS may cut). The
+        log renders as per-slot trace slices (``serve.trace``); the
+        always-on counters and histogram carry the aggregate view, so this
+        is a growing channel gated like spans. Step-denominated: same-seed
+        runs log identically."""
+        if self.enabled:
+            self.spec_log.append({
+                "step": step, "slot": slot, "rid": rid, "probed": probed,
+                "accepted": accepted, "committed": committed})
+
     def gauge(self, name: str, step: int, value: float) -> None:
         self.gauge_last[name] = value
         if self.enabled:
@@ -387,6 +409,7 @@ class Telemetry:
         self.gauge_series.clear()
         self.gauge_last.clear()
         self.hists.clear()
+        self.spec_log.clear()
         self.step_wall.clear()
 
     # -- derived metrics ------------------------------------------------

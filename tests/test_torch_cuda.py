@@ -1,9 +1,10 @@
 """The port's hand-written kernels against their plain versions (and the
 paged kernel against the ring kernel, the selective scan against its plain
 version in fp32, bit for bit), the flash kernel's padding transparency, the
-decode and dual RMSNorm kernels' batch invariance (bit for bit), and the
-engine against ``generate``, on an NVIDIA GPU (CUDA C++ has no CPU mode):
-skipped elsewhere.
+decode and dual RMSNorm kernels' batch invariance (bit for bit), the
+engine against ``generate``, the speculative and degraded-cohort engines
+and ``rewind_tokens`` against their CPU runs, on an NVIDIA GPU (CUDA C++
+has no CPU mode): skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
 JAX:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
@@ -330,3 +331,70 @@ def test_engine_matches_generate_on_gpu(cuda):
         ref = generate(params, torch.from_numpy(p).to(cuda)[None], 6, ms=ms,
                        pc=ParallelContext(), sv=sv)[0].cpu().numpy()
         assert (res[rid] == ref).all(), rid
+
+
+def _reduced_engine_streams(device, **kw):
+    """Staggered traffic through a reduced tinyllama engine (fp32 weights
+    made on the CPU from a seed, then moved to ``device``; fp32 pool)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    from repro_torch.serve import PagedEngine, PagedServeConfig
+
+    cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+    params = T.init_params(ms, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu").to(device)
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 9)] + [rng.integers(0, cfg.vocab_size, n)
+                                   for n in (5, 20, 12, 7)]
+    eng = PagedEngine(params, ms, PagedServeConfig(
+        n_slots=4, page_size=8, n_pages=33, max_len=48,
+        cache_dtype=torch.float32, prefix_cache=True, **kw))
+    rids = [eng.add_request(prompts[0], 9)]
+    eng.step()
+    rids += [eng.add_request(p, 9) for p in prompts[1:]]
+    res = eng.drain()
+    return [res[r].tolist() for r in rids], dict(eng.counters)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(spec_k=3),
+    dict(degrade_delta=True, degrade_slots=2, degrade_queue_depth=1)])
+def test_spec_and_degraded_engines_match_cpu_on_gpu(cuda, kw):
+    """The speculative engine (verify at 16 rows) and the degraded-cohort
+    engine on the card give the same streams and counters as the same
+    engines on the CPU (reduced tinyllama, fp32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got, c_gpu = _reduced_engine_streams(cuda, **kw)
+    want, c_cpu = _reduced_engine_streams("cpu", **kw)
+    assert got == want
+    assert c_gpu == c_cpu
+    key = "verify_steps" if "spec_k" in kw else "degraded_admissions"
+    assert c_gpu[key] > 0
+
+
+def test_rewind_tokens_on_gpu_equals_cpu(cuda):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    from repro_torch.serve import paged_cache as PG
+
+    cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+    gen = torch.Generator().manual_seed(2)
+    cpu = [{n: torch.randn(shape, generator=gen).to(dt) for n, (shape, dt) in seg.items()}
+           for seg in PG.paged_cache_meta(ms, n_slots=2, n_pages=9, page_size=8,
+                                          dtype=torch.bfloat16)]
+    gpu = [{n: v.to(cuda) for n, v in seg.items()} for seg in cpu]
+    pages = torch.tensor([3, 3, 5, 0, 0, 0], dtype=torch.int32)
+    offs = torch.tensor([7, 1, 0, 0, 0, 0], dtype=torch.int32)
+    PG.rewind_tokens(cpu, pages, offs)
+    PG.rewind_tokens(gpu, pages.to(cuda), offs.to(cuda))
+    for cseg, gseg in zip(cpu, gpu):
+        for name, v in cseg.items():
+            assert torch.equal(gseg[name].cpu(), v), name

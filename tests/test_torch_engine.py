@@ -288,10 +288,6 @@ def test_cancel_deadline_shed_and_metrics(model):
 
 def test_engine_refuses_what_is_not_ported(model):
     _, tms, _, weights = model
-    for kw, match in ((dict(degrade_delta=True, degrade_slots=1), "item 9"),
-                      (dict(spec_k=2), "item 9")):
-        with pytest.raises(NotImplementedError, match=match):
-            PagedEngine(weights, tms, _psv(**kw))
     with pytest.raises(NotImplementedError, match="item 10"):
         PagedEngine(weights, tms, _psv(), mesh=object())
     with pytest.raises(ValueError, match="multiple of"):

@@ -163,6 +163,14 @@ eng = PagedEngine(params, ms, PagedServeConfig(n_slots=2, page_size=8,
                                                n_pages=9, max_len=16))
 rid = eng.add_request([1, 2, 3], 4)
 assert len(eng.drain()[rid]) == 4
+for kw in (dict(spec_k=2), dict(degrade_delta=True, degrade_slots=1,
+                                degrade_queue_depth=1)):
+    eng = PagedEngine(params, ms, PagedServeConfig(
+        n_slots=2, page_size=8, n_pages=9, max_len=16, **kw))
+    rids = [eng.add_request([1, 2, 3], 4), eng.add_request([4, 5], 4)]
+    out = eng.drain()
+    assert [len(out[r]) for r in rids] == [4, 4], kw
+assert eng.counters["degraded_admissions"] == 1
 cfg = reduced_config(get_config("falcon-mamba-7b"), n_layers=4)
 ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
 params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
