@@ -32,13 +32,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      yardstick) and beside the launch floor: an empty one-block kernel
      timed the same way, launched plainly and as the norm is (programmatic
      dependent launch). It is timed back to back and between the path's
-     neighbours (a residual add before, a GEMM after, in one graph).
-  4. reduced parity: tinyllama and falcon-mamba cut to 4 layers in fp32,
-     LP pairs (0,1), (2,3): greedy tokens on the card equal the port's CPU
-     path, prefill logits agree within 2e-4; the continuous-batching
+     neighbours (a residual add before, a GEMM after, in one graph). At the
+     dense models' head shapes (``DENSE_SHAPES``: yi-6b's GQA at hd 128,
+     minicpm-2b's MHA, granite-34b's MQA with g = 48 at hd 128) the four
+     decode entries and flash are held against their plain versions in
+     bf16 and fp32 (ring horizons that walk 1 to 4 chunks), paged == ring
+     bit for bit, granite's paged rows batch-invariant, and each is timed
+     beside its bound, its plain version and SDPA.
+  4. reduced parity: tinyllama, yi-6b, minicpm-2b, granite-34b and
+     falcon-mamba cut to 4 layers in fp32, LP pairs (0,1), (2,3) (the dense
+     three: plan_for_depth 3, one pair and two single layers, biases and
+     norms filled from a seed): greedy tokens on the card equal the port's
+     CPU path, prefill logits agree within 2e-4; the continuous-batching
      ``PagedEngine`` on the card gives the same tokens as ``generate`` on
      the card and as the engine on the CPU (for falcon-mamba also with a
-     preempted request, resumed by a full re-prefill).
+     preempted request, resumed by a full re-prefill). Then granite-34b at
+     full width cut to 2 layers (one LP pair), fp32: card == CPU for 2
+     prompts of 32 tokens and 8 new, and the engine == ``generate`` on the
+     card (the fp32 wide-group decode body on a model path).
   5. generate path: LP tinyllama-1.1b at full width (22 layers,
      plan_for_depth 16 -> 6 pairs + 10 single layers), bf16 random weights
      from a seed, 4 prompts of 128 tokens, 64 new tokens through
@@ -50,7 +61,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      fp32-pool run whose streams are held against ``generate`` (any
      divergence must sit at a near-tie), then a timed bf16-pool run whose
      kernel launches reconcile exactly with the engine's own counters, and
-     a profiled window of 8 engine steps.
+     a profiled window of 8 engine steps. In the timed runs of phases 5,
+     6 and 9 the first layer's decode launch of each decode kernel at
+     decode steps 0 and 40 is copied (inputs and output) and held against
+     the kernel's plain version: the bf16 bodies on the model path itself.
   8. speculative and degraded engine paths, with phase 6's model, geometry
      and traffic. Speculative decoding (k = 4 drafts at plan_range(0, 22),
      11 pairs; verify at 8 x 5 = 40 rows): an fp32-pool run whose streams
@@ -80,15 +94,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      engine run whose launches reconcile with the engine's counters, each
      with a profiled window.
 
-Phase 8 runs between 6 and 7, while the tinyllama weights are loaded. The
-second-to-last line is the kernels JSON (with every path's metrics and
-each phase's seconds), the last line the device JSON.
+  9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
+     widths, each under plan_for_depth(3/4 of its layers): 32 -> 24, 40 ->
+     30, 88 -> 66 groups, bf16 random weights made on the card from the
+     seed (each model freed before the next): phase 5's ``generate`` and
+     phase 6's engine (streams held to ``generate`` under the near-tie rule
+     in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
+     logits tie at the top too often on these deeper models to hold bf16
+     streams; granite's over 8 new tokens, the others' over 32; a timed
+     bf16-pool run whose launches reconcile with the counters and whose
+     decode launches are held against their plain versions; granite, a
+     LayerNorm model, launches no dual RMSNorm), with the peak of allocated
+     device memory.
+
+Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
+phase 9 after 7. The second-to-last line is the kernels JSON (with every
+path's metrics and each phase's seconds), the last line the device JSON.
 
     python3 chip_smoke.py --norm-times
 
 times only the dual RMSNorm at ``NORM_SHAPES`` through the ``repro_torch``
 beside this script, and prints one JSON line: so a copy of this script in
 another checkout times that checkout's kernel on the same card.
+
+    python3 chip_smoke.py --decode-times
+
+does the same for the four decode attention entries at tinyllama's and
+the dense models' head shapes.
 """
 from __future__ import annotations
 
@@ -131,6 +163,12 @@ MAMBA_EFF_DEPTH, DI, NS = 48, 8192, 16
 NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
                (4096, 4), (4096, 8), (4096, 97), (4096, 512))
 NORM_EPS = 1e-6
+DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
+# Attention head shapes of the dense models (kv heads, GQA group, hd) held
+# in phase 3 beside tinyllama's: yi-6b's GQA, minicpm-2b's MHA and
+# granite-34b's MQA.
+DENSE_SHAPES = (("yi-6b", 4, 8, 128), ("minicpm-2b", 36, 1, 64),
+                ("granite-34b", 1, 48, 128))
 
 
 def log(msg):
@@ -384,17 +422,7 @@ def check_kernels():
         log(f"[kernels] paged decode attention {dtype}")
         # The engine's decode: 8 slots of 16 pages, ragged horizons, slot 1
         # idle (all-garbage block table, t = 0).
-        kr, vr = (rand(2, N_SLOTS, MAX_LEN, HKV, HD, dtype=dtype) for _ in range(2))
-        qp = rand(N_SLOTS, 2, HKV, G, HD, dtype=dtype).transpose(0, 1)
-        perm = 1 + torch.randperm(N_SLOTS * N_PG, generator=gen, device=dev)
-        bt = perm.to(torch.int32).reshape(N_SLOTS, N_PG)
-        kp = torch.zeros((2, N_PAGES, PS, HKV, HD), dtype=dtype, device=dev)
-        vp = torch.zeros_like(kp)
-        kp[:, bt.long().reshape(-1)] = kr.reshape(2, -1, PS, HKV, HD)
-        vp[:, bt.long().reshape(-1)] = vr.reshape(2, -1, PS, HKV, HD)
-        bt[1] = 0
-        tv = torch.tensor([255, 0, 17, 100, 160, 63, 200, 31], dtype=torch.int32,
-                          device=dev)
+        qp, kr, vr, kp, vp, bt, tv = engine_decode_inputs(rand, gen, dtype, HKV, G, HD)
         pair = ops.decode_attention_pair_paged(qp, kp, vp, bt, tv)
         err = compare("decode_attention_pair_paged", pair,
                       ops.decode_attention_pair_paged_plain(qp, kp, vp, bt, tv), tol)
@@ -427,6 +455,15 @@ def check_kernels():
                                           rows["launch_floor_ms"]).items():
             rows[("verify", name, dtype)] = e
             record(name, dtype, e["max_abs_err"], None, None, 0, 0)
+        del kr, vr, qp, kp, vp
+
+        for model, hkv, g, hd in DENSE_SHAPES:
+            log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
+            for (name, key), e in check_dense_shape(ops, rand, gen, dtype, hkv, g, hd,
+                                                     tol).items():
+                record(name, dtype, e["max_abs_err"], None, None, 0, 0)
+                rows[("dense", name, key, model, dtype)] = e
+        torch.cuda.empty_cache()
 
         log(f"[kernels] ssm_scan {dtype}")
         # generate's pair and single-layer prefill, one engine admission of
@@ -624,6 +661,165 @@ def check_verify_shape(ops, rand, kp, vp, bt, tv, tol, floor_ms):
     return out
 
 
+def check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol):
+    """The attention kernels at a dense model's head shape: the four decode
+    entries (ring at generate's B = 4 and horizons that walk 1 to 4 chunks
+    of 64 keys; paged at the engine's 8 slots, ragged t, slot 1 idle) and
+    flash at generate's prefill (B = 4 prompts of 128, pair and single
+    layer), each against its plain version. Paged == ring bit for bit on a
+    paginated cache; at granite's MQA (g > 16) the paged rows are also
+    batch-invariant. Each timed beside its bound, its plain version and
+    SDPA where one call computes the same function. Returns {(kernel name,
+    "ring" | "paged" | "prefill"): entry}."""
+    import torch
+    import torch.nn.functional as F
+    dt = str(dtype).split(".")[1]
+    out = {}
+
+    def entry(name, key, err, fn, plain, nb, fl, library=None, shape=""):
+        b_ms, b_by = bound(nb, fl, dt)
+        e = out.setdefault((name, key), {"max_abs_err": 0.0, "shape": shape})
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        if fn is not None:
+            e.update(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(library) if library else None)
+            log(f"  {name} {key} {dt}: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
+                f"bound_ms={b_ms:.6f} ({b_by}) library_ms={e['library_ms']}")
+
+    k1, v1 = rand(B, MAX_LEN, hkv, hd, dtype=dtype), rand(B, MAX_LEN, hkv, hd, dtype=dtype)
+    q1 = rand(B, hkv, g, hd, dtype=dtype)
+    k2, v2 = (rand(2, B, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
+    q2 = rand(B, 2, hkv, g, hd, dtype=dtype).transpose(0, 1)   # strided, as on the path
+    shape = f"B={B}, L={MAX_LEN}, t=160, Hkv={hkv}, g={g}, hd={hd}"
+    for t in (0, 63, 100, 160, MAX_LEN - 1):
+        timed = t == 160
+        n = t + 1
+        for name, q, k, v, n_kv in (("decode_attention", q1, k1, v1, 1),
+                                    ("decode_attention_pair", q2, k2, v2, 2)):
+            run = lambda: getattr(ops, name)(q, k, v, t)   # noqa: E731
+            plain = lambda: getattr(ops, name + "_plain")(q, k, v, t)   # noqa: E731
+            err = compare(f"{name} t={t}", run(), plain(), tol)
+            lib = None
+            if timed:
+                rows_ = n_kv * B
+                ql = q.reshape(rows_, hkv * g, 1, hd)
+                kl = k.reshape(rows_, MAX_LEN, hkv, hd)[:, :n].transpose(1, 2)
+                vl = v.reshape(rows_, MAX_LEN, hkv, hd)[:, :n].transpose(1, 2)
+                lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                    ql, kl, vl, enable_gqa=True)
+            entry(name, "ring", err, run if timed else None, plain,
+                  2 * nbytes(q) + 2 * n_kv * B * n * hkv * hd * k.element_size(),
+                  4 * n_kv * B * hkv * g * n * hd, library=lib, shape=shape)
+    del k1, v1, q1, k2, v2, q2
+
+    qp, kr, vr, kp, vp, bt, tv = engine_decode_inputs(rand, gen, dtype, hkv, g, hd)
+    keys = int((tv + 1).sum())
+    kv_bytes = 2 * keys * hkv * hd * kp.element_size()
+    shape = f"{N_SLOTS} slots, {N_PG} pages of {PS}, ragged t, Hkv={hkv}, g={g}, hd={hd}"
+    for name, q, k, v, n_kv in (("decode_attention_pair_paged", qp, kp, vp, 2),
+                                ("decode_attention_paged", qp[0], kp[0], vp[0], 1)):
+        run = lambda: getattr(ops, name)(q, k, v, bt, tv)   # noqa: E731
+        plain = lambda: getattr(ops, name + "_plain")(q, k, v, bt, tv)   # noqa: E731
+        got = run()
+        err = compare(name, got, plain(), tol)
+        for b in range(N_SLOTS):
+            if b == 1:
+                continue
+            if n_kv == 2:
+                ring = ops.decode_attention_pair(q[:, b:b + 1], kr[:, b:b + 1],
+                                                 vr[:, b:b + 1], int(tv[b]))
+                same = torch.equal(got[:, b:b + 1], ring)
+            else:
+                ring = ops.decode_attention(q[b:b + 1], kr[0, b:b + 1], vr[0, b:b + 1],
+                                            int(tv[b]))
+                same = torch.equal(got[b:b + 1], ring)
+            if not same:
+                raise AssertionError(f"{name} differs from the ring kernel on a "
+                                     f"paginated cache (slot {b}, g={g}, hd={hd})")
+        entry(name, "paged", err, run, plain,
+              2 * nbytes(q) + n_kv * kv_bytes + nbytes(bt, tv),
+              n_kv * 4 * keys * hkv * g * hd, shape=shape)
+    log(f"  paged == ring kernel on the paginated cache, bit for bit (7 slots, "
+        f"pair and single)")
+    if g > 16:
+        check_decode_batch_invariance(ops, qp, kp, vp, bt, tv)
+    del kr, vr, qp, kp, vp
+
+    for H in (2 * hkv, hkv):   # LP pair layer (heads folded), single layer
+        q = rand(B, S, H, g, hd, dtype=dtype)
+        k, v = rand(B, S, H, hd, dtype=dtype), rand(B, S, H, hd, dtype=dtype)
+        bn = 16   # the paths' pinned kv tile ("chunked:16")
+        run = lambda: ops.flash_attention(q, k, v, block_n=bn)   # noqa: E731
+        plain = lambda: ops.flash_attention_plain(q, k, v)   # noqa: E731
+        err = compare(f"flash causal H={H}", run(), plain(), tol)
+        ql = q.permute(0, 2, 3, 1, 4).reshape(B, H * g, S, hd)
+        kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        pairs = B * H * g * S * (S + 1) // 2   # allowed (query, key) pairs
+        entry("flash_attention", "prefill" if H == 2 * hkv else "prefill single", err,
+              run, plain, 2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs, library=lib,
+              shape=f"B={B}, S={S}, {H} kv heads, g={g}, hd={hd}, causal, block_n={bn}")
+    return out
+
+
+def engine_decode_inputs(rand, gen, dtype, hkv, g, hd):
+    """The engine's decode at one head shape: q [2, 8, hkv, g, hd] (strided,
+    as on the path), ring caches kr, vr [2, 8, 256, hkv, hd], the same keys
+    paginated into pools kp, vp [2, 129, 16, hkv, hd] through block tables
+    bt (slot 1 idle: all garbage page, t = 0) and ragged horizons tv."""
+    import torch
+    kr, vr = (rand(2, N_SLOTS, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
+    qp = rand(N_SLOTS, 2, hkv, g, hd, dtype=dtype).transpose(0, 1)   # as on the path
+    perm = 1 + torch.randperm(N_SLOTS * N_PG, generator=gen, device="cuda")
+    bt = perm.to(torch.int32).reshape(N_SLOTS, N_PG)
+    kp = torch.zeros((2, N_PAGES, PS, hkv, hd), dtype=dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    kp[:, bt.long().reshape(-1)] = kr.reshape(2, -1, PS, hkv, hd)
+    vp[:, bt.long().reshape(-1)] = vr.reshape(2, -1, PS, hkv, hd)
+    bt[1] = 0
+    tv = torch.tensor([255, 0, 17, 100, 160, 63, 200, 31], dtype=torch.int32, device="cuda")
+    return qp, kr, vr, kp, vp, bt, tv
+
+
+def decode_times():
+    """Device ms (CUDA-graph replay) of the four decode entries at
+    tinyllama's shape and at ``DENSE_SHAPES``, bf16 and fp32, through the
+    ``repro_torch`` beside this script: generate's ring decode (B = 4, t =
+    160) and the engine's paged decode (8 slots). A shape that checkout's
+    wrapper refuses is reported as refused. Copied into another checkout,
+    this times that checkout's kernel on the same card."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = []
+    for model, hkv, g, hd in (("tinyllama-1.1b", HKV, G, HD),) + DENSE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q1 = rand(B, hkv, g, hd, dtype=dtype)
+            k1, v1 = (rand(B, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
+            qp, kr, vr, kp, vp, bt, tv = engine_decode_inputs(rand, gen, dtype, hkv, g, hd)
+            e = {"model": model, "dtype": str(dtype).split(".")[1]}
+            for name, fn in (
+                    ("decode_attention", lambda: ops.decode_attention(q1, k1, v1, 160)),
+                    ("decode_attention_pair",
+                     lambda: ops.decode_attention_pair(qp[:, :B], kr[:, :B], vr[:, :B], 160)),
+                    ("decode_attention_paged",
+                     lambda: ops.decode_attention_paged(qp[0], kp[0], vp[0], bt, tv)),
+                    ("decode_attention_pair_paged",
+                     lambda: ops.decode_attention_pair_paged(qp, kp, vp, bt, tv))):
+                try:
+                    e[name] = time_ms(fn)
+                except ValueError as err:   # a checkout whose wrapper refuses the shape
+                    e[name] = f"refused: {err}"
+            log(json.dumps(e))
+            out.append(e)
+    return out
+
+
 def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv):
     """For both paged decode kernels, each row of the 8-slot launch equals,
     bit for bit, the same row launched alone (B = 1), inside the first 2
@@ -658,12 +854,31 @@ def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv):
 # phase 4: reduced config, card against CPU
 # ---------------------------------------------------------------------------
 
+def fill_biases(params, seed):
+    """Biases 0.2 * N(0, 1) and norm scales 1 + 0.2 * N(0, 1), in place, from
+    a seed: the init's zeros and ones would leave those branches untested."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in params.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("bq", "bk", "bv", "bo", "b_up", "b_down", "bias", "scale"):
+            x = 0.2 * torch.randn(p.shape, generator=gen)
+            p.data.copy_(x + 1 if leaf == "scale" else x)
+    return params
+
+
 def reduced_parity():
+    """tinyllama (g = 1 as reduced, and a GQA group of 4) under
+    plan_range(0, 4), and reduced yi-6b, minicpm-2b and granite-34b under
+    plan_for_depth(3) (a pair and two single layers; biases and norms
+    filled), 4 layers, fp32: card == CPU for prefill logits and greedy
+    tokens, and the engine on the card == generate on the card == the
+    engine on the CPU."""
     import copy
     import dataclasses
     import torch
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.core.lp import plan_range
+    from repro_torch.core.lp import plan_for_depth, plan_range
     from repro_torch.model import transformer as T
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
@@ -671,11 +886,14 @@ def reduced_parity():
 
     pc = ParallelContext()
     base = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
-    for n_kv in (base.n_kv_heads, 1):   # g = 1 as reduced, and a GQA group of 4
-        cfg = dataclasses.replace(base, n_kv_heads=n_kv)
-        ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 4))
-        p_cpu = T.init_params(ms, torch.Generator().manual_seed(SEED),
-                              torch.float32, device="cpu")
+    models = [(dataclasses.replace(base, n_kv_heads=n_kv), 2)   # g = 1, then 4
+              for n_kv in (base.n_kv_heads, 1)]
+    models += [(reduced_config(get_config(m), n_layers=4), 3) for m in DENSE]
+    for cfg, depth in models:
+        plan = plan_range(cfg, 0, 4) if depth == 2 else plan_for_depth(cfg, depth)
+        ms = T.build_structure(cfg, plan=plan)
+        p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
+                                          torch.float32, device="cpu"), SEED + 6)
         p_gpu = copy.deepcopy(p_cpu).to("cuda")   # the same weights, on the card
         prompts = torch.randint(0, cfg.vocab_size, (2, 16),
                                 generator=torch.Generator().manual_seed(SEED + 1))
@@ -686,11 +904,12 @@ def reduced_parity():
         tok_cpu = generate(p_cpu, prompts, 16, ms=ms, pc=pc, sv=sv)
         tok_gpu = generate(p_gpu, prompts.cuda(), 16, ms=ms, pc=pc, sv=sv).cpu()
         same = bool((tok_cpu == tok_gpu).all())
-        log(f"[reduced] n_kv_heads={n_kv} pairs={ms.plan.pairs}: prefill logits "
+        what = f"{cfg.name} n_kv_heads={cfg.n_kv_heads}"
+        log(f"[reduced] {what} pairs={ms.plan.pairs}: prefill logits "
             f"max_abs_err={err:.3e} (tol {LOGIT_TOL:g}); greedy tokens equal: {same}")
         if err > LOGIT_TOL or not same:
-            raise AssertionError(f"reduced parity failed: logits err {err:.3e}, "
-                                 f"tokens\n{tok_cpu}\n{tok_gpu}")
+            raise AssertionError(f"reduced parity failed ({what}): logits err "
+                                 f"{err:.3e}, tokens\n{tok_cpu}\n{tok_gpu}")
         # The continuous-batching engine: card == generate on the card ==
         # the engine on the CPU, token for token.
         work = reduced_traffic(cfg.vocab_size)
@@ -704,12 +923,63 @@ def reduced_parity():
         n_gen = sum(a.tolist() == b.tolist() for a, b in zip(got, ref))
         n_cpu = sum(a.tolist() == b.tolist() for a, b in zip(got, cpu))
         c = eng.counters
-        log(f"[reduced] engine n_kv_heads={n_kv}: {len(work)} requests, "
+        log(f"[reduced] engine {what}: {len(work)} requests, "
             f"prefix hits {c['prefix_hits']}, bucket launches {c['bucket_groups']}; "
             f"streams equal to generate on the card {n_gen}/{len(work)}, "
             f"to the engine on the CPU {n_cpu}/{len(work)}")
         if n_gen != len(work) or n_cpu != len(work) or not c["prefix_hits"]:
-            raise AssertionError("reduced engine parity failed")
+            raise AssertionError(f"reduced engine parity failed ({what})")
+
+
+def granite_two_layers():
+    """granite-34b at full width (d 6144, 48 query heads over 1 kv head, hd
+    128, d_ff 24576, vocab 49152), cut to 2 layers as one LP pair, fp32
+    weights (biases and norms filled) and caches: B = 2 prompts of 32
+    tokens, 8 new. Card tokens == CPU tokens, prefill logits within
+    LOGIT_TOL, and the engine on the card == generate on the card: the fp32
+    wide-group decode body on a model path (ring and paged)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import ModelParams, tree_map
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate, make_prefill)
+
+    pc = ParallelContext()
+    cfg = dataclasses.replace(get_config("granite-34b"), n_layers=2)
+    ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 2))
+    p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
+                                      torch.float32, device="cpu"), SEED + 6)
+    p_gpu = ModelParams(tree_map(lambda x: x.to("cuda"), p_cpu.tree()))
+    n_params = sum(v.numel() for v in p_cpu.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (2, 32),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
+    lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda())
+    err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    scale = lg_cpu.abs().max().item()
+    tok_cpu = generate(p_cpu, prompts, 8, ms=ms, pc=pc, sv=sv)
+    tok_gpu = generate(p_gpu, prompts.cuda(), 8, ms=ms, pc=pc, sv=sv).cpu()
+    same = bool((tok_cpu == tok_gpu).all())
+    log(f"[granite 2 layers] {n_params / 1e9:.3f} B parameters (fp32), pairs "
+        f"{ms.plan.pairs}: prefill logits max_abs_err={err:.3e} (logit scale "
+        f"{scale:.3f}, tol {LOGIT_TOL:g}); greedy tokens equal card == CPU: {same}")
+    if err > LOGIT_TOL or not same:
+        raise AssertionError(f"granite 2-layer parity failed: logits err {err:.3e}, "
+                             f"tokens\n{tok_cpu}\n{tok_gpu}")
+    del p_cpu
+    eng = PagedEngine(p_gpu, ms, PagedServeConfig(
+        n_slots=2, page_size=PS, n_pages=7, max_len=48, cache_dtype=torch.float32,
+        prefix_cache=True))
+    got = serve(eng, [(0, p.numpy(), 8) for p in prompts])
+    if [g.tolist() for g in got] != tok_gpu.tolist():
+        raise AssertionError(f"granite 2-layer engine differs from generate on the "
+                             f"card:\n{got}\n{tok_gpu}")
+    log("[granite 2 layers] engine on the card == generate on the card (2 streams)")
 
 
 def reduced_mamba_parity():
@@ -817,44 +1087,116 @@ def serve(eng, work, step_log=None):
 # ---------------------------------------------------------------------------
 
 def main_path():
+    """Phase 5: LP tinyllama-1.1b through ``generate``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = get_config("tinyllama-1.1b")
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 16))
+    n_groups, n_pairs = model_counts(ms)
+    assert (n_groups, n_pairs) == (16, 6), (n_groups, n_pairs)
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    return generate_path("main", cfg, ms, params)
+
+
+class DecodeProbe:
+    """While on, keeps a copy of the inputs and output of the first layer's
+    launch of each decode kernel of a path (ring for ``generate``, paged for
+    the engine) at the decode steps ``steps``: the path's own launches on
+    the model's own tensors, and no launch is added for the copy. ``check``
+    then holds each copy against the kernel's plain version on the same
+    inputs (BF16_TOL in bf16), so a wrong body at the model's head shape
+    fails the timed run itself."""
+
+    def __init__(self, ms, paged, steps=(0, 40)):
+        n_groups, n_pairs = model_counts(ms)
+        kind = "_paged" if paged else ""
+        self.per_step = {f"decode_attention_pair{kind}": n_pairs,
+                         f"decode_attention{kind}": n_groups - n_pairs}
+        self.steps, self.kept, self.seen, self.orig = steps, [], {}, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        for name, per in self.per_step.items():
+            if not per:
+                continue
+            fn = self.orig[name] = getattr(ops, name)
+
+            def probe(*args, name=name, fn=fn, per=per, **kw):
+                out = fn(*args, **kw)
+                i = self.seen[name] = self.seen.get(name, -1) + 1
+                if i % per == 0 and i // per in self.steps:
+                    self.kept.append((name, i // per, [
+                        a.clone() if hasattr(a, "clone") else a for a in args], out.clone()))
+                return out
+            setattr(ops, name, probe)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self.orig.items():
+            setattr(ops, name, fn)
+
+    def check(self, what):
+        """Max abs error over the kept launches; raises if one disagrees or
+        a kernel was not launched at every probed step."""
+        import torch
+        from repro_torch.kernels import ops
+        got = sorted((name, step) for name, step, _, _ in self.kept)
+        want = sorted((name, step) for name in self.orig for step in self.steps)
+        if got != want:
+            raise AssertionError(f"{what}: decode launches kept {got}, want {want}")
+        errs = []
+        for name, step, args, out in self.kept:
+            tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
+            errs.append(compare(f"[{what}] {name}, decode step {step}, on the model path",
+                                out, getattr(ops, f"{name}_plain")(*args), tol))
+        self.kept.clear()
+        return max(errs)
+
+
+def generate_path(what, cfg, ms, params):
+    """A model through ``generate``: B = 4 prompts of 128 random tokens, 64
+    new, bf16 ring cache of 256, with the exact launch count of every
+    kernel, and prefill ms and decode ms per step taken inside that one
+    ``generate`` call. Returns (launches, metrics)."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.model import transformer as T
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.serve import ServeConfig, generate, make_prefill
 
     pc = ParallelContext()
-    cfg = get_config("tinyllama-1.1b")
-    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 16))
-    n_groups = sum(s.count for s in ms.segments)
-    n_pairs = len(ms.plan.pairs)
+    n_groups, n_pairs = model_counts(ms)
     n_single = n_groups - n_pairs
-    log(f"[main] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, pairs {ms.plan.pairs}, "
-        f"{n_groups} groups")
-    assert (n_groups, n_pairs) == (16, 6), (n_groups, n_pairs)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = T.init_params(ms, gen, torch.bfloat16, device="cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    log(f"[{what}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, pairs "
+        f"{ms.plan.pairs[0]}..{ms.plan.pairs[-1]} ({n_pairs}), {n_groups} groups")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 5),
+                            device="cuda")
     sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
 
     generate(params, prompts, 2, ms=ms, pc=pc, sv=sv)   # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
     timings = {}
-    out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings)
+    with DecodeProbe(ms, paged=False) as probe:
+        out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings)
     launches = dict(ops.LAUNCHES)
+    path_err = probe.check(f"{what} generate")
 
     steps = N_NEW - 1
     want = {"flash_attention": n_groups,
-            "dual_rmsnorm": 2 * n_pairs * (1 + steps),
+            "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
             "decode_attention": steps * n_single,
             "decode_attention_pair": steps * n_pairs,
             "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
             "ssm_scan": 0}
-    log(f"[main] launches {launches} (want {want})")
+    log(f"[{what}] launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -874,18 +1216,32 @@ def main_path():
                                        attn_impl=sv.attn_impl)
     scale = full_logits[:, -1].abs().max().item()
     diff = (step_logits - full_logits[:, -1]).abs().max().item()
-    log(f"[main] decode-step vs prefill logits: max_abs_diff={diff:.4f} "
+    log(f"[{what}] decode-step vs prefill logits: max_abs_diff={diff:.4f} "
         f"(logit scale {scale:.3f}, tol 0.1 x scale)")
     if diff > 0.1 * scale:
         raise AssertionError("decode step disagrees with prefill of the same stream")
+    del logits, caches, step_logits, full_logits
     # Both from the one measured generate above.
     e2e = {"prefill_ms": timings["prefill_s"] * 1e3,
            "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
            "decode_tok_per_s": B * steps / timings["decode_s"]}
-    log("[main] " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
+    log(f"[{what}] " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
+    e2e["decode_path_max_abs_err"] = path_err
     e2e["busy_share"] = profile_decode(
-        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv))
+        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv),
+        f"{cfg.name} generate(9 new)")
     return launches, e2e
+
+
+def norm_launches(cfg, n_pairs):
+    """Dual RMSNorm launches per forward: 2 per LP pair (one per phase) for
+    RMSNorm models. A LayerNorm model (granite-34b) launches none: its
+    ``dual_norm`` is plain PyTorch, as in the JAX package, which has no
+    kernel for it."""
+    if cfg.norm_kind == "rmsnorm":
+        return 2 * n_pairs
+    log(f"  {cfg.name}: norm_kind={cfg.norm_kind}: no dual_rmsnorm launch expected")
+    return 0
 
 
 def profile_decode(run, what="generate(9 new)"):
@@ -920,9 +1276,9 @@ def profile_decode(run, what="generate(9 new)"):
 # phase 6: the continuous-batching engine at full width
 # ---------------------------------------------------------------------------
 
-def engine_traffic(vocab):
+def engine_traffic(vocab, n_new=ENGINE_NEW):
     """16 requests in two waves of 8 (the second 4 steps after the first),
-    32 new tokens each: 8 share a 64-token prefix (4 pages) and add their
+    ``n_new`` new tokens each: 8 share a 64-token prefix (4 pages) and add their
     own 16-96-token suffix, 8 are cold at 24-160 tokens. The second wave's
     hit suffixes and cold prompts fall into common buckets (32, 64, 128),
     so hit and cold rows share bucket launches."""
@@ -934,7 +1290,7 @@ def engine_traffic(vocab):
     cold = [rng.integers(0, vocab, n) for n in (24, 50, 100, 160, 30, 52, 110, 150)]
     wave1 = [p for pair in zip(fam[:4], cold[:4]) for p in pair]
     wave2 = [p for pair in zip(fam[4:], cold[4:]) for p in pair]
-    return [(0, p, ENGINE_NEW) for p in wave1] + [(4, p, ENGINE_NEW) for p in wave2]
+    return [(0, p, n_new) for p in wave1] + [(4, p, n_new) for p in wave2]
 
 
 def engine_config(cache_dtype, **kw):
@@ -1035,9 +1391,27 @@ def model_counts(ms):
     return sum(s.count for s in ms.segments), len(ms.plan.pairs)
 
 
-def engine_path(cfg, ms, params):
+MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+
+def set_compute_dtype(params, dtype):
+    """Every weight but the layers' matrices (embeddings, norms, biases) to
+    ``dtype``, in place. With fp32 the activations, caches and kernels run
+    in fp32 on the bf16 model's own weights (each matrix widened at its
+    GEMM: the matrices stay bf16 in memory); bf16 then restores the model
+    exactly, since every value was a bf16 value."""
+    for name, p in params.named_parameters():
+        if name.rsplit(".", 1)[-1] not in MATRICES:
+            p.data = p.data.to(dtype)
+
+
+def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     """Returns (kernel launches of the timed run, engine metrics, the
-    fp32-pool run's streams)."""
+    fp32-pool run's streams). The parity run holds the engine's streams in
+    an fp32 pool against ``generate``'s, ``parity_new`` tokens each; with
+    ``fp32_compute`` both compute in fp32 on the bf16 weights
+    (``set_compute_dtype``). The timed bf16 run's paged decode launches
+    are held against their plain versions (``DecodeProbe``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import PagedEngine, default_buckets
@@ -1049,12 +1423,20 @@ def engine_path(cfg, ms, params):
         f"{default_buckets(MAX_LEN, PS)}")
 
     # Parity run: bf16 weights, fp32 pool, streams against generate().
+    if fp32_compute:
+        set_compute_dtype(params, torch.float32)
+    parity_work = engine_traffic(cfg.vocab_size, parity_new)
     eng = PagedEngine(params, ms, engine_config(torch.float32))
-    got = serve(eng, work)
+    got = serve(eng, parity_work)
     shared = shared_bucket_launches(eng)
-    models = [(params, ms)] * len(work)
-    n_equal = held_to("engine", models, work, got, generate_streams(models, work))
-    log(f"[engine] parity (fp32 pool): {n_equal}/{len(work)} streams equal to "
+    models = [(params, ms)] * len(parity_work)
+    n_equal = held_to("engine", models, parity_work, got,
+                      generate_streams(models, parity_work))
+    del eng
+    if fp32_compute:
+        set_compute_dtype(params, torch.bfloat16)
+    log(f"[engine] parity (fp32 pool{', fp32 compute' if fp32_compute else ''}, "
+        f"{parity_new} new tokens): {n_equal}/{len(parity_work)} streams equal to "
         f"generate on the card; bucket launches holding hit and cold rows "
         f"(hit, cold): {shared}")
     if not shared:
@@ -1069,14 +1451,16 @@ def engine_path(cfg, ms, params):
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    out = serve(eng, work, steps)
+    with DecodeProbe(ms, paged=True) as probe:
+        out = serve(eng, work, steps)
     wall_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    path_err = probe.check(f"{cfg.name} engine")
     c = dict(eng.counters)
     exact = c["full_prefills"] + c["suffix_prefills"] - c["bucket_prefills"]
     prefill_launches = c["bucket_groups"] + exact
     decode_launches = sum(1 for _, st in steps if st["decoded"])
-    want = {"dual_rmsnorm": 2 * n_pairs * (prefill_launches + decode_launches),
+    want = {"dual_rmsnorm": norm_launches(cfg, n_pairs) * (prefill_launches + decode_launches),
             "decode_attention": 0, "decode_attention_pair": 0,
             "decode_attention_paged": (n_groups - n_pairs) * decode_launches,
             "decode_attention_pair_paged": n_pairs * decode_launches,
@@ -1106,8 +1490,9 @@ def engine_path(cfg, ms, params):
                "prefill_launches": {"bucket": c["bucket_groups"], "exact": exact},
                "prefix_hits": c["prefix_hits"], "hit_tokens": c["hit_tokens"],
                "pad_tokens": c["pad_tokens"],
-               "parity_streams_equal": n_equal, "parity_streams": len(work),
-               "shared_bucket_launches": len(shared)}
+               "parity_streams_equal": n_equal, "parity_streams": len(parity_work),
+               "parity_new_tokens": parity_new, "shared_bucket_launches": len(shared),
+               "decode_path_max_abs_err": path_err}
     log("[engine] " + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
                                for k, v in metrics.items()))
 
@@ -1357,7 +1742,8 @@ def degraded_path(cfg, ms, params):
 
 def mamba_model():
     """falcon-mamba-7b under plan_for_depth(48), fp32 random weights from
-    the seed, made on the card (``init_params`` draws in fp32 and casts, so
+    the seed,
+    made on the card (``init_params`` draws in fp32 and casts, so
     a later cast to bf16 gives the weights a bf16 init would)."""
     import torch
     from repro_torch.configs import get_config
@@ -1475,7 +1861,7 @@ def mamba_engine(cfg, ms, params):
 
     # Timed run: bf16 pool (the state h stays fp32), every launch counted.
     eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
-    serve(eng, work[:2])                            # warm-up
+    serve(eng, work[:N_SLOTS])                      # warm-up: one wave
     eng = PagedEngine(params, ms, engine_config(torch.bfloat16))
     steps = []
     torch.cuda.synchronize()
@@ -1544,6 +1930,57 @@ def mamba_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the dense family at full width
+# ---------------------------------------------------------------------------
+
+def dense_path(name):
+    """Phase 9: ``name`` at its published widths, 3/4 of its layers' depth
+    under plan_for_depth, bf16 random weights made on the card from the
+    seed: phase 5's ``generate`` traffic, then phase 6's engine (fp32-pool
+    streams held to ``generate`` under the near-tie rule, a timed bf16-pool
+    run reconciled with the counters, a profiled window). Returns
+    (generate's launches, the engine's launches, metrics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = get_config(name)
+    depth = cfg.n_layers * 3 // 4
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, depth))
+    n_groups, n_pairs = model_counts(ms)
+    if (n_groups, n_pairs) != (depth, cfg.n_layers - depth):
+        raise AssertionError(f"{name}: {n_groups} groups, {n_pairs} pairs")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in params.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[dense] {name}: {cfg.n_layers} layers at depth {depth} ({n_pairs} pairs); "
+        f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card; "
+        f"init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gen_launches, gen = generate_path(name, cfg, ms, params)
+    # granite's fp32-compute parity widens 64 GiB of weights at every GEMM:
+    # its streams are held over 8 new tokens, not 32, to keep the script's
+    # time (the schedule still shares bucket launches between hit and cold
+    # rows).
+    parity_new = 8 if name == "granite-34b" else ENGINE_NEW
+    eng_launches, eng, _ = engine_path(cfg, ms, params, fp32_compute=True,
+                                       parity_new=parity_new)
+    for path, launches, decode in (("generate", gen_launches, "decode_attention_pair"),
+                                   ("engine", eng_launches, "decode_attention_pair_paged")):
+        for kernel in ("flash_attention", decode):
+            if not launches[kernel]:
+                raise AssertionError(f"{kernel} was not launched on {name} {path}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dense] {name}: max_memory_allocated {peak:.2f} GiB")
+    return gen_launches, eng_launches, {
+        "layers": cfg.n_layers, "depth": depth, "pairs": n_pairs,
+        "params_b": n_params / 1e9, "weights_gib": weights_gib,
+        "max_memory_allocated_gib": peak, "generate": gen, "engine": eng}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
@@ -1592,6 +2029,9 @@ def main() -> int:
         from repro_torch.kernels import ops
         print(json.dumps({"norm_times": norm_times(ops), "smi": smi.splitlines()[0]}))
         return 0
+    if sys.argv[1:] == ["--decode-times"]:
+        print(json.dumps({"decode_times": decode_times(), "smi": smi.splitlines()[0]}))
+        return 0
     phase_s = {}
 
     def phase(name, fn, *args):
@@ -1603,7 +2043,8 @@ def main() -> int:
 
     phase_s["build"] = time.perf_counter() - t0
     rows = phase("3 kernels", check_kernels)
-    phase("4 reduced parity", lambda: (reduced_parity(), reduced_mamba_parity()))
+    phase("4 reduced parity", lambda: (reduced_parity(), reduced_mamba_parity(),
+                                        granite_two_layers()))
     by_path = {}                              # each path reads its own counts
     by_path["generate"], e2e = phase("5 generate", main_path)
     cfg, ms, params = tinyllama_model()
@@ -1617,6 +2058,12 @@ def main() -> int:
     torch.cuda.empty_cache()                  # the tinyllama weights are gone
     by_path["mamba_generate"], by_path["mamba_engine"], mamba_gen, mamba_eng = phase(
         "7 mamba", mamba_path)
+    dense = {}
+    for name in DENSE:
+        gc.collect()
+        torch.cuda.empty_cache()              # the previous model's weights are gone
+        (by_path[f"{name}_generate"], by_path[f"{name}_engine"],
+         dense[name]) = phase(f"9 {name}", dense_path, name)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -1648,6 +2095,12 @@ def main() -> int:
         if name in ("decode_attention_paged", "decode_attention_pair_paged"):
             kernels[-1]["verify"] = {str(d).split(".")[1]: rows[("verify", name, d)]
                                      for d in (torch.bfloat16, torch.float32)}
+        at_dense = {f"{k[3]} {k[2]}": {**e, "fp32_max_abs_err": rows[(*k[:4], torch.float32)]
+                                       ["max_abs_err"]}
+                    for k, e in rows.items()
+                    if k[0] == "dense" and k[1] == name and k[4] == torch.bfloat16}
+        if at_dense:
+            kernels[-1]["dense_shapes"] = at_dense
         if name == "dual_rmsnorm":
             kernels[-1].update(library="two F.rms_norm calls, one per path (timed only)",
                                shapes=rows["dual_rmsnorm_shapes"])
@@ -1656,6 +2109,7 @@ def main() -> int:
                       **e2e, "engine": engine, "engine_spec": spec,
                       "engine_degraded": degraded,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
+                      "dense": dense,
                       "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
 """Architecture registry. Importing this package registers the
-architectures the port runs so far: tinyllama-1.1b (attention + MLP) and
-falcon-mamba-7b (Mamba-1, attention-free)."""
+architectures the port runs so far: the dense decoders tinyllama-1.1b,
+yi-6b (GQA, hd 128), minicpm-2b (MHA) and granite-34b (MQA, LayerNorm,
+GeLU MLP with biases, learned positions), and falcon-mamba-7b (Mamba-1,
+attention-free). Each module is a copy of the JAX package's file of the
+same name."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
@@ -11,4 +14,10 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # Registration side effects — one module per architecture.
-from repro_torch.configs import falcon_mamba_7b, tinyllama_1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    falcon_mamba_7b,
+    granite_34b,
+    minicpm_2b,
+    tinyllama_1b,
+    yi_6b,
+)

@@ -54,35 +54,50 @@
 //    strides multiples of 16 bytes, checked by the host wrapper): no
 //    transpose or gather copy per step.
 //
-// Two bodies, chosen by type and group width (never by B, L or t):
-//  * bf16 with g <= 16 (every path of this repo): one warp per block on the
-//    tensor cores, as the flash kernel. The g heads are the 16 rows of an
-//    mma (zero-padded), held as A fragments straight from device memory;
-//    S = Q K^T (ldmatrix on K), the online softmax over each 64-key chunk
-//    in fp32 registers (log2 domain), P rounded to bf16 and O += P V
-//    (ldmatrix.trans on V) in fp32 registers. Per chunk 32 mma for S and
-//    32 for P V at hd = 64, where the CUDA-core body spends most of its
-//    time converting bf16 and chaining multiply-adds. A second chunk
-//    buffer, with the next chunk in flight, only where L > 4 chunks.
-//  * fp32, and bf16 with g > 16: 256 threads on the CUDA cores (fp32 on
-//    tensor cores would be TF32; fp32 is the type of the parity runs),
-//    the next chunk in flight while this one is reduced. Scores and the
-//    online softmax one warp per query head, each lane two keys, each dot
-//    product as 8 (bf16) or 4 (fp32) partial sums over hd added pairwise;
-//    p V one thread per (key part, head, 8 columns of hd) with as many key
-//    parts as the 256 threads allow, the parts added in a fixed order
-//    after the last chunk.
+// Two bodies, chosen by type (never by B, L or t):
+//  * bf16: the tensor cores, as the flash kernel, ceil(g / 16) warps per
+//    block. Warp w holds heads 16w..16w+15 as the 16 rows of an mma
+//    (zero-padded past g), as A fragments straight from device memory; all
+//    warps stage each 64-key chunk together, so the cache is still read once
+//    per GQA group. Per warp: S = Q K^T (ldmatrix on K), the online softmax
+//    over the chunk in fp32 registers (log2 domain), P rounded to bf16 and
+//    O += P V (ldmatrix.trans on V) in fp32 registers; per chunk 32 mma for
+//    S and 32 for P V at hd = 64, where CUDA cores would spend most of their
+//    time converting bf16 and chaining multiply-adds. A head's arithmetic is
+//    its warp's alone, so it does not depend on how many warps the block
+//    has. A second chunk buffer, with the next chunk in flight, only where
+//    L > 4 chunks. One warp at g <= 16 (every path of tinyllama, yi and
+//    minicpm); granite-34b's MQA (g = 48) runs three. The one-warp block
+//    is its own instantiation: with the warp count a constant, its copy
+//    rounds unroll without bounds tests and nothing spills (one template
+//    for both ran 4-6% slower at g <= 16 on an H100).
+//  * fp32: 256 threads on the CUDA cores (fp32 on tensor cores would be
+//    TF32; fp32 is the type of the parity runs), the next chunk in flight
+//    while this one is reduced where two chunk buffers fit in shared
+//    memory (one buffer otherwise: g * hd = 6144 at granite's shape).
+//    Scores and the online softmax one warp per query head, each lane two
+//    keys, each dot product as 4 partial sums over hd added pairwise; p V
+//    as (key part, head, 8 columns of hd) tasks, up to kMaxTasks a thread,
+//    with as many key parts as the 256 threads allow, the parts added in a
+//    fixed order after the last chunk. One task a thread (g * hd <= 2048)
+//    is its own instantiation: the 4-task one holds 4x the accumulators
+//    and ran up to 1.43x slower there on an H100.
+// A block takes at most the heads its shared memory holds (the slots of
+// the combine grow with g * hd; bf16 also at most 8 warps): wider groups
+// are cut into equal head slices, each its own cluster, each reading the
+// cache once. So any g is taken; at this repo's shapes every group fits
+// one slice.
 //
 // Batch invariance: a row's reduction depends only on its own t[b]. Chunk
 // boundaries are fixed positions, which block walks which chunk depends on
-// the chunk index alone, the key parts on g and hd alone, and the combine
-// order is fixed. Nothing depends on B, on L or n_pg * ps (keys past t are
-// never visited; L sets only how many chunk buffers the tensor-core body
-// keeps), or on other rows. So a row gives the same bits alone,
-// among 8 slots or among the speculative verifier's n_slots * (k + 1)
-// rows; a paginated copy of a ring cache gives the ring kernel's output
-// bit for bit; and the engine's decode equals generate's. Idle engine rows
-// (t = 0 on the reserved page 0) read one zero key.
+// the chunk index alone, the head slices, buffers and key parts on g and hd
+// alone, and the combine order is fixed. Nothing depends on B, on L or
+// n_pg * ps (keys past t are never visited; L sets only how many chunk
+// buffers the tensor-core body keeps), or on other rows. So a row gives the
+// same bits alone, among 8 slots or among the speculative verifier's
+// n_slots * (k + 1) rows; a paginated copy of a ring cache gives the ring
+// kernel's output bit for bit; and the engine's decode equals generate's.
+// Idle engine rows (t = 0 on the reserved page 0) read one zero key.
 //
 // Block tables are trusted: the engine validates every running row against
 // its owned pages on the host before the launch.
@@ -103,7 +118,9 @@ constexpr int kChunk = 64;   // keys per chunk
 constexpr int kSplit = 4;    // blocks per row, one cluster
 constexpr int kAcc = 8;      // output columns per p V task
 constexpr int kMaxParts = 16;
-constexpr int kStages = 2;   // chunk buffers: one reduced, one in flight
+constexpr int kMaxTasks = 4;  // p V tasks per thread: g * hd <= 8192 per block
+constexpr int kMaxMmaWarps = 8;  // tensor-core body: 16 heads per warp
+constexpr size_t kMaxSmem = 227 * 1024;
 
 struct DecodeArgs {
   const void* q;
@@ -121,26 +138,38 @@ struct DecodeArgs {
   const int* tv;    // paged: per-row horizons [B], device memory
   int n_pg, ps;
   float scale;
-  int stages;       // bf16 tensor-core body: chunk buffers (1 or 2)
+  int stages;       // chunk buffers (1 or 2)
+  int GB;           // heads per block: the group is cut into n_slices slices
+  int n_slices;
 };
+
+// A cluster's row: half p, batch b, kv head h, and its heads h0..h0+G-1.
+struct RowOf {
+  int p, b, h, h0, G;
+};
+
+// The row, head slice and heads of this block's cluster. kSliced false: a
+// body that never cuts its group (one head slice, g = G).
+template <bool kSliced>
+__device__ __forceinline__ RowOf row_of(const DecodeArgs& a) {
+  const int row = blockIdx.x / kSplit;
+  const int slice = kSliced ? row % a.n_slices : 0;
+  const int r = kSliced ? row / a.n_slices : row;
+  RowOf x;
+  x.h = r % a.H;
+  x.b = (r / a.H) % a.B;
+  x.p = r / (a.H * a.B);
+  x.h0 = slice * a.GB;
+  x.G = kSliced ? min(a.GB, a.G - x.h0) : a.G;
+  return x;
+}
 
 inline int pitch(int hd, int elem) { return hd + 16 / elem; }  // +16 bytes
 
-inline size_t smem_bytes(int G, int hd, int elem) {
-  return size_t(kStages) * 2 * kChunk * pitch(hd, elem) * elem +
+inline size_t smem_bytes(int G, int hd, int elem, int stages) {
+  return size_t(stages) * 2 * kChunk * pitch(hd, elem) * elem +
          sizeof(float) * (size_t(G) * hd + size_t(G) * kChunk + 3 * size_t(G) +
                           kSplit * (2 * size_t(G) + size_t(G) * hd));
-}
-
-__device__ __forceinline__ void load16(float (&f)[8], const __nv_bfloat16* p) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h2[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
 }
 
 __device__ __forceinline__ void load16(float (&f)[4], const float* p) {
@@ -152,10 +181,6 @@ __device__ __forceinline__ void load16(float (&f)[4], const float* p) {
 }
 
 // kAcc = 8 consecutive elements, 16-byte aligned.
-__device__ __forceinline__ void load8(float (&f)[8], const __nv_bfloat16* p) {
-  load16(f, p);
-}
-
 __device__ __forceinline__ void load8(float (&f)[8], const float* p) {
   float lo[4], hi[4];
   load16(lo, p);
@@ -182,35 +207,38 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// fp32, and bf16 with g > 16: CUDA cores, 256 threads per block
+// fp32: CUDA cores, 256 threads per block
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, bool kPaged>
+// kTasks: p V tasks per thread, 1 where g * hd <= kThreads * kAcc.
+template <int HD, bool kPaged, int kTasks>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
+  using T = float;
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int kSeg = HD / kVec;       // copies per key row
   constexpr int kPitch = HD + kVec;     // staged row, padded by 16 bytes
   constexpr int kLaneKeys = kChunk / 32;
   extern __shared__ __align__(16) unsigned char decode_smem[];
-  const int G = a.G;
+  // kTasks == 1: g * hd fits one block, which holds two chunk buffers.
+  const RowOf r = row_of<(kTasks > 1)>(a);
+  const int G = r.G;
+  const int stages = kTasks > 1 ? a.stages : 2;
   const int part_stride = 2 * G + G * HD;  // one block's (m[G], l[G], acc[G][HD])
   T* kv_s = reinterpret_cast<T*>(decode_smem);  // [stage][K, V][kChunk][kPitch]
-  float* q_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kChunk * kPitch);  // [G][HD]
+  float* q_s = reinterpret_cast<float*>(kv_s + stages * 2 * kChunk * kPitch);  // [G][HD]
   float* p_s = q_s + G * HD;      // [G][kChunk] this chunk's p
   float* m_s = p_s + G * kChunk;  // [G] running max
   float* l_s = m_s + G;           // [G] running sum
   float* c_s = l_s + G;           // [G] this chunk's correction
   float* part_s = c_s + G;        // [kSplit][part_stride], filled on rank 0
-  float* red_s = reinterpret_cast<float*>(decode_smem);  // key parts, over kv_s at the end
+  float* red_s = reinterpret_cast<float*>(decode_smem);  // key parts, over kv_s and q_s at the end
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   cluster_arrive_relaxed();  // this block has started: peers may write to it later
-  const int row = blockIdx.x / kSplit;
-  const int h = row % a.H;
-  const int b = (row / a.H) % a.B;
-  const int p = row / (a.H * a.B);
-  const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2];
+  const int p = r.p, b = r.b, h = r.h;
+  const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2] +
+               r.h0 * a.qs[3];
   // Ring: the row's cache starts at its batch index; paged: the block
   // table picks a page per position.
   const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + h * a.ks[3] +
@@ -250,30 +278,40 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   cp_async_commit();
 
   for (int e = tid; e < G * HD; e += kThreads)
-    q_s[e] = to_float(q[(e / HD) * a.qs[3] + e % HD]);
+    q_s[e] = q[(e / HD) * a.qs[3] + e % HD];
   for (int gi = tid; gi < G; gi += kThreads) {
     m_s[gi] = kNegInf;
     l_s[gi] = 0.f;
   }
 
-  // p V tasks: (key part, head, kAcc columns). The number of parts depends
-  // on g and hd only.
+  // p V tasks: (key part, head, kAcc columns), task tid + i * kThreads for
+  // i < kTasks. The number of parts depends on g and hd only.
   const int n_cols = G * HD / kAcc;
   int parts = 1;
   while (parts < kMaxParts && 2 * parts * n_cols <= kThreads) parts *= 2;
   const int part_len = kChunk / parts;
-  const bool has_task = tid < parts * n_cols;
-  const int col = tid % n_cols, part = tid / n_cols;
-  const int gi_t = col / (HD / kAcc), d0 = (col % (HD / kAcc)) * kAcc;
-  float acc[kAcc];
+  const int n_tasks = parts * n_cols;
+  bool has_task[kTasks];
+  int part_of[kTasks], gi_of[kTasks], d0_of[kTasks];
+  float acc[kTasks][kAcc];
 #pragma unroll
-  for (int u = 0; u < kAcc; ++u) acc[u] = 0.f;
+  for (int i = 0; i < kTasks; ++i) {
+    const int task = tid + i * kThreads, col = task % n_cols;
+    has_task[i] = task < n_tasks;
+    part_of[i] = task / n_cols;
+    gi_of[i] = col / (HD / kAcc);
+    d0_of[i] = (col % (HD / kAcc)) * kAcc;
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) acc[i][u] = 0.f;
+  }
 
-  int stage = 0;
-  for (int c = rank; c < n_chunks; c += kSplit, stage ^= 1) {
+  int it = 0;
+  for (int c = rank; c < n_chunks; c += kSplit, ++it) {
+    const int stage = it % stages;
+    const bool more = c + kSplit < n_chunks;
     cp_async_wait<0>();
     __syncthreads();  // chunk c is in; the previous chunk's readers are done
-    if (c + kSplit < n_chunks) load_chunk(c + kSplit, stage ^ 1);
+    if (more && stages > 1) load_chunk(c + kSplit, stage ^ 1);
     cp_async_commit();
     const T* k_st = kv_s + stage * 2 * kChunk * kPitch;
     const T* v_st = k_st + kChunk * kPitch;
@@ -291,14 +329,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
 #pragma unroll
       for (int seg = 0; seg < kSeg; ++seg) {
         float qf[kVec];
-#pragma unroll
-        for (int u = 0; u < kVec; u += 4) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qr + seg * kVec + u);
-          qf[u] = q4.x;
-          qf[u + 1] = q4.y;
-          qf[u + 2] = q4.z;
-          qf[u + 3] = q4.w;
-        }
+        load16(qf, qr + seg * kVec);
 #pragma unroll
         for (int i = 0; i < kLaneKeys; ++i) {
           float kf[kVec];
@@ -336,7 +367,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       }
     }
     __syncthreads();
-    if (has_task) {
+#pragma unroll
+    for (int i = 0; i < kTasks; ++i) {
+      if (!has_task[i]) continue;
+      const int part = part_of[i], gi_t = gi_of[i], d0 = d0_of[i];
       const float* prow = p_s + gi_t * kChunk + part * part_len;
       const T* vcol = v_st + part * part_len * kPitch + d0;
       float pv[kAcc];
@@ -352,17 +386,26 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       }
       const float corr = c_s[gi_t];
 #pragma unroll
-      for (int u = 0; u < kAcc; ++u) acc[u] = acc[u] * corr + pv[u];
+      for (int u = 0; u < kAcc; ++u) acc[i][u] = acc[i][u] * corr + pv[u];
+    }
+    if (more && stages == 1) {
+      __syncthreads();  // every thread is done with the one buffer
+      load_chunk(c + kSplit, 0);
+      cp_async_commit();
     }
   }
 
   // This block's (m, l, acc) into its slot on rank 0; the key parts are
-  // added in order 0..parts-1.
+  // added in order 0..parts-1. red_s spans parts * G * HD floats: within
+  // kv_s and q_s, which no thread reads any more.
   cp_async_wait<0>();  // a block past t still has its zero fill in flight
   __syncthreads();     // the last chunk's readers are done with kv_s
-  if (has_task) {
 #pragma unroll
-    for (int u = 0; u < kAcc; ++u) red_s[part * G * HD + gi_t * HD + d0 + u] = acc[u];
+  for (int i = 0; i < kTasks; ++i) {
+    if (!has_task[i]) continue;
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u)
+      red_s[part_of[i] * G * HD + gi_of[i] * HD + d0_of[i] + u] = acc[i][u];
   }
   __syncthreads();
   cluster_wait();  // every block of the cluster has started
@@ -381,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
 
   // Rank 0: combine the kSplit blocks in the fixed order j = 0..kSplit-1.
   cluster_wait();
-  T* o = static_cast<T*>(a.o) + p * a.os[0] + b * a.os[1] + h * a.os[2];
+  T* o = static_cast<T*>(a.o) + p * a.os[0] + b * a.os[1] + h * a.os[2] + r.h0 * a.os[3];
   for (int e = tid; e < G * HD; e += kThreads) {
     const int gi = e / HD;
     float M = kNegInf;
@@ -395,20 +438,20 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       l += pj[G + gi] * w;
       sum += pj[2 * G + e] * w;
     }
-    o[gi * a.os[3] + e % HD] = from_float<T>(sum / fmaxf(l, 1e-30f));
+    o[gi * a.os[3] + e % HD] = sum / fmaxf(l, 1e-30f);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, g <= 16: tensor cores, one warp per block
+// bfloat16: tensor cores, one warp per 16 heads
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaHeads = 16;  // the m rows of one mma: the g heads, zero-padded
+constexpr int kMmaHeads = 16;  // the m rows of one mma: 16 heads, zero-padded
 
 inline size_t mma_smem_bytes(int G, int hd, int stages) {
+  const size_t rows = (G + kMmaHeads - 1) / kMmaHeads * kMmaHeads;  // 16 * warps
   return size_t(stages) * 2 * kChunk * (hd + 8) * sizeof(__nv_bfloat16) +
-         sizeof(float) * (kSplit * (2 * size_t(G) + size_t(G) * hd) +
-                          (kSplit + 1) * kMmaHeads);
+         sizeof(float) * (kSplit * (2 * size_t(G) + size_t(G) * hd) + (kSplit + 1) * rows);
 }
 
 __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -418,8 +461,11 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-template <int HD, bool kPaged>
-__global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
+// kWide: more than 16 heads, ceil(g / 16) >= 2 warps; otherwise one warp,
+// known at compile time.
+template <int HD, bool kPaged, bool kWide>
+__global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
+    decode_mma_kernel(DecodeArgs a) {
   using T = __nv_bfloat16;
   constexpr int kPitch = HD + 8;   // staged row, padded by 16 bytes
   constexpr int kSeg = HD / 8;     // 16-byte copies per key row
@@ -427,20 +473,19 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
   constexpr int kNT = kChunk / 8;  // 8-key column tiles of S
   constexpr int kDT = HD / 8;      // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char decode_smem[];
-  const int G = a.G;
+  const RowOf r = row_of<kWide>(a);  // one warp: g <= 16, never sliced
+  const int G = r.G;
   const int part_stride = 2 * G + G * HD;  // one block's (m[G], l[G], acc[G][HD])
   T* kv_s = reinterpret_cast<T*>(decode_smem);  // [stage][K, V][kChunk][kPitch]
   float* part_s = reinterpret_cast<float*>(kv_s + a.stages * 2 * kChunk * kPitch);
-  float* w_s = part_s + kSplit * part_stride;  // rank 0: [kSplit + 1][kMmaHeads]
+  float* w_s = part_s + kSplit * part_stride;  // rank 0: [kSplit + 1][16 * warps]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   cluster_arrive_relaxed();  // this block has started: peers may write to it later
-  const int row = blockIdx.x / kSplit;
-  const int h = row % a.H;
-  const int b = (row / a.H) % a.B;
-  const int p = row / (a.H * a.B);
-  const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2];
+  const int p = r.p, b = r.b, h = r.h;
+  const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2] +
+               r.h0 * a.qs[3];
   const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + h * a.ks[3] +
                (kPaged ? 0 : b * a.ks[1]);
   const T* v = static_cast<const T*>(a.v) + p * a.vs[0] + h * a.vs[3] +
@@ -449,35 +494,47 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
   const int t = kPaged ? a.tv[b] : a.t;
   const int n_keys = min(a.L, t + 1);
   const int n_chunks = (n_keys + kChunk - 1) / kChunk;
-  const int lane = threadIdx.x, g = lane / 4, t4 = lane % 4;
+  const int tid = threadIdx.x;
+  const int nthreads = kWide ? blockDim.x : 32, nwarps = nthreads / 32;
+  const int warp = kWide ? tid / 32 : 0, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  auto block_sync = [] {
+    if constexpr (kWide) __syncthreads(); else __syncwarp();
+  };
 
-  // Each lane copies kIters 16-byte pieces of K and of V per chunk. The
-  // paged form reads all their pages first, so the block-table loads are in
-  // flight together (a page size that is a power of two divides by shifts).
+  // A chunk is kIters rounds of 32 16-byte copies of K and of V; warp w
+  // takes rounds w, w + nwarps, ... (at most kRounds). The paged form reads
+  // all its pages first, so the block-table loads are in flight together
+  // (a page size that is a power of two divides by shifts).
   constexpr int kIters = kChunk * kSeg / 32;
+  constexpr int kRounds = kWide ? (kIters + 1) / 2 : kIters;
   const bool ps_pow2 = kPaged && (a.ps & (a.ps - 1)) == 0;
   const int ps_log2 = __ffs(a.ps) - 1;
   auto load_chunk = [&](int c, int stage) {
     T* k_st = kv_s + stage * 2 * kChunk * kPitch;
     T* v_st = k_st + kChunk * kPitch;
-    int page[kIters], in_page[kIters];
+    int page[kRounds], in_page[kRounds];
 #pragma unroll
-    for (int r = 0; r < kIters; ++r) {
-      const int pos = c * kChunk + (lane + 32 * r) / kSeg;
-      page[r] = 0;
-      in_page[r] = pos < a.L ? pos : 0;  // source addresses stay in the cache
+    for (int u = 0; u < kRounds; ++u) {
+      const int rd = warp + u * nwarps;
+      const int pos = c * kChunk + (lane + 32 * rd) / kSeg;
+      page[u] = 0;
+      in_page[u] = pos < a.L ? pos : 0;  // source addresses stay in the cache
       if constexpr (kPaged) {
         const int pg = ps_pow2 ? pos >> ps_log2 : pos / a.ps;
-        in_page[r] = pos - pg * a.ps;
-        if (pos < a.L) page[r] = bt[pg];  // a valid index, whatever t is
+        in_page[u] = pos - pg * a.ps;
+        if (rd < kIters && pos < a.L) page[u] = bt[pg];  // a valid index, whatever t is
       }
     }
 #pragma unroll
-    for (int r = 0; r < kIters; ++r) {
-      const int i = lane + 32 * r, j = i / kSeg, seg = i % kSeg;
-      const long long ko = page[r] * a.ks[1] + in_page[r] * a.ks[2];
-      const long long vo = page[r] * a.vs[1] + in_page[r] * a.vs[2];
-      const int bytes = c * kChunk + j < n_keys ? 16 : 0;
+    for (int u = 0; u < kRounds; ++u) {
+      const int rd = warp + u * nwarps;
+      if (rd >= kIters) break;
+      const int i = lane + 32 * rd, j = i / kSeg, seg = i % kSeg;
+      const int pos = c * kChunk + j;
+      const long long ko = page[u] * a.ks[1] + in_page[u] * a.ks[2];
+      const long long vo = page[u] * a.vs[1] + in_page[u] * a.vs[2];
+      const int bytes = pos < n_keys ? 16 : 0;
       cp_async16(k_st + j * kPitch + seg * 8, k + ko + seg * 8, bytes);
       cp_async16(v_st + j * kPitch + seg * 8, v + vo + seg * 8, bytes);
     }
@@ -485,24 +542,25 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
   if (rank * kChunk < a.L) load_chunk(rank, 0);
   cp_async_commit();
 
-  // Q as mma A fragments, straight from device memory: rows g and g + 8 are
-  // heads g and g + 8 (zeros past G).
+  // This warp's 16 heads as mma A fragments, straight from device memory:
+  // rows g and g + 8 are heads 16w + g and 16w + g + 8 (zeros past G).
+  const int head0 = warp * kMmaHeads;
   unsigned qf[kKSteps][4];
   const T zero = __float2bfloat16(0.f);
 #pragma unroll
   for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int gi = g + 8 * (r & 1), d = ks * 16 + 8 * (r >> 1) + 2 * t4;
+    for (int rr = 0; rr < 4; ++rr) {
+      const int gi = head0 + g + 8 * (rr & 1), d = ks * 16 + 8 * (rr >> 1) + 2 * t4;
       const T* qr = q + gi * a.qs[3] + d;
-      qf[ks][r] = gi < G ? pack2(qr[0], qr[1]) : pack2(zero, zero);
+      qf[ks][rr] = gi < G ? pack2(qr[0], qr[1]) : pack2(zero, zero);
     }
   }
 
   float o[kDT][4];
 #pragma unroll
   for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // heads g, g + 8
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
   const float scale_log2 = a.scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
   int it = 0;
@@ -510,7 +568,7 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
     const int stage = it % a.stages;
     const bool more = c + kSplit < n_chunks;
     cp_async_wait<0>();
-    __syncwarp();  // chunk c is in; every lane is done with the other buffer
+    block_sync();  // chunk c is in; every thread is done with the other buffer
     if (more && a.stages > 1) load_chunk(c + kSplit, stage ^ 1);
     cp_async_commit();
     const T* k_st = kv_s + stage * 2 * kChunk * kPitch;
@@ -592,7 +650,7 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
       }
     }
     if (more && a.stages == 1) {
-      __syncwarp();  // every lane is done with the one buffer
+      block_sync();  // every thread is done with the one buffer
       load_chunk(c + kSplit, 0);
       cp_async_commit();
     }
@@ -609,7 +667,7 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
   float* slot = cluster.map_shared_rank(part_s, 0) + rank * part_stride;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int gi = g + 8 * half;
+    const int gi = head0 + g + 8 * half;
     if (gi >= G) continue;
     if (t4 == 0) {
       slot[gi] = half ? m1 : m0;
@@ -624,40 +682,44 @@ __global__ void __launch_bounds__(32) decode_mma_kernel(DecodeArgs a) {
   if (rank != 0) return;
 
   // Rank 0: combine the kSplit blocks in the fixed order j = 0..kSplit-1.
+  // One thread per head (G <= 16 * warps < threads) writes its kSplit
+  // weights and 1 / l; rows of 16 * warps heads, a constant for one warp.
   cluster_wait();
-  if (lane < G) {
+  const int ws = kMmaHeads * nwarps;
+  if (tid < G) {
     float M = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kSplit; ++j) M = fmaxf(M, part_s[j * part_stride + lane]);
+    for (int j = 0; j < kSplit; ++j) M = fmaxf(M, part_s[j * part_stride + tid]);
     float l = 0.f;
 #pragma unroll
     for (int j = 0; j < kSplit; ++j) {
-      const float w = exp2f(part_s[j * part_stride + lane] - M);
-      l += part_s[j * part_stride + G + lane] * w;
-      w_s[j * kMmaHeads + lane] = w;
+      const float w = exp2f(part_s[j * part_stride + tid] - M);
+      l += part_s[j * part_stride + G + tid] * w;
+      w_s[j * ws + tid] = w;
     }
-    w_s[kSplit * kMmaHeads + lane] = 1.f / fmaxf(l, 1e-30f);
+    w_s[kSplit * ws + tid] = 1.f / fmaxf(l, 1e-30f);
   }
-  __syncwarp();
-  T* o_g = static_cast<T*>(a.o) + p * a.os[0] + b * a.os[1] + h * a.os[2];
-  for (int e = lane; e < G * HD; e += 32) {
+  block_sync();
+  T* o_g = static_cast<T*>(a.o) + p * a.os[0] + b * a.os[1] + h * a.os[2] + r.h0 * a.os[3];
+  for (int e = tid; e < G * HD; e += nthreads) {
     const int gi = e / HD;
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < kSplit; ++j)
-      sum += part_s[j * part_stride + 2 * G + e] * w_s[j * kMmaHeads + gi];
-    o_g[gi * a.os[3] + e % HD] = __float2bfloat16(sum * w_s[kSplit * kMmaHeads + gi]);
+      sum += part_s[j * part_stride + 2 * G + e] * w_s[j * ws + gi];
+    o_g[gi * a.os[3] + e % HD] = __float2bfloat16(sum * w_s[kSplit * ws + gi]);
   }
 }
 
-// One launch of `kernel` with kSplit blocks per row as one cluster.
+// One launch of `kernel` with kSplit blocks per (row, head slice) as one
+// cluster.
 template <typename Kernel>
 int launch_cluster(Kernel kernel, const DecodeArgs& a, int threads, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.P * a.B * a.H * kSplit);
+  cfg.gridDim = dim3(a.P * a.B * a.H * a.n_slices * kSplit);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -673,18 +735,44 @@ int launch_cluster(Kernel kernel, const DecodeArgs& a, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Heads per block: the most that fit (shared memory; the tensor-core body
+// also kMaxMmaWarps warps, the CUDA-core body kMaxTasks p V tasks a
+// thread), then the group cut into equal slices. A function of g, hd and
+// the type alone.
+void slice_heads(DecodeArgs& a, bool mma, int hd) {
+  int cap = mma ? min(a.G, kMaxMmaWarps * kMmaHeads)
+                : min(a.G, kThreads * kAcc * kMaxTasks / hd);
+  while (cap > 1 && (mma ? mma_smem_bytes(cap, hd, 2)
+                         : smem_bytes(cap, hd, sizeof(float), 1)) > kMaxSmem)
+    --cap;
+  a.n_slices = (a.G + cap - 1) / cap;
+  a.GB = (a.G + a.n_slices - 1) / a.n_slices;
+}
+
 template <typename T, int HD, bool kPaged>
 int launch(DecodeArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (a.G <= kMmaHeads) {
-      // A second chunk buffer only where a block walks more than one chunk.
-      a.stages = a.L > kSplit * kChunk ? 2 : 1;
-      return launch_cluster(decode_mma_kernel<HD, kPaged>, a, 32,
-                            mma_smem_bytes(a.G, HD, a.stages), stream);
-    }
+    slice_heads(a, true, HD);
+    // A second chunk buffer only where a block walks more than one chunk.
+    a.stages = a.L > kSplit * kChunk ? 2 : 1;
+    const int warps = (a.GB + kMmaHeads - 1) / kMmaHeads;
+    const size_t smem = mma_smem_bytes(a.GB, HD, a.stages);
+    if (warps > 1)
+      return launch_cluster(decode_mma_kernel<HD, kPaged, true>, a, 32 * warps, smem,
+                            stream);
+    if (a.n_slices > 1) return -1;  // a slice holds more than 16 heads at every hd
+    return launch_cluster(decode_mma_kernel<HD, kPaged, false>, a, 32, smem, stream);
+  } else {
+    slice_heads(a, false, HD);
+    a.stages = smem_bytes(a.GB, HD, sizeof(float), 2) <= kMaxSmem ? 2 : 1;
+    const size_t smem = smem_bytes(a.GB, HD, sizeof(float), a.stages);
+    // One task a thread: one head slice with two buffers (always so where
+    // g * hd <= kThreads * kAcc, since a block holds more than that).
+    if (a.GB * HD <= kThreads * kAcc && a.n_slices == 1 && a.stages == 2)
+      return launch_cluster(decode_kernel<HD, kPaged, 1>, a, kThreads, smem, stream);
+    return launch_cluster(decode_kernel<HD, kPaged, kMaxTasks>, a, kThreads, smem,
+                          stream);
   }
-  return launch_cluster(decode_kernel<T, HD, kPaged>, a, kThreads,
-                        smem_bytes(a.G, HD, sizeof(T)), stream);
 }
 
 template <typename T, bool kPaged>
@@ -723,13 +811,6 @@ int dispatch(DecodeArgs& a, int dtype, int hd, const long long* strides,
   return -1;
 }
 
-bool bad_shape(int G, int hd, int L, int dtype) {
-  const int elem = dtype == kFloat32 ? 4 : 2;
-  return G * hd > kThreads * kAcc || hd <= 0 || G <= 0 || L <= 0 ||
-         smem_bytes(G, hd, elem) > 227 * 1024 ||
-         mma_smem_bytes(G, hd, 2) > 227 * 1024;
-}
-
 }  // namespace
 
 // Returns 0 on success, a cudaError_t code after a failed launch (a refused
@@ -740,9 +821,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       int P, int B, int H, int G, int L,
                                       int hd, const long long* strides, int t,
                                       float scale, void* stream) {
-  if (bad_shape(G, hd, L, dtype) || t < 0) return -1;
+  if (G <= 0 || L <= 0 || t < 0) return -1;
   DecodeArgs a{q, k, v, o, P, B, H, G, L, {}, {}, {}, {},
-               t, nullptr, nullptr, 0, 0, scale, 1};
+               t, nullptr, nullptr, 0, 0, scale, 1, G, 1};
   return dispatch<false>(a, dtype, hd, strides, stream);
 }
 
@@ -755,8 +836,8 @@ extern "C" int repro_decode_attention_paged(const void* q, const void* k,
                                             int G, int n_pg, int ps, int hd,
                                             const long long* strides,
                                             float scale, void* stream) {
-  if (bad_shape(G, hd, n_pg * ps, dtype) || ps <= 0) return -1;
+  if (G <= 0 || n_pg <= 0 || ps <= 0) return -1;
   DecodeArgs a{q, k, v, o, P, B, H, G, n_pg * ps, {}, {}, {}, {},
-               0, bt, tv, n_pg, ps, scale, 1};
+               0, bt, tv, n_pg, ps, scale, 1, G, 1};
   return dispatch<true>(a, dtype, hd, strides, stream);
 }

@@ -7,8 +7,9 @@ passed in its stored layout with its strides; nothing is transposed,
 gathered or padded. The kernel copies cache rows in 16-byte pieces, so the
 cache's pointer and strides must be multiples of 16 bytes; the wrapper
 raises on anything else. Each row is split across a cluster of 4 blocks;
-a refused cluster launch raises. bf16 with g <= 16 runs on the tensor
-cores; fp32, and bf16 with wider groups, on the CUDA cores.
+a refused cluster launch raises. bf16 runs on the tensor cores, one warp
+per 16 query heads of the GQA group (any g: a group wider than a block's
+shared memory holds is cut into head slices); fp32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -51,9 +52,11 @@ def _check(q, k, v, hd, G):
                          "CUDA device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("decode attention needs hd contiguous")
-    if hd not in (16, 32, 64, 128) or G * hd > 2048:
-        raise ValueError(f"decode attention is built for hd in 16/32/64/128 "
-                         f"and g*hd <= 2048, got hd={hd}, g={G}")
+    if hd not in (16, 32, 64, 128):
+        raise ValueError(f"decode attention is built for hd in 16/32/64/128, "
+                         f"got hd={hd} (hd = 256 is ROADMAP item 11)")
+    if G < 1:
+        raise ValueError(f"decode attention needs a GQA group g >= 1, got {G}")
     if not (build.aligned16(k, 4) and build.aligned16(v, 4)):
         raise ValueError("decode attention needs the cache's pointers and "
                          "strides in multiples of 16 bytes")

@@ -54,7 +54,12 @@ def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
     """Tensors for a template: normal * fan_in^-0.5, zeros or ones. Leaves
     draw from ``generator`` in JAX's flatten order; the bits differ from
     JAX's ``init_tree``, the distribution does not. ``generator`` must live
-    on ``device``."""
+    on ``device``.
+
+    A stacked leaf ([n, (2,) D, F]) is drawn one matrix at a time, in fp32,
+    and cast into its slice of the output: the fp32 transient is one
+    layer's matrix, not the whole leaf (granite-34b's stacked ``w_up`` would
+    be ~27 GB in fp32)."""
     device = torch.device(device if device is not None else generator.device)
 
     def make(pd: PD):
@@ -66,9 +71,13 @@ def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
         fan = pd.fan_in
         if fan is None:
             fan = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
-        x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * fan ** -0.5).to(dt)
+        out = torch.empty(pd.shape, dtype=dt, device=device)
+        mats = out.view(-1, *pd.shape[-2:]) if len(pd.shape) > 2 else out[None]
+        for m in mats:
+            x = torch.randn(m.shape, generator=generator, dtype=torch.float32,
+                            device=device)
+            m.copy_(x.mul_(fan ** -0.5))
+        return out
 
     return tree_map(make, tmpl)
 

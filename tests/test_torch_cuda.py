@@ -126,12 +126,15 @@ def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g,hd", [(8, 64), (32, 64), (3, 128), (16, 16)])
+@pytest.mark.parametrize("g,hd", [(8, 64), (32, 64), (3, 128), (16, 16),
+                                  (48, 128), (36, 64), (12, 128),
+                                  (130, 128), (200, 16)])
 def test_decode_group_widths_on_gpu(cuda, dtype, g, hd):
-    """GQA groups on both sides of 16 heads (in bf16, up to 16 heads run on
-    the tensor cores, wider groups on the CUDA cores): ring and paged pair
-    against their plain versions, paged == ring bit for bit, horizons that
-    make a block walk two chunks."""
+    """GQA groups on both sides of 16 heads (in bf16 one warp per 16 heads
+    on the tensor cores: granite-34b's MQA is g = 48 at hd = 128; g = 130
+    and 200 are cut into head slices): ring and paged, pair and single
+    layer, against their plain versions, paged == ring bit for bit,
+    horizons that make a block walk two chunks."""
     td, tol = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(6)
 
@@ -156,6 +159,15 @@ def test_decode_group_widths_on_gpu(cuda, dtype, g, hd):
                                                   v[:, b:b + 1], int(t[b])),
             atol=tol, rtol=tol)
         assert torch.equal(got[:, b:b + 1], ring), b
+    single = ops.decode_attention_paged(q[1], kp[1], vp[1], bt, t)
+    torch.testing.assert_close(
+        single, ops.decode_attention_paged_plain(q[1], kp[1], vp[1], bt, t),
+        atol=tol, rtol=tol)
+    ring1 = ops.decode_attention(q[1, :1], k[1, :1], v[1, :1], int(t[0]))
+    torch.testing.assert_close(
+        ring1, ops.decode_attention_plain(q[1, :1], k[1, :1], v[1, :1], int(t[0])),
+        atol=tol, rtol=tol)
+    assert torch.equal(single[:1], ring1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -212,18 +224,20 @@ def test_flash_bf16_refuses_what_it_does_not_take_on_gpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_batch_invariant_on_gpu(cuda, dtype):
+@pytest.mark.parametrize("H,G,hd", [(2, 4, 64), (1, 48, 128)])
+def test_decode_batch_invariant_on_gpu(cuda, dtype, H, G, hd):
     """Each row of an 8-slot paged pair launch equals, bit for bit, the
     same row launched alone and inside a 40-row launch (the 8 rows five
-    times, the speculative verifier's width at k = 4). Horizons up to 319
-    make a block of the split walk two chunks; slot 1 is idle."""
+    times, the speculative verifier's width at k = 4), at a narrow group
+    and at granite-34b's MQA (1 kv head, g = 48, hd = 128). Horizons up to
+    319 make a block of the split walk two chunks; slot 1 is idle."""
     td, tol = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(5)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=cuda).to(td)
 
-    B, L, H, G, hd, ps = 8, 320, 2, 4, 64, 16
+    B, L, ps = 8, 320, 16
     kp, bt = _paginate(rand(2, B, L, H, hd), ps)
     vp, _ = _paginate(rand(2, B, L, H, hd), ps)
     q = rand(2, B, H, G, hd)

@@ -81,9 +81,11 @@ def knobs():
 # configs
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "falcon-mamba-7b", "yi-6b",
+                                  "minicpm-2b", "granite-34b"])
 @pytest.mark.parametrize("n_layers", [None, 4])
-def test_config_copy_matches(n_layers):
-    j, t = jget_config("tinyllama-1.1b"), TC.get_config("tinyllama-1.1b")
+def test_config_copy_matches(n_layers, arch):
+    j, t = jget_config(arch), TC.get_config(arch)
     if n_layers:
         j, t = jreduced(j, n_layers=n_layers), TC.reduced_config(t, n_layers=n_layers)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
