@@ -34,11 +34,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      dependent launch). It is timed back to back and between the path's
      neighbours (a residual add before, a GEMM after, in one graph). At the
      dense models' head shapes (``DENSE_SHAPES``: yi-6b's GQA at hd 128,
-     minicpm-2b's MHA, granite-34b's MQA with g = 48 at hd 128) the four
-     decode entries and flash are held against their plain versions in
-     bf16 and fp32 (ring horizons that walk 1 to 4 chunks), paged == ring
-     bit for bit, granite's paged rows batch-invariant, and each is timed
-     beside its bound, its plain version and SDPA.
+     minicpm-2b's MHA, granite-34b's MQA with g = 48 at hd 128,
+     recurrentgemma-9b's 16 query heads over one kv head at hd 256) the
+     four decode entries and flash are held against their plain versions
+     in bf16 and fp32 (ring horizons that walk 1 to 4 chunks), paged ==
+     ring bit for bit, granite's and recurrentgemma's paged rows
+     batch-invariant, and each is timed beside its bound, its plain version
+     and SDPA; at recurrentgemma's shape also flash with the window mask
+     (W = 2048) at generate's prefill and at a 2304-token prompt.
   4. reduced parity: tinyllama, yi-6b, minicpm-2b, granite-34b and
      falcon-mamba cut to 4 layers in fp32, LP pairs (0,1), (2,3) (the dense
      three: plan_for_depth 3, one pair and two single layers, biases and
@@ -49,7 +52,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      preempted request, resumed by a full re-prefill). Then granite-34b at
      full width cut to 2 layers (one LP pair), fp32: card == CPU for 2
      prompts of 32 tokens and 8 new, and the engine == ``generate`` on the
-     card (the fp32 wide-group decode body on a model path).
+     card (the fp32 wide-group decode body on a model path). Then
+     recurrentgemma cut to 6 layers (window 16; prompts of 21 tokens wrap
+     the window ring): card == CPU; at the window raised to the cache
+     length, the engine on the card == generate == the engine on the CPU;
+     and one recurrentgemma period at full width (3 layers, 2.7 B fp32):
+     card == CPU, the engine == generate (the hd 256 kernels in fp32).
   5. generate path: LP tinyllama-1.1b at full width (22 layers,
      plan_for_depth 16 -> 6 pairs + 10 single layers), bf16 random weights
      from a seed, 4 prompts of 128 tokens, 64 new tokens through
@@ -95,8 +103,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths, each under plan_for_depth(3/4 of its layers): 32 -> 24, 40 ->
-     30, 88 -> 66 groups, bf16 random weights made on the card from the
+     widths (granite cut to its first 44 of 88 layers, ``DENSE_LAYERS``),
+     each under plan_for_depth(3/4 of its layers): 32 -> 24, 40 -> 30,
+     44 -> 33 groups, bf16 random weights made on the card from the
      seed (each model freed before the next): phase 5's ``generate`` and
      phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
@@ -106,9 +115,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      decode launches are held against their plain versions; granite, a
      LayerNorm model, launches no dual RMSNorm), with the peak of allocated
      device memory.
+ 10. hybrid path: LP recurrentgemma-9b at its published widths (38
+     layers, plan_for_depth(29): 9 RG-LRU pairs, 8 single RG-LRU layers,
+     12 single local-attention layers at hd 256), bf16 random weights
+     made on the card from the seed: phase 5's ``generate`` and phase 6's
+     engine (the prefix cache and the bucket ladder switch off for the
+     recurrent state; streams held to ``generate`` in fp32 compute, the
+     timed bf16 run reconciled: per decode step 12 decode attention and
+     18 dual RMSNorm launches, per prefill 12 flash and 17 scans), then a
+     window run: one 2304-token prompt (W + 256) and 16 new tokens, its
+     first flash launch and its wrapped-ring decode launches held against
+     their plain versions, and in fp32 compute prefill + one decode step
+     equal to the full forward over prompt + 1 within 2e-3.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phase 9 after 7. The second-to-last line is the kernels JSON (with every
+phases 9 and 10 after 7. The second-to-last line is the kernels JSON (with every
 path's metrics and each phase's seconds), the last line the device JSON.
 
     python3 chip_smoke.py --norm-times
@@ -119,8 +140,8 @@ another checkout times that checkout's kernel on the same card.
 
     python3 chip_smoke.py --decode-times
 
-does the same for the four decode attention entries at tinyllama's and
-the dense models' head shapes.
+does the same for the four decode attention entries and flash at
+tinyllama's and the other models' head shapes.
 """
 from __future__ import annotations
 
@@ -164,11 +185,23 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
                (4096, 4), (4096, 8), (4096, 97), (4096, 512))
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
-# Attention head shapes of the dense models (kv heads, GQA group, hd) held
-# in phase 3 beside tinyllama's: yi-6b's GQA, minicpm-2b's MHA and
-# granite-34b's MQA.
+# Layers phase 9 keeps where it cuts a model's depth: granite-34b's 88
+# layers are halved, so that with phase 10 the script keeps room in its
+# time limit on a slow host (PERF.md §4).
+DENSE_LAYERS = {"granite-34b": 44}
+# Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
+# tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
+# recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
+# 256).
 DENSE_SHAPES = (("yi-6b", 4, 8, 128), ("minicpm-2b", 36, 1, 64),
-                ("granite-34b", 1, 48, 128))
+                ("granite-34b", 1, 48, 128), ("recurrentgemma-9b", 1, 16, 256))
+# Hybrid path: recurrentgemma-9b (RG-LRU and local attention, window 2048)
+# under plan_for_depth(29): 9 rec pairs, 8 single rec layers, 12 single
+# attn_local layers. Its window run takes a prompt of W + 256 tokens.
+HYBRID = "recurrentgemma-9b"
+HYBRID_EFF_DEPTH, WINDOW = 29, 2048
+WINDOW_PROMPT, WINDOW_NEW = WINDOW + 256, 16
+WINDOW_TOL = 2e-3   # prefill + one decode step against the full forward, fp32
 
 
 def log(msg):
@@ -414,10 +447,11 @@ def check_kernels():
                     "shape": f"8 rows x {Sb}-token bucket after {Tc} context keys, "
                              f"per-row q0, {H} kv heads, g={G}, hd={HD}",
                     "ms": time_ms(lambda: ops.flash_attention(q, k, v, q0=q0, block_n=16)),
+                    "plain_ms": time_ms(lambda: ops.flash_attention_plain(q, k, v, q0=q0)),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
                 log(f"  flash engine bucket H={H} {dtype}: ms={entry['ms']:.5f} "
-                    f"bound_ms={b_ms:.6f} ({b_by}) library_ms={entry['library_ms']:.5f} "
-                    f"(SDPA, boolean mask)")
+                    f"plain_ms={entry['plain_ms']:.5f} bound_ms={b_ms:.6f} ({b_by}) "
+                    f"library_ms={entry['library_ms']:.5f} (SDPA, boolean mask)")
 
         log(f"[kernels] paged decode attention {dtype}")
         # The engine's decode: 8 slots of 16 pages, ragged horizons, slot 1
@@ -459,8 +493,10 @@ def check_kernels():
 
         for model, hkv, g, hd in DENSE_SHAPES:
             log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
-            for (name, key), e in check_dense_shape(ops, rand, gen, dtype, hkv, g, hd,
-                                                     tol).items():
+            found = check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol)
+            if model == HYBRID:
+                found.update(check_window_flash(ops, rand, dtype, hkv, g, hd, tol))
+            for (name, key), e in found.items():
                 record(name, dtype, e["max_abs_err"], None, None, 0, 0)
                 rows[("dense", name, key, model, dtype)] = e
         torch.cuda.empty_cache()
@@ -499,6 +535,7 @@ def check_kernels():
             else:
                 b_ms, b_by = bound(nb, fl, "float32")
                 log(f"  ssm_scan {what}: ms={time_ms(lambda: ops.ssm_scan(a, bb, h0)):.5f} "
+                    f"plain_ms={time_ms(lambda: ops.ssm_scan_plain(a, bb, h0)):.5f} "
                     f"bound_ms={b_ms:.6f} ({b_by})")
                 record("ssm_scan", dtype, err, None, None, 0, 0)
             del a, bb, h0
@@ -741,7 +778,7 @@ def check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol):
               n_kv * 4 * keys * hkv * g * hd, shape=shape)
     log(f"  paged == ring kernel on the paginated cache, bit for bit (7 slots, "
         f"pair and single)")
-    if g > 16:
+    if g > 16 or hd > 128:   # the wide-group and the two-column-warp bodies
         check_decode_batch_invariance(ops, qp, kp, vp, bt, tv)
     del kr, vr, qp, kp, vp
 
@@ -760,6 +797,45 @@ def check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol):
         entry("flash_attention", "prefill" if H == 2 * hkv else "prefill single", err,
               run, plain, 2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs, library=lib,
               shape=f"B={B}, S={S}, {H} kv heads, g={g}, hd={hd}, causal, block_n={bn}")
+    return out
+
+
+def check_window_flash(ops, rand, dtype, hkv, g, hd, tol):
+    """Flash with the window mask (W = 2048) at recurrentgemma-9b's head
+    shape and its paths' kv tile (block_n = 16): generate's prefill (B = 4
+    prompts of 128, the window not reached) and the window run's prefill
+    (B = 1, S = W + 256, where the mask cuts each late row to its last W
+    keys). Each held against its plain version and timed beside its bound
+    and SDPA with a boolean mask. Returns {(kernel name, key): entry}."""
+    import torch
+    import torch.nn.functional as F
+    dt = str(dtype).split(".")[1]
+    out = {}
+    for key, b, s_len in (("prefill window", B, S),
+                          ("prefill window long", 1, WINDOW_PROMPT)):
+        q = rand(b, s_len, hkv, g, hd, dtype=dtype)
+        k, v = rand(b, s_len, hkv, hd, dtype=dtype), rand(b, s_len, hkv, hd, dtype=dtype)
+        run = lambda: ops.flash_attention(q, k, v, kind="window", window=WINDOW,  # noqa: E731
+                                          block_n=16)
+        plain = lambda: ops.flash_attention_plain(q, k, v, kind="window",  # noqa: E731
+                                                  window=WINDOW)
+        err = compare(f"flash window={WINDOW} B={b} S={s_len} hd={hd}", run(), plain(), tol)
+        pos = torch.arange(s_len, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < WINDOW)
+        ql = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, s_len, hd)
+        kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,  # noqa: E731
+                                                     enable_gqa=True)
+        pairs = int(mask.sum()) * b * hkv * g   # allowed (query, key) pairs
+        b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs, dt)
+        out[("flash_attention", key)] = e = {
+            "shape": f"B={b}, S={s_len}, {hkv} kv head, g={g}, hd={hd}, window "
+                     f"{WINDOW}, block_n=16",
+            "max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain, iters=2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
+        log(f"  flash_attention {key} {dt}: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms={e['library_ms']:.5f}")
+        del q, k, v, ql, kl, vl
     return out
 
 
@@ -786,9 +862,10 @@ def decode_times():
     """Device ms (CUDA-graph replay) of the four decode entries at
     tinyllama's shape and at ``DENSE_SHAPES``, bf16 and fp32, through the
     ``repro_torch`` beside this script: generate's ring decode (B = 4, t =
-    160) and the engine's paged decode (8 slots). A shape that checkout's
-    wrapper refuses is reported as refused. Copied into another checkout,
-    this times that checkout's kernel on the same card."""
+    160) and the engine's paged decode (8 slots); and flash at generate's
+    prefill pair shape (B = 4, S = 128, causal, block_n = 16). A shape that
+    checkout's wrapper refuses is reported as refused. Copied into another
+    checkout, this times that checkout's kernels on the same card."""
     import torch
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
@@ -802,6 +879,8 @@ def decode_times():
             q1 = rand(B, hkv, g, hd, dtype=dtype)
             k1, v1 = (rand(B, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
             qp, kr, vr, kp, vp, bt, tv = engine_decode_inputs(rand, gen, dtype, hkv, g, hd)
+            qf = rand(B, S, 2 * hkv, g, hd, dtype=dtype)
+            kf, vf = (rand(B, S, 2 * hkv, hd, dtype=dtype) for _ in range(2))
             e = {"model": model, "dtype": str(dtype).split(".")[1]}
             for name, fn in (
                     ("decode_attention", lambda: ops.decode_attention(q1, k1, v1, 160)),
@@ -810,7 +889,9 @@ def decode_times():
                     ("decode_attention_paged",
                      lambda: ops.decode_attention_paged(qp[0], kp[0], vp[0], bt, tv)),
                     ("decode_attention_pair_paged",
-                     lambda: ops.decode_attention_pair_paged(qp, kp, vp, bt, tv))):
+                     lambda: ops.decode_attention_pair_paged(qp, kp, vp, bt, tv)),
+                    ("flash_attention",
+                     lambda: ops.flash_attention(qf, kf, vf, block_n=16))):
                 try:
                     e[name] = time_ms(fn)
                 except ValueError as err:   # a checkout whose wrapper refuses the shape
@@ -931,13 +1012,17 @@ def reduced_parity():
             raise AssertionError(f"reduced engine parity failed ({what})")
 
 
-def granite_two_layers():
-    """granite-34b at full width (d 6144, 48 query heads over 1 kv head, hd
-    128, d_ff 24576, vocab 49152), cut to 2 layers as one LP pair, fp32
-    weights (biases and norms filled) and caches: B = 2 prompts of 32
+def full_width_cut(name, n_layers, prompt_len):
+    """``name`` at its published widths cut to its first ``n_layers``
+    layers under plan_range (one LP pair and what follows it), fp32 weights
+    (biases and norms filled) and caches: B = 2 prompts of ``prompt_len``
     tokens, 8 new. Card tokens == CPU tokens, prefill logits within
     LOGIT_TOL, and the engine on the card == generate on the card: the fp32
-    wide-group decode body on a model path (ring and paged)."""
+    bodies of the head shape on a model path (ring and paged). granite-34b
+    at 2 layers (d 6144, 48 query heads over 1 kv head at hd 128, vocab
+    49152; ~6 GB on the CPU side) takes the wide-group decode body;
+    recurrentgemma-9b at 3 layers, one period (the RG-LRU pair and the
+    attn_local layer at hd 256, vocab 256,000; ~11 GB), the hd 256 ones."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -949,13 +1034,16 @@ def granite_two_layers():
                                    generate, make_prefill)
 
     pc = ParallelContext()
-    cfg = dataclasses.replace(get_config("granite-34b"), n_layers=2)
-    ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 2))
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    ms = T.build_structure(cfg, plan=plan_range(cfg, 0, n_layers))
+    if ms.plan.pairs != ((0, 1),):
+        raise AssertionError(f"{name} at {n_layers} layers: pairs {ms.plan.pairs}")
+    what = f"{name} {n_layers} layers"
     p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
                                       torch.float32, device="cpu"), SEED + 6)
     p_gpu = ModelParams(tree_map(lambda x: x.to("cuda"), p_cpu.tree()))
     n_params = sum(v.numel() for v in p_cpu.parameters())
-    prompts = torch.randint(0, cfg.vocab_size, (2, 32),
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                             generator=torch.Generator().manual_seed(SEED + 1))
     sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
     lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
@@ -965,11 +1053,11 @@ def granite_two_layers():
     tok_cpu = generate(p_cpu, prompts, 8, ms=ms, pc=pc, sv=sv)
     tok_gpu = generate(p_gpu, prompts.cuda(), 8, ms=ms, pc=pc, sv=sv).cpu()
     same = bool((tok_cpu == tok_gpu).all())
-    log(f"[granite 2 layers] {n_params / 1e9:.3f} B parameters (fp32), pairs "
+    log(f"[{what}] {n_params / 1e9:.3f} B parameters (fp32), pairs "
         f"{ms.plan.pairs}: prefill logits max_abs_err={err:.3e} (logit scale "
         f"{scale:.3f}, tol {LOGIT_TOL:g}); greedy tokens equal card == CPU: {same}")
     if err > LOGIT_TOL or not same:
-        raise AssertionError(f"granite 2-layer parity failed: logits err {err:.3e}, "
+        raise AssertionError(f"{what} parity failed: logits err {err:.3e}, "
                              f"tokens\n{tok_cpu}\n{tok_gpu}")
     del p_cpu
     eng = PagedEngine(p_gpu, ms, PagedServeConfig(
@@ -977,9 +1065,9 @@ def granite_two_layers():
         prefix_cache=True))
     got = serve(eng, [(0, p.numpy(), 8) for p in prompts])
     if [g.tolist() for g in got] != tok_gpu.tolist():
-        raise AssertionError(f"granite 2-layer engine differs from generate on the "
+        raise AssertionError(f"{what} engine differs from generate on the "
                              f"card:\n{got}\n{tok_gpu}")
-    log("[granite 2 layers] engine on the card == generate on the card (2 streams)")
+    log(f"[{what}] engine on the card == generate on the card (2 streams)")
 
 
 def reduced_mamba_parity():
@@ -1051,6 +1139,67 @@ def reduced_mamba_parity():
             raise AssertionError("the reduced mamba engine preempted nothing")
 
 
+def reduced_hybrid_parity():
+    """recurrentgemma cut to 6 layers (rec pairs (0,1), (3,4); attn_local
+    layers 2 and 5; window 16), fp32 weights and caches: generate on the
+    card == on the CPU for 2 prompts of 21 tokens (past the window: the
+    ring wraps), prefill logits within LOGIT_TOL. At the window raised to
+    the cache length (48, as the paged pool needs), the engine on the card
+    == generate on the card == the engine on the CPU, staggered traffic."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate, make_prefill)
+
+    pc = ParallelContext()
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    base = reduced_config(get_config(HYBRID), n_layers=6)
+    for cfg in (base, dataclasses.replace(base, window=sv.max_len)):
+        ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 6))
+        p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
+                                          torch.float32, device="cpu"), SEED + 6)
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        what = f"{cfg.name} window={cfg.window}"
+        if cfg.window < sv.max_len:
+            prompts = torch.randint(0, cfg.vocab_size, (2, cfg.window + 5),
+                                    generator=torch.Generator().manual_seed(SEED + 1))
+            lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
+            lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda())
+            err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+            tok_cpu = generate(p_cpu, prompts, 16, ms=ms, pc=pc, sv=sv)
+            tok_gpu = generate(p_gpu, prompts.cuda(), 16, ms=ms, pc=pc, sv=sv).cpu()
+            same = bool((tok_cpu == tok_gpu).all())
+            log(f"[reduced] {what} pairs={ms.plan.pairs}: {prompts.shape[1]}-token "
+                f"prompts, prefill logits max_abs_err={err:.3e} (tol {LOGIT_TOL:g}); "
+                f"greedy tokens equal card == CPU: {same}")
+            if err > LOGIT_TOL or not same:
+                raise AssertionError(f"reduced hybrid parity failed ({what}): logits "
+                                     f"err {err:.3e}, tokens\n{tok_cpu}\n{tok_gpu}")
+            continue
+        work = reduced_traffic(cfg.vocab_size)
+        psv = PagedServeConfig(n_slots=4, page_size=8, n_pages=33, max_len=48,
+                               cache_dtype=torch.float32, prefix_cache=True)
+        eng = PagedEngine(p_gpu, ms, psv)
+        got = serve(eng, work)
+        cpu = serve(PagedEngine(p_cpu, ms, psv), work)
+        ref = [generate(p_gpu, torch.from_numpy(p).cuda()[None], n, ms=ms, pc=pc,
+                        sv=sv)[0].cpu().numpy() for _, p, n in work]
+        n_gen = sum(a.tolist() == b.tolist() for a, b in zip(got, ref))
+        n_cpu = sum(a.tolist() == b.tolist() for a, b in zip(got, cpu))
+        c = eng.counters
+        log(f"[reduced] engine {what}: {len(work)} requests, {c['full_prefills']} exact "
+            f"prefills, prefix cache {'on' if eng.prefix else 'off'}; streams equal to "
+            f"generate on the card {n_gen}/{len(work)}, to the engine on the CPU "
+            f"{n_cpu}/{len(work)}")
+        if n_gen != len(work) or n_cpu != len(work) or eng.prefix is not None:
+            raise AssertionError(f"reduced hybrid engine parity failed ({what})")
+
+
 def reduced_traffic(vocab):
     """10 requests of the reduced engine check: 4 sharing a 16-token
     prefix, 6 cold, in staggered waves (submit step, prompt, max_new)."""
@@ -1112,10 +1261,10 @@ class DecodeProbe:
     fails the timed run itself."""
 
     def __init__(self, ms, paged, steps=(0, 40)):
-        n_groups, n_pairs = model_counts(ms)
+        n_single, n_pair, _ = mixer_counts(ms)
         kind = "_paged" if paged else ""
-        self.per_step = {f"decode_attention_pair{kind}": n_pairs,
-                         f"decode_attention{kind}": n_groups - n_pairs}
+        self.per_step = {f"decode_attention_pair{kind}": n_pair,
+                         f"decode_attention{kind}": n_single}
         self.steps, self.kept, self.seen, self.orig = steps, [], {}, {}
 
     def __enter__(self):
@@ -1171,7 +1320,7 @@ def generate_path(what, cfg, ms, params):
 
     pc = ParallelContext()
     n_groups, n_pairs = model_counts(ms)
-    n_single = n_groups - n_pairs
+    n_single, n_attn_pairs, n_rec = mixer_counts(ms)
     log(f"[{what}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, pairs "
         f"{ms.plan.pairs[0]}..{ms.plan.pairs[-1]} ({n_pairs}), {n_groups} groups")
@@ -1190,12 +1339,12 @@ def generate_path(what, cfg, ms, params):
     path_err = probe.check(f"{what} generate")
 
     steps = N_NEW - 1
-    want = {"flash_attention": n_groups,
+    want = {"flash_attention": n_single + n_attn_pairs,
             "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
             "decode_attention": steps * n_single,
-            "decode_attention_pair": steps * n_pairs,
+            "decode_attention_pair": steps * n_attn_pairs,
             "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
-            "ssm_scan": 0}
+            "ssm_scan": n_rec}
     log(f"[{what}] launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1391,7 +1540,23 @@ def model_counts(ms):
     return sum(s.count for s in ms.segments), len(ms.plan.pairs)
 
 
-MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+def mixer_counts(ms):
+    """(single attention layers, attention LP pairs, recurrent groups) of a
+    model structure: per forward one flash launch per attention group and
+    one scan per recurrent group (Mamba, RG-LRU); per decode step one
+    decode launch per attention group (the pair form for a pair)."""
+    single = pair = rec = 0
+    for seg in ms.segments:
+        if not seg.group.specs[0].mixer.startswith("attn"):
+            rec += seg.count
+        elif seg.group.pair:
+            pair += seg.count
+        else:
+            single += seg.count
+    return single, pair, rec
+
+
+MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_rec", "w_out")
 
 
 def set_compute_dtype(params, dtype):
@@ -1416,7 +1581,8 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     from repro_torch.kernels import ops
     from repro_torch.serve import PagedEngine, default_buckets
 
-    n_groups, n_pairs = model_counts(ms)
+    _, n_pairs = model_counts(ms)
+    n_single, n_attn_pairs, n_rec = mixer_counts(ms)
     work = engine_traffic(cfg.vocab_size)
     log(f"[engine] {cfg.name} LP {ms.plan.pairs}: {len(work)} requests, "
         f"{N_SLOTS} slots, pages of {PS}, {N_PAGES} pages, buckets "
@@ -1427,6 +1593,9 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
         set_compute_dtype(params, torch.float32)
     parity_work = engine_traffic(cfg.vocab_size, parity_new)
     eng = PagedEngine(params, ms, engine_config(torch.float32))
+    recurrent = eng.prefix is None   # prefix cache and buckets off: exact prefills
+    if recurrent and (not n_rec or eng._buckets):
+        raise AssertionError(f"{cfg.name}: prefix cache off, buckets {eng._buckets}")
     got = serve(eng, parity_work)
     shared = shared_bucket_launches(eng)
     models = [(params, ms)] * len(parity_work)
@@ -1439,7 +1608,7 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
         f"{parity_new} new tokens): {n_equal}/{len(parity_work)} streams equal to "
         f"generate on the card; bucket launches holding hit and cold rows "
         f"(hit, cold): {shared}")
-    if not shared:
+    if not shared and not recurrent:
         raise AssertionError("no bucket launch held both a radix-hit row and a "
                              "cold row")
 
@@ -1462,9 +1631,10 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     decode_launches = sum(1 for _, st in steps if st["decoded"])
     want = {"dual_rmsnorm": norm_launches(cfg, n_pairs) * (prefill_launches + decode_launches),
             "decode_attention": 0, "decode_attention_pair": 0,
-            "decode_attention_paged": (n_groups - n_pairs) * decode_launches,
-            "decode_attention_pair_paged": n_pairs * decode_launches,
-            "flash_attention": n_groups * prefill_launches, "ssm_scan": 0}
+            "decode_attention_paged": n_single * decode_launches,
+            "decode_attention_pair_paged": n_attn_pairs * decode_launches,
+            "flash_attention": (n_single + n_attn_pairs) * prefill_launches,
+            "ssm_scan": n_rec * prefill_launches}
     log(f"[engine] launches {launches} (want {want}; {prefill_launches} prefill "
         f"and {decode_launches} decode launches by the engine's counters)")
     if launches != want:
@@ -1472,9 +1642,13 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size
            for o in out):
         raise AssertionError("engine streams of the wrong length or out of range")
-    resident = eng.prefix.resident_pages
+    if recurrent and (c["bucket_groups"] or c["suffix_prefills"] or c["prefix_hits"]
+                      or c["full_prefills"] != c["admitted"]):
+        raise AssertionError(f"{cfg.name} engine prefills not all exact and cold: {c}")
+    resident = eng.prefix.resident_pages if eng.prefix else 0
     live = eng.pool.live
-    eng.prefix.evict(resident, eng.pool)          # nothing holds a page now
+    if eng.prefix:
+        eng.prefix.evict(resident, eng.pool)      # nothing holds a page now
     eng.pool.check_balance()
     log(f"[engine] after drain: pool.live {live} == radix-resident {resident}; "
         f"after evicting the tree pool.live {eng.pool.live}")
@@ -1945,7 +2119,10 @@ def dense_path(name):
     from repro_torch.core.lp import plan_for_depth
     from repro_torch.model import transformer as T
 
+    import dataclasses
     cfg = get_config(name)
+    if name in DENSE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=DENSE_LAYERS[name])
     depth = cfg.n_layers * 3 // 4
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, depth))
     n_groups, n_pairs = model_counts(ms)
@@ -1960,7 +2137,7 @@ def dense_path(name):
         f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card; "
         f"init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     gen_launches, gen = generate_path(name, cfg, ms, params)
-    # granite's fp32-compute parity widens 64 GiB of weights at every GEMM:
+    # granite's fp32-compute parity widens 32 GiB of weights at every GEMM:
     # its streams are held over 8 new tokens, not 32, to keep the script's
     # time (the schedule still shares bucket launches between hit and cold
     # rows).
@@ -1981,6 +2158,138 @@ def dense_path(name):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the hybrid family (recurrentgemma-9b) at full width
+# ---------------------------------------------------------------------------
+
+def hybrid_path():
+    """Phase 10: LP recurrentgemma-9b at full width under
+    plan_for_depth(29), bf16 random weights made on the card from the seed:
+    phase 5's ``generate`` traffic, phase 6's engine (the prefix cache
+    requested and off: exact prefills; streams held to ``generate`` in fp32
+    compute on the bf16 weights), and the window run. Returns (launches of
+    generate, the engine and the window run, metrics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = get_config(HYBRID)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, HYBRID_EFF_DEPTH))
+    counts = (model_counts(ms), mixer_counts(ms))
+    if counts != ((29, 9), (12, 0, 17)) or cfg.window != WINDOW:
+        raise AssertionError(f"{cfg.name}: (groups, pairs), (attention singles, "
+                             f"attention pairs, recurrent groups) = {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in params.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers at depth {HYBRID_EFF_DEPTH} "
+        f"({len(ms.plan.pairs)} rec pairs, 8 single rec, 12 single attn_local); "
+        f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card")
+    gen_launches, gen = generate_path(cfg.name, cfg, ms, params)
+    eng_launches, eng, _ = engine_path(cfg, ms, params, fp32_compute=True)
+    win_launches, win = window_run(cfg, ms, params)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[hybrid] {cfg.name}: max_memory_allocated {peak:.2f} GiB")
+    return gen_launches, eng_launches, win_launches, {
+        "layers": cfg.n_layers, "depth": HYBRID_EFF_DEPTH, "pairs": len(ms.plan.pairs),
+        "params_b": n_params / 1e9, "weights_gib": weights_gib,
+        "max_memory_allocated_gib": peak, "generate": gen, "engine": eng, "window": win}
+
+
+def window_run(cfg, ms, params):
+    """A prompt of W + 256 tokens at B = 1 through ``generate`` (bf16, 16
+    new tokens): the prefill's window mask cuts the late rows, and every
+    decode step reads a wrapped ring. The first attention layer's flash
+    launch and its ring decode launches at steps 0 and 8 are copied and
+    held against their plain versions; the launches reconcile. Then, in
+    fp32 compute on the same weights, prefill + one decode step equals the
+    full forward over the prompt and the new token within WINDOW_TOL.
+    Returns (launches, metrics)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate, make_prefill
+
+    pc = ParallelContext()
+    _, n_pairs = model_counts(ms)
+    n_single, _, n_rec = mixer_counts(ms)
+    prompt = torch.randint(0, cfg.vocab_size, (1, WINDOW_PROMPT),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 7),
+                           device="cuda")
+    sv = ServeConfig(max_len=WINDOW_PROMPT + WINDOW_NEW, cache_dtype=torch.bfloat16)
+    generate(params, prompt, 2, ms=ms, pc=pc, sv=sv)   # warm-up
+    flash_kept = []
+    flash = ops.flash_attention
+
+    def first_flash(*args, **kw):
+        out = flash(*args, **kw)
+        if not flash_kept:
+            flash_kept.append(([a.clone() for a in args], dict(kw), out.clone()))
+        return out
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    timings = {}
+    ops.flash_attention = first_flash
+    try:
+        with DecodeProbe(ms, paged=False, steps=(0, 8)) as probe:
+            out = generate(params, prompt, WINDOW_NEW, ms=ms, pc=pc, sv=sv,
+                           timings=timings)
+    finally:
+        ops.flash_attention = flash
+    launches = dict(ops.LAUNCHES)
+    steps = WINDOW_NEW - 1
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=n_single, ssm_scan=n_rec,
+                decode_attention=steps * n_single,
+                dual_rmsnorm=norm_launches(cfg, n_pairs) * (1 + steps))
+    reconcile(f"{cfg.name} window run", launches, want)
+    if tuple(out.shape) != (1, WINDOW_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"window run tokens {tuple(out.shape)} out of range")
+    decode_err = probe.check(f"{cfg.name} window run")
+    (q, k, v), kw, got = flash_kept[0]
+    if kw.get("kind") != "window" or q.shape[1] != WINDOW_PROMPT:
+        raise AssertionError(f"window run flash launch {kw} at {tuple(q.shape)}")
+    flash_err = compare(f"[{cfg.name} window run] flash_attention, prefill of "
+                        f"{WINDOW_PROMPT}, on the model path", got,
+                        ops.flash_attention_plain(q, k, v, **kw), BF16_TOL)
+    del flash_kept, q, k, v, got
+
+    set_compute_dtype(params, torch.float32)
+    try:
+        sv32 = ServeConfig(max_len=WINDOW_PROMPT + WINDOW_NEW, cache_dtype=torch.float32)
+        logits, caches = make_prefill(ms, pc, sv32)(params, prompt)
+        tok0 = logits.argmax(-1)
+        step_logits, _ = T.decode_step(params, tok0, caches, WINDOW_PROMPT, ms=ms, pc=pc)
+        del caches
+        full, _, _ = T.forward_full(params, torch.cat([prompt, tok0[:, None]], dim=1),
+                                    ms=ms, pc=pc, attn_impl=sv32.attn_impl)
+        full = full[:, -1]
+        diff = (step_logits - full).abs().max().item()
+        scale = full.abs().max().item()
+        del logits, step_logits, full
+    finally:
+        set_compute_dtype(params, torch.bfloat16)
+    log(f"[{cfg.name} window run] fp32 compute: prefill of {WINDOW_PROMPT} + one decode "
+        f"step (ring of {WINDOW}, wrapped) vs the full forward over "
+        f"{WINDOW_PROMPT + 1} tokens: logits max_abs_diff={diff:.3e} (logit scale "
+        f"{scale:.3f}, tol {WINDOW_TOL:g})")
+    if diff > WINDOW_TOL:
+        raise AssertionError("the window ring's decode step disagrees with the full "
+                             "forward")
+    metrics = {"prompt": WINDOW_PROMPT, "new_tokens": WINDOW_NEW,
+               "prefill_ms": timings["prefill_s"] * 1e3,
+               "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
+               "flash_path_max_abs_err": flash_err, "decode_path_max_abs_err": decode_err,
+               "fp32_decode_vs_full_max_abs_diff": diff, "logit_scale": scale}
+    log(f"[{cfg.name} window run] " + " ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in metrics.items()))
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
@@ -1998,6 +2307,32 @@ KERNELS = {
     "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:50"),
 }
+
+
+def ptxas_summary(log_text):
+    """One line per compiled kernel of an ``nvcc -Xptxas=-v`` log: its name
+    with its template arguments, registers and spill bytes."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            # _ZN<namespace><len>name[I<template arguments>E]...: the
+            # arguments as values (L[ib]<n>E) and type names (<len>name).
+            k = re.search(r"\d+([a-z][a-z_]*kernel)(I(?:L[ib]-?\d+E|\d+\w+?(?=L|E)|[a-z])+E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](-?\d+)E|\d+(__nv_\w+?)(?=L|E)|I([fd])", k.group(2) or "") \
+                if k else []
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(''.join(a) for a in args)}>" if args else "")
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spill = f"spill {st} B stores / {ld} B loads"
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+            name, spill = None, ""
+    return out
 
 
 def main() -> int:
@@ -2021,9 +2356,8 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f}s "
         f"({', '.join(f'{k} {v:.1f}s' for k, v in per_source.items()) or 'cached'})")
     for src in build.SOURCES:
-        for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+        for line in ptxas_summary(build.library_path(src).with_suffix(".log").read_text()):
+            log(f"  {src}: {line}")
 
     if sys.argv[1:] == ["--norm-times"]:
         from repro_torch.kernels import ops
@@ -2044,7 +2378,9 @@ def main() -> int:
     phase_s["build"] = time.perf_counter() - t0
     rows = phase("3 kernels", check_kernels)
     phase("4 reduced parity", lambda: (reduced_parity(), reduced_mamba_parity(),
-                                        granite_two_layers()))
+                                        full_width_cut("granite-34b", 2, 32),
+                                        reduced_hybrid_parity(),
+                                        full_width_cut(HYBRID, 3, 16)))
     by_path = {}                              # each path reads its own counts
     by_path["generate"], e2e = phase("5 generate", main_path)
     cfg, ms, params = tinyllama_model()
@@ -2064,6 +2400,10 @@ def main() -> int:
         torch.cuda.empty_cache()              # the previous model's weights are gone
         (by_path[f"{name}_generate"], by_path[f"{name}_engine"],
          dense[name]) = phase(f"9 {name}", dense_path, name)
+    gc.collect()
+    torch.cuda.empty_cache()                  # the dense models' weights are gone
+    (by_path[f"{HYBRID}_generate"], by_path[f"{HYBRID}_engine"],
+     by_path[f"{HYBRID}_window"], hybrid) = phase(f"10 {HYBRID}", hybrid_path)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -2074,6 +2414,12 @@ def main() -> int:
         for name in ("dual_rmsnorm", "decode_attention_pair_paged", "flash_attention"):
             if not by_path[path][name]:
                 raise AssertionError(f"{name} was not launched on {path}")
+    for path, names in (("generate", ("decode_attention",)),
+                        ("engine", ("decode_attention_paged",)),
+                        ("window", ("decode_attention",))):
+        for name in names + ("flash_attention", "ssm_scan", "dual_rmsnorm"):
+            if not by_path[f"{HYBRID}_{path}"][name]:
+                raise AssertionError(f"{name} was not launched on {HYBRID} {path}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2109,7 +2455,7 @@ def main() -> int:
                       **e2e, "engine": engine, "engine_spec": spec,
                       "engine_degraded": degraded,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
-                      "dense": dense,
+                      "dense": dense, "hybrid": hybrid,
                       "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

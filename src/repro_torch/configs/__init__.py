@@ -1,8 +1,9 @@
 """Architecture registry. Importing this package registers the
 architectures the port runs so far: the dense decoders tinyllama-1.1b,
 yi-6b (GQA, hd 128), minicpm-2b (MHA) and granite-34b (MQA, LayerNorm,
-GeLU MLP with biases, learned positions), and falcon-mamba-7b (Mamba-1,
-attention-free). Each module is a copy of the JAX package's file of the
+GeLU MLP with biases, learned positions), falcon-mamba-7b (Mamba-1,
+attention-free) and recurrentgemma-9b (RG-LRU recurrent blocks and local
+attention at hd 256). Each module is a copy of the JAX package's file of the
 same name."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -18,6 +19,7 @@ from repro_torch.configs import (  # noqa: F401
     falcon_mamba_7b,
     granite_34b,
     minicpm_2b,
+    recurrentgemma_9b,
     tinyllama_1b,
     yi_6b,
 )

@@ -55,22 +55,33 @@
 //    transpose or gather copy per step.
 //
 // Two bodies, chosen by type (never by B, L or t):
-//  * bf16: the tensor cores, as the flash kernel, ceil(g / 16) warps per
-//    block. Warp w holds heads 16w..16w+15 as the 16 rows of an mma
-//    (zero-padded past g), as A fragments straight from device memory; all
-//    warps stage each 64-key chunk together, so the cache is still read once
-//    per GQA group. Per warp: S = Q K^T (ldmatrix on K), the online softmax
-//    over the chunk in fp32 registers (log2 domain), P rounded to bf16 and
-//    O += P V (ldmatrix.trans on V) in fp32 registers; per chunk 32 mma for
-//    S and 32 for P V at hd = 64, where CUDA cores would spend most of their
-//    time converting bf16 and chaining multiply-adds. A head's arithmetic is
-//    its warp's alone, so it does not depend on how many warps the block
-//    has. A second chunk buffer, with the next chunk in flight, only where
-//    L > 4 chunks. One warp at g <= 16 (every path of tinyllama, yi and
-//    minicpm); granite-34b's MQA (g = 48) runs three. The one-warp block
-//    is its own instantiation: with the warp count a constant, its copy
-//    rounds unroll without bounds tests and nothing spills (one template
+//  * bf16: the tensor cores, as the flash kernel. Each 16 query heads of
+//    the group (zero-padded past g) are the 16 rows of an mma: a head
+//    group, ceil(g / 16) of them per block; all warps stage each 64-key
+//    chunk together, so the cache is still read once per GQA group. Per
+//    head group: S = Q K^T (ldmatrix on K), the online softmax over the
+//    chunk in fp32 registers (log2 domain), P rounded to bf16 and O += P V
+//    (ldmatrix.trans on V) in fp32 registers; per chunk 32 mma for S and 32
+//    for P V at hd = 64, where CUDA cores would spend most of their time
+//    converting bf16 and chaining multiply-adds. A head's arithmetic is its
+//    head group's alone, so it does not depend on how many the block has.
+//    A second chunk buffer, with the next chunk in flight, only where L > 4
+//    chunks. One head group at g <= 16 (every path but granite-34b's MQA,
+//    g = 48: three) is its own instantiation: with the warp count a
+//    constant, its copy rounds unroll without bounds tests (one template
 //    for both ran 4-6% slower at g <= 16 on an H100).
+//    Up to hd = 64 a head group is one warp, holding Q as A fragments
+//    straight from device memory. From hd = 128 it is two column warps
+//    (col_warps): one warp would hold 64 (hd 128) or 128 (hd 256) registers
+//    of O beside 32 or 64 of Q fragments. Each column warp computes the
+//    whole S for the 16 heads (the same instructions on the same data, so
+//    both hold the same bits of S, m and l) and owns half of O's columns;
+//    Q is staged in shared memory and read by ldmatrix per k step; each
+//    lane looks up the pages of two keys of the chunk and a copy round
+//    takes its keys' pages by a shuffle, where the one-warp bodies keep a
+//    page and an offset per round in registers. At hd = 128 the one-warp
+//    body this replaced spilled 376-908 bytes a thread (ptxas) and was 24%
+//    slower at yi-6b's shape on an H100; the two-warp bodies spill nothing.
 //  * fp32: 256 threads on the CUDA cores (fp32 on tensor cores would be
 //    TF32; fp32 is the type of the parity runs), the next chunk in flight
 //    while this one is reduced where two chunk buffers fit in shared
@@ -85,7 +96,8 @@
 // A block takes at most the heads its shared memory holds (the slots of
 // the combine grow with g * hd; bf16 also at most 8 warps): wider groups
 // are cut into equal head slices, each its own cluster, each reading the
-// cache once. So any g is taken; at this repo's shapes every group fits
+// cache once (at hd = 256 a slice may hold 16 heads or fewer: it runs the
+// wide body). So any g is taken; at this repo's shapes every group fits
 // one slice.
 //
 // Batch invariance: a row's reduction depends only on its own t[b]. Chunk
@@ -119,8 +131,14 @@ constexpr int kSplit = 4;    // blocks per row, one cluster
 constexpr int kAcc = 8;      // output columns per p V task
 constexpr int kMaxParts = 16;
 constexpr int kMaxTasks = 4;  // p V tasks per thread: g * hd <= 8192 per block
-constexpr int kMaxMmaWarps = 8;  // tensor-core body: 16 heads per warp
+constexpr int kMaxMmaWarps = 8;  // tensor-core body: warps a block at most
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kMmaHeads = 16;  // the m rows of one mma: 16 heads, zero-padded
+
+// Warps that share one 16-head mma row block, each owning HD / col_warps
+// columns of O: two from hd = 128, where one warp's O and Q fragments
+// would not fit its registers; one below.
+__host__ __device__ constexpr int col_warps(int hd) { return hd >= 128 ? 2 : 1; }
 
 struct DecodeArgs {
   const void* q;
@@ -446,12 +464,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
 // bfloat16: tensor cores, one warp per 16 heads
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaHeads = 16;  // the m rows of one mma: 16 heads, zero-padded
-
+// Chunk buffers, the combine's slots and weights, and (two column warps)
+// the staged Q rows.
 inline size_t mma_smem_bytes(int G, int hd, int stages) {
-  const size_t rows = (G + kMmaHeads - 1) / kMmaHeads * kMmaHeads;  // 16 * warps
+  const size_t rows = (G + kMmaHeads - 1) / kMmaHeads * kMmaHeads;  // 16 * head groups
   return size_t(stages) * 2 * kChunk * (hd + 8) * sizeof(__nv_bfloat16) +
-         sizeof(float) * (kSplit * (2 * size_t(G) + size_t(G) * hd) + (kSplit + 1) * rows);
+         sizeof(float) * (kSplit * (2 * size_t(G) + size_t(G) * hd) + (kSplit + 1) * rows) +
+         (col_warps(hd) > 1 ? rows * (hd + 8) * sizeof(__nv_bfloat16) : 0);
 }
 
 __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -461,24 +480,26 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// kWide: more than 16 heads, ceil(g / 16) >= 2 warps; otherwise one warp,
-// known at compile time.
+// kWide: more than 16 heads, ceil(g / 16) >= 2 head groups of col_warps
+// warps each; otherwise one head group, known at compile time.
 template <int HD, bool kPaged, bool kWide>
-__global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
+__global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32 * col_warps(HD))
     decode_mma_kernel(DecodeArgs a) {
   using T = __nv_bfloat16;
+  constexpr int kCW = col_warps(HD);
+  constexpr bool kMulti = kWide || kCW > 1;  // more than one warp
   constexpr int kPitch = HD + 8;   // staged row, padded by 16 bytes
   constexpr int kSeg = HD / 8;     // 16-byte copies per key row
   constexpr int kKSteps = HD / 16; // mma k steps over hd in S = Q K^T
   constexpr int kNT = kChunk / 8;  // 8-key column tiles of S
-  constexpr int kDT = HD / 8;      // 8-wide column tiles of O
+  constexpr int kDT = HD / 8 / kCW;  // 8-wide column tiles of O in this warp
   extern __shared__ __align__(16) unsigned char decode_smem[];
-  const RowOf r = row_of<kWide>(a);  // one warp: g <= 16, never sliced
+  const RowOf r = row_of<kWide>(a);  // one head group: g <= 16, never sliced
   const int G = r.G;
   const int part_stride = 2 * G + G * HD;  // one block's (m[G], l[G], acc[G][HD])
   T* kv_s = reinterpret_cast<T*>(decode_smem);  // [stage][K, V][kChunk][kPitch]
   float* part_s = reinterpret_cast<float*>(kv_s + a.stages * 2 * kChunk * kPitch);
-  float* w_s = part_s + kSplit * part_stride;  // rank 0: [kSplit + 1][16 * warps]
+  float* w_s = part_s + kSplit * part_stride;  // rank 0: [kSplit + 1][16 * head groups]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -495,65 +516,113 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
   const int n_keys = min(a.L, t + 1);
   const int n_chunks = (n_keys + kChunk - 1) / kChunk;
   const int tid = threadIdx.x;
-  const int nthreads = kWide ? blockDim.x : 32, nwarps = nthreads / 32;
-  const int warp = kWide ? tid / 32 : 0, lane = tid % 32;
+  const int nthreads = kWide ? blockDim.x : 32 * kCW, nwarps = nthreads / 32;
+  const int warp = kMulti ? tid / 32 : 0, lane = tid % 32;
+  const int hw = warp / kCW, cw = warp % kCW;  // head group, column part
   const int g = lane / 4, t4 = lane % 4;
+  T* q_s = reinterpret_cast<T*>(w_s + (kSplit + 1) * kMmaHeads * (nwarps / kCW));
   auto block_sync = [] {
-    if constexpr (kWide) __syncthreads(); else __syncwarp();
+    if constexpr (kMulti) __syncthreads(); else __syncwarp();
   };
 
   // A chunk is kIters rounds of 32 16-byte copies of K and of V; warp w
-  // takes rounds w, w + nwarps, ... (at most kRounds). The paged form reads
-  // all its pages first, so the block-table loads are in flight together
-  // (a page size that is a power of two divides by shifts).
+  // takes rounds w, w + nwarps, ... (at most kRounds: the wide body has at
+  // least two warps, two column warps when a sliced group holds one head
+  // group). The paged form reads all its pages first, so the block-table
+  // loads are in flight together (a page size that is a power of two
+  // divides by shifts).
   constexpr int kIters = kChunk * kSeg / 32;
-  constexpr int kRounds = kWide ? (kIters + 1) / 2 : kIters;
+  constexpr int kRounds = kWide && kCW == 1 ? (kIters + 1) / 2 : kIters / kCW;
   const bool ps_pow2 = kPaged && (a.ps & (a.ps - 1)) == 0;
   const int ps_log2 = __ffs(a.ps) - 1;
   auto load_chunk = [&](int c, int stage) {
     T* k_st = kv_s + stage * 2 * kChunk * kPitch;
     T* v_st = k_st + kChunk * kPitch;
-    int page[kRounds], in_page[kRounds];
-#pragma unroll
-    for (int u = 0; u < kRounds; ++u) {
-      const int rd = warp + u * nwarps;
-      const int pos = c * kChunk + (lane + 32 * rd) / kSeg;
-      page[u] = 0;
-      in_page[u] = pos < a.L ? pos : 0;  // source addresses stay in the cache
+    if constexpr (kCW > 1) {
+      // Round rd copies keys rd * kKeys .. of the chunk (two at hd = 128,
+      // one at 256), all in one half of it. Lane l looks up the pages of
+      // keys l and l + 32; a lane takes its key's page by a shuffle.
+      constexpr int kKeys = 32 / kSeg;
+      const unsigned ul = threadIdx.x & 31u;  // lane, known to be in [0, 32)
+      int pg_lo = 0, pg_hi = 0;
       if constexpr (kPaged) {
-        const int pg = ps_pow2 ? pos >> ps_log2 : pos / a.ps;
-        in_page[u] = pos - pg * a.ps;
-        if (rd < kIters && pos < a.L) page[u] = bt[pg];  // a valid index, whatever t is
+        const int p0 = c * kChunk + lane, p1 = p0 + 32;
+        if (p0 < a.L) pg_lo = bt[ps_pow2 ? p0 >> ps_log2 : p0 / a.ps];
+        if (p1 < a.L) pg_hi = bt[ps_pow2 ? p1 >> ps_log2 : p1 / a.ps];
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kRounds; ++u) {
-      const int rd = warp + u * nwarps;
-      if (rd >= kIters) break;
-      const int i = lane + 32 * rd, j = i / kSeg, seg = i % kSeg;
-      const int pos = c * kChunk + j;
-      const long long ko = page[u] * a.ks[1] + in_page[u] * a.ks[2];
-      const long long vo = page[u] * a.vs[1] + in_page[u] * a.vs[2];
-      const int bytes = pos < n_keys ? 16 : 0;
-      cp_async16(k_st + j * kPitch + seg * 8, k + ko + seg * 8, bytes);
-      cp_async16(v_st + j * kPitch + seg * 8, v + vo + seg * 8, bytes);
+      for (int u = 0; u < kRounds; ++u) {
+        const int rd = warp + u * nwarps;
+        if (rd >= kIters) break;
+        const int j = rd * kKeys + static_cast<int>(ul / kSeg);
+        const int seg = static_cast<int>(ul % kSeg);
+        const int pos = c * kChunk + j;
+        long long page = 0;
+        int in_page = pos < a.L ? pos : 0;  // source addresses stay in the cache
+        if constexpr (kPaged) {
+          const int pg = __shfl_sync(0xffffffffu, j < 32 ? pg_lo : pg_hi, j % 32);
+          page = pos < a.L ? pg : 0;
+          in_page = ps_pow2 ? pos & (a.ps - 1) : pos % a.ps;
+        }
+        const long long ko = page * a.ks[1] + in_page * a.ks[2];
+        const long long vo = page * a.vs[1] + in_page * a.vs[2];
+        const int bytes = pos < n_keys ? 16 : 0;
+        cp_async16(k_st + j * kPitch + seg * 8, k + ko + seg * 8, bytes);
+        cp_async16(v_st + j * kPitch + seg * 8, v + vo + seg * 8, bytes);
+      }
+    } else {
+      int page[kRounds], in_page[kRounds];
+#pragma unroll
+      for (int u = 0; u < kRounds; ++u) {
+        const int rd = warp + u * nwarps;
+        const int pos = c * kChunk + (lane + 32 * rd) / kSeg;
+        page[u] = 0;
+        in_page[u] = pos < a.L ? pos : 0;  // source addresses stay in the cache
+        if constexpr (kPaged) {
+          const int pg = ps_pow2 ? pos >> ps_log2 : pos / a.ps;
+          in_page[u] = pos - pg * a.ps;
+          if (rd < kIters && pos < a.L) page[u] = bt[pg];  // a valid index, whatever t is
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRounds; ++u) {
+        const int rd = warp + u * nwarps;
+        if (rd >= kIters) break;
+        const int i = lane + 32 * rd, j = i / kSeg, seg = i % kSeg;
+        const int pos = c * kChunk + j;
+        const long long ko = page[u] * a.ks[1] + in_page[u] * a.ks[2];
+        const long long vo = page[u] * a.vs[1] + in_page[u] * a.vs[2];
+        const int bytes = pos < n_keys ? 16 : 0;
+        cp_async16(k_st + j * kPitch + seg * 8, k + ko + seg * 8, bytes);
+        cp_async16(v_st + j * kPitch + seg * 8, v + vo + seg * 8, bytes);
+      }
     }
   };
   if (rank * kChunk < a.L) load_chunk(rank, 0);
   cp_async_commit();
 
-  // This warp's 16 heads as mma A fragments, straight from device memory:
-  // rows g and g + 8 are heads 16w + g and 16w + g + 8 (zeros past G).
-  const int head0 = warp * kMmaHeads;
-  unsigned qf[kKSteps][4];
+  // One warp a head group: its 16 heads as mma A fragments, straight from
+  // device memory: rows g and g + 8 are heads 16w + g and 16w + g + 8 (zeros
+  // past G). Two column warps: the block's heads staged in q_s instead
+  // (zeros past G), read by ldmatrix at each k step; the first chunk's sync
+  // publishes them.
+  const int head0 = hw * kMmaHeads;
   const T zero = __float2bfloat16(0.f);
+  unsigned qf[kCW > 1 ? 1 : kKSteps][4];
+  if constexpr (kCW > 1) {
+    for (int e = tid; e < (nwarps / kCW) * kMmaHeads * HD; e += nthreads) {
+      const int gi = e / HD, d = e % HD;
+      q_s[gi * kPitch + d] = gi < G ? q[gi * a.qs[3] + d] : zero;
+    }
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
+    for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int gi = head0 + g + 8 * (rr & 1), d = ks * 16 + 8 * (rr >> 1) + 2 * t4;
-      const T* qr = q + gi * a.qs[3] + d;
-      qf[ks][rr] = gi < G ? pack2(qr[0], qr[1]) : pack2(zero, zero);
+      for (int rr = 0; rr < 4; ++rr) {
+        const int gi = head0 + g + 8 * (rr & 1), d = ks * 16 + 8 * (rr >> 1) + 2 * t4;
+        const T* qr = q + gi * a.qs[3] + d;
+        qf[ks][rr] = gi < G ? pack2(qr[0], qr[1]) : pack2(zero, zero);
+      }
     }
   }
 
@@ -575,21 +644,42 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
     const T* v_st = k_st + kChunk * kPitch;
 
     float s[kNT][4];
+    if constexpr (kCW > 1) {
+      // Q from shared memory: k steps outer, so each key tile's sum still
+      // runs over k steps 0, 1, ... in order.
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      if constexpr (kKSteps % 2 == 0) {
+      for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < kKSteps; ks += 2) {
+      for (int ks = 0; ks < kKSteps; ks += 2) {
+        unsigned qa[4], qb[4];
+        const T* qrow = q_s + (head0 + lane % 16) * kPitch + (lane / 16) * 8;
+        ldsm_x4(qa, qrow + ks * 16);
+        ldsm_x4(qb, qrow + (ks + 1) * 16);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
           unsigned kf[4];  // k steps ks and ks + 1 of keys nt*8..nt*8+7
           ldsm_x4(kf, k_st + (nt * 8 + lane % 8) * kPitch + ks * 16 + (lane / 8) * 8);
-          mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-          mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+          mma_bf16(s[nt], qa, kf[0], kf[1]);
+          mma_bf16(s[nt], qb, kf[2], kf[3]);
         }
-      } else {  // hd = 16: one k step
-        unsigned kf[2];
-        ldsm_x2(kf, k_st + (nt * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8);
-        mma_bf16(s[nt], qf[0], kf[0], kf[1]);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        if constexpr (kKSteps % 2 == 0) {
+#pragma unroll
+          for (int ks = 0; ks < kKSteps; ks += 2) {
+            unsigned kf[4];  // k steps ks and ks + 1 of keys nt*8..nt*8+7
+            ldsm_x4(kf, k_st + (nt * 8 + lane % 8) * kPitch + ks * 16 + (lane / 8) * 8);
+            mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
+            mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+          }
+        } else {  // hd = 16: one k step
+          unsigned kf[2];
+          ldsm_x2(kf, k_st + (nt * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8);
+          mma_bf16(s[nt], qf[0], kf[0], kf[1]);
+        }
       }
     }
 
@@ -633,7 +723,7 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
       o[d][2] *= c1;
       o[d][3] *= c1;
     }
-    // O += P V, 16 keys per k step.
+    // O += P V, 16 keys per k step, over this warp's columns of O.
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk) {
       const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -644,7 +734,7 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
       for (int d = 0; d < kDT; d += 2) {
         unsigned vf[4];
         ldsm_x4_trans(vf, v_st + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kPitch +
-                              d * 8 + (lane / 16) * 8);
+                              (cw * kDT + d) * 8 + (lane / 16) * 8);
         mma_bf16(o[d], pa, vf[0], vf[1]);
         mma_bf16(o[d + 1], pa, vf[2], vf[3]);
       }
@@ -669,23 +759,24 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32)
   for (int half = 0; half < 2; ++half) {
     const int gi = head0 + g + 8 * half;
     if (gi >= G) continue;
-    if (t4 == 0) {
+    if (t4 == 0 && cw == 0) {  // column warps hold the same m and l
       slot[gi] = half ? m1 : m0;
       slot[G + gi] = half ? l1 : l0;
     }
 #pragma unroll
     for (int d = 0; d < kDT; ++d)
-      *reinterpret_cast<float2*>(slot + 2 * G + gi * HD + d * 8 + 2 * t4) =
+      *reinterpret_cast<float2*>(slot + 2 * G + gi * HD + (cw * kDT + d) * 8 + 2 * t4) =
           make_float2(o[d][2 * half], o[d][2 * half + 1]);
   }
   cluster_arrive_release();  // the slot is written; peers may now exit
   if (rank != 0) return;
 
   // Rank 0: combine the kSplit blocks in the fixed order j = 0..kSplit-1.
-  // One thread per head (G <= 16 * warps < threads) writes its kSplit
-  // weights and 1 / l; rows of 16 * warps heads, a constant for one warp.
+  // One thread per head (G <= 16 * head groups < threads) writes its
+  // kSplit weights and 1 / l; rows of 16 * head groups heads, a constant
+  // for one head group.
   cluster_wait();
-  const int ws = kMmaHeads * nwarps;
+  const int ws = kMmaHeads * (nwarps / kCW);
   if (tid < G) {
     float M = kNegInf;
 #pragma unroll
@@ -740,7 +831,7 @@ int launch_cluster(Kernel kernel, const DecodeArgs& a, int threads, size_t smem,
 // thread), then the group cut into equal slices. A function of g, hd and
 // the type alone.
 void slice_heads(DecodeArgs& a, bool mma, int hd) {
-  int cap = mma ? min(a.G, kMaxMmaWarps * kMmaHeads)
+  int cap = mma ? min(a.G, kMaxMmaWarps / col_warps(hd) * kMmaHeads)
                 : min(a.G, kThreads * kAcc * kMaxTasks / hd);
   while (cap > 1 && (mma ? mma_smem_bytes(cap, hd, 2)
                          : smem_bytes(cap, hd, sizeof(float), 1)) > kMaxSmem)
@@ -755,13 +846,16 @@ int launch(DecodeArgs& a, cudaStream_t stream) {
     slice_heads(a, true, HD);
     // A second chunk buffer only where a block walks more than one chunk.
     a.stages = a.L > kSplit * kChunk ? 2 : 1;
-    const int warps = (a.GB + kMmaHeads - 1) / kMmaHeads;
+    constexpr int kCW = col_warps(HD);
+    const int groups = (a.GB + kMmaHeads - 1) / kMmaHeads;
     const size_t smem = mma_smem_bytes(a.GB, HD, a.stages);
-    if (warps > 1)
-      return launch_cluster(decode_mma_kernel<HD, kPaged, true>, a, 32 * warps, smem,
-                            stream);
-    if (a.n_slices > 1) return -1;  // a slice holds more than 16 heads at every hd
-    return launch_cluster(decode_mma_kernel<HD, kPaged, false>, a, 32, smem, stream);
+    // The wide body: more than one head group, or a group cut into slices
+    // (at hd = 256 a slice may hold 16 heads or fewer).
+    if (groups > 1 || a.n_slices > 1)
+      return launch_cluster(decode_mma_kernel<HD, kPaged, true>, a, 32 * kCW * groups,
+                            smem, stream);
+    return launch_cluster(decode_mma_kernel<HD, kPaged, false>, a, 32 * kCW, smem,
+                          stream);
   } else {
     slice_heads(a, false, HD);
     a.stages = smem_bytes(a.GB, HD, sizeof(float), 2) <= kMaxSmem ? 2 : 1;
@@ -782,6 +876,7 @@ int dispatch_hd(DecodeArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32, kPaged>(a, stream);
     case 64: return launch<T, 64, kPaged>(a, stream);
     case 128: return launch<T, 128, kPaged>(a, stream);
+    case 256: return launch<T, 256, kPaged>(a, stream);
     default: return -1;
   }
 }

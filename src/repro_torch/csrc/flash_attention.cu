@@ -34,6 +34,12 @@
 //    path's block_n = 16 a tile is exactly the k depth of one P V mma.
 //    Each thread keeps its part of the row sum l and the quad adds the
 //    parts at the end: a fixed grouping by key position.
+//  * hd = 256 (recurrentgemma-9b): a warp's O is 128 fp32 registers a
+//    thread, so Q stays in shared memory and each k step of S = Q K^T
+//    reads its A fragment by ldmatrix there (k steps outer, so each key
+//    tile's sum still runs over the k steps in order). Two stages of 64
+//    keys and the Q tile take 169 KB of shared memory; block_n = 128 would
+//    take 297 KB, so this width takes block_n up to 64.
 //  * Why mma.sync and not wgmma with TMA: a block does ~2 MFLOP at S = 128;
 //    the kernel is bound by load latency and overlap, not by tensor-core
 //    rate, and 16-row mma tiles fit the GQA fold and per-row masks as they
@@ -45,7 +51,9 @@
 //  * Grid over (batch x kv head, tiles of 32 folded query rows); four
 //    threads per query row, each owning every fourth element of hd: the
 //    dot product is reduced with two warp shuffles and the shared-memory
-//    reads of one key row fall in distinct banks.
+//    reads of one key row fall in distinct banks. At hd = 256 eight
+//    threads share a row (tiles of 16 rows, three shuffles), so a thread
+//    holds 32 elements of q and of the output, as at hd = 128.
 //
 // Contracts both bodies keep:
 //  * Masks: causal (with a prefix-LM prefix), window, chunk and bidir,
@@ -149,6 +157,7 @@ __device__ __forceinline__ int2 tile_range(const FlashArgs& a, int q0, int r_lo,
 // bfloat16: tensor cores
 // ---------------------------------------------------------------------------
 
+constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaRows = 16 * kMmaWarps;  // folded query rows per block
 constexpr int kMmaThreads = 32 * kMmaWarps;
@@ -165,6 +174,7 @@ struct MmaShape {
 template <int HD, int BN>
 __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(FlashArgs a) {
   using Shape = MmaShape<HD, BN>;
+  constexpr bool kQSmem = HD > 128;  // Q's A fragments read from q_s per k step
   constexpr int kPitch = Shape::kPitch, kSK = Shape::kStageKeys;
   constexpr int kSeg = HD / 8;     // 16-byte segments per row
   constexpr int kKSteps = HD / 16; // mma k steps over hd in S = Q K^T
@@ -230,7 +240,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(FlashArgs a) {
     cp_async_commit();
   }
 
-  unsigned qf[kKSteps][4];
+  unsigned qf[kQSmem ? 1 : kKSteps][4];
   float o[kDT][4];
 #pragma unroll
   for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -244,7 +254,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(FlashArgs a) {
   for (int st = 0; st < n_stages; ++st) {
     cp_async_wait<kStages - 1>();  // stage st is in (one later group may fly)
     __syncthreads();
-    if (st == 0) {
+    if (!kQSmem && st == 0) {
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks)
         ldsm_x4(qf[ks], q_s + (warp * 16 + lane % 16) * kPitch + ks * 16 + (lane / 16) * 8);
@@ -260,21 +270,37 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(FlashArgs a) {
       const __nv_bfloat16* v_t = v_st + tt * BN * kPitch;
 
       float s[kNT][4];
+      if constexpr (kQSmem) {
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        if constexpr (kKSteps % 2 == 0) {
+        for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-          for (int ks = 0; ks < kKSteps; ks += 2) {
-            unsigned kf[4];  // k steps ks and ks + 1 of keys nt*8..nt*8+7
-            ldsm_x4(kf, k_t + (nt * 8 + lane % 8) * kPitch + ks * 16 + (lane / 8) * 8);
-            mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-            mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+        for (int ks = 0; ks < kKSteps; ++ks) {
+          unsigned qa[4];  // one k step of Q at a time: registers are short here
+          ldsm_x4(qa, q_s + (warp * 16 + lane % 16) * kPitch + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            unsigned kf[2];  // k step ks of keys nt*8..nt*8+7
+            ldsm_x2(kf, k_t + (nt * 8 + lane % 8) * kPitch + ks * 16 + ((lane / 8) % 2) * 8);
+            mma_bf16(s[nt], qa, kf[0], kf[1]);
           }
-        } else {  // hd = 16: one k step
-          unsigned kf[2];
-          ldsm_x2(kf, k_t + (nt * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8);
-          mma_bf16(s[nt], qf[0], kf[0], kf[1]);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          if constexpr (kKSteps % 2 == 0) {
+#pragma unroll
+            for (int ks = 0; ks < kKSteps; ks += 2) {
+              unsigned kf[4];  // k steps ks and ks + 1 of keys nt*8..nt*8+7
+              ldsm_x4(kf, k_t + (nt * 8 + lane % 8) * kPitch + ks * 16 + (lane / 8) * 8);
+              mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
+              mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+            }
+          } else {  // hd = 16: one k step
+            unsigned kf[2];
+            ldsm_x2(kf, k_t + (nt * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8);
+            mma_bf16(s[nt], qf[0], kf[0], kf[1]);
+          }
         }
       }
 
@@ -374,11 +400,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(FlashArgs a) {
 template <int HD, int BN>
 int launch_mma(const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = MmaShape<HD, BN>::kSmem;
-  cudaError_t err = allow_smem(flash_mma_kernel<HD, BN>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.B * a.H, (a.S * a.G + kMmaRows - 1) / kMmaRows);
-  flash_mma_kernel<HD, BN><<<grid, kMmaThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (smem > kMaxSmem) {
+    return -1;  // hd = 256 at block_n = 128: 297 KB
+  } else {
+    cudaError_t err = allow_smem(flash_mma_kernel<HD, BN>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(a.B * a.H, (a.S * a.G + kMmaRows - 1) / kMmaRows);
+    flash_mma_kernel<HD, BN><<<grid, kMmaThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <int HD>
@@ -396,17 +426,23 @@ int dispatch_bn(const FlashArgs& a, cudaStream_t stream) {
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 32;          // folded query rows per block
-constexpr int kThreadsPerRow = 4;  // threads sharing one query row
-constexpr int kThreads = kRows * kThreadsPerRow;
+constexpr int kThreads = 128;
 constexpr int kBatch = 8;          // kv loads in flight per thread
 
+// Threads sharing one query row, and folded query rows per block.
+__host__ __device__ constexpr int threads_per_row(int hd) { return hd > 128 ? 8 : 4; }
+__host__ __device__ constexpr int rows_per_block(int hd) {
+  return kThreads / threads_per_row(hd);
+}
+
 inline size_t smem_bytes(int block_n, int hd) {
-  return sizeof(float) * (2 * size_t(block_n) * hd + size_t(kRows) * block_n);
+  return sizeof(float) * (2 * size_t(block_n) * hd + size_t(rows_per_block(hd)) * block_n);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
+  constexpr int kThreadsPerRow = threads_per_row(HD);
+  constexpr int kRows = rows_per_block(HD);
   constexpr int DPT = HD / kThreadsPerRow;  // hd elements per thread
   extern __shared__ float smem[];
   const int BN = a.block_n;
@@ -476,8 +512,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) dot += qr[i] * k_s[j * HD + i * kThreadsPerRow + part];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+      for (int off = 1; off < kThreadsPerRow; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kpos = a.k0 + kt * BN + j;
       const bool ok = row_ok && ((kpos >= span.x && kpos <= span.y) || kpos < plen);
       const float s = ok ? dot * a.scale : kNegInf;
@@ -516,7 +553,7 @@ int launch_fp32(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.block_n, HD);
   cudaError_t err = allow_smem(flash_kernel<HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.B * a.H, (a.S * a.G + kRows - 1) / kRows);
+  const dim3 grid(a.B * a.H, (a.S * a.G + rows_per_block(HD) - 1) / rows_per_block(HD));
   flash_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -528,6 +565,7 @@ int dispatch(const FlashArgs& a, int dtype, int hd, cudaStream_t stream) {
       case 32: return launch_fp32<32>(a, stream);
       case 64: return launch_fp32<64>(a, stream);
       case 128: return launch_fp32<128>(a, stream);
+      case 256: return launch_fp32<256>(a, stream);
       default: return -1;
     }
   }
@@ -537,6 +575,7 @@ int dispatch(const FlashArgs& a, int dtype, int hd, cudaStream_t stream) {
       case 32: return dispatch_bn<32>(a, stream);
       case 64: return dispatch_bn<64>(a, stream);
       case 128: return dispatch_bn<128>(a, stream);
+      case 256: return dispatch_bn<256>(a, stream);
       default: return -1;
     }
   }
@@ -565,7 +604,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       (kind == kWindow && window <= 0) || (kind == kChunk && chunk <= 0) ||
       S <= 0 || T <= 0 || G <= 0)
     return -1;
-  if (dtype == kFloat32 && smem_bytes(block_n, hd) > 227 * 1024) return -1;
+  if (dtype == kFloat32 && smem_bytes(block_n, hd) > kMaxSmem) return -1;
   if (dtype == kBFloat16) {
     if (!aligned16(q) || !aligned16(k) || !aligned16(v)) return -1;
     for (int i = 0; i < 10; ++i)  // q (batch, position, head, group), k, v

@@ -8,8 +8,10 @@ gathered or padded. The kernel copies cache rows in 16-byte pieces, so the
 cache's pointer and strides must be multiples of 16 bytes; the wrapper
 raises on anything else. Each row is split across a cluster of 4 blocks;
 a refused cluster launch raises. bf16 runs on the tensor cores, one warp
-per 16 query heads of the GQA group (any g: a group wider than a block's
-shared memory holds is cut into head slices); fp32 on the CUDA cores.
+per 16 query heads of the GQA group (two from hd = 128, each owning half
+of the output's columns; any g: a group wider than a block's shared memory
+holds is cut into head slices); fp32 on the CUDA cores. hd is one of
+``HDS``; any other width raises.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.kernels import build
 
 SOURCE = "decode_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HDS = (16, 32, 64, 128, 256)   # the head widths the kernel is instantiated at
 
 
 @functools.cache
@@ -44,6 +47,11 @@ def _paged_fn():
 
 
 def _check(q, k, v, hd, G):
+    """Raise on what the kernel does not take; the head width first, so a
+    refused width shows on any device."""
+    if hd not in HDS:
+        raise ValueError(f"decode attention is built for hd in "
+                         f"{'/'.join(map(str, HDS))}, got hd={hd}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -52,9 +60,6 @@ def _check(q, k, v, hd, G):
                          "CUDA device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("decode attention needs hd contiguous")
-    if hd not in (16, 32, 64, 128):
-        raise ValueError(f"decode attention is built for hd in 16/32/64/128, "
-                         f"got hd={hd} (hd = 256 is ROADMAP item 11)")
     if G < 1:
         raise ValueError(f"decode attention needs a GQA group g >= 1, got {G}")
     if not (build.aligned16(k, 4) and build.aligned16(v, 4)):

@@ -1,4 +1,4 @@
-"""Layer and LP-pair application (attention + MLP groups, Mamba groups).
+"""Layer and LP-pair application (attention + MLP groups, recurrent groups).
 
 A ``Group`` is either one layer or an LP pair of two consecutive layers. The
 pair path is the paper's Fig. 2b rewrite:
@@ -14,16 +14,18 @@ into ``attention.decode_attn_standard(pair=True)``, or
 ``decode_attn_paged(pair=True)`` over the engine's page pool. Decode
 updates the caches in place.
 
-A Mamba group (falcon-mamba: one mixer per layer, no FFN) runs its phase
-through ``ssm.ssm_mix`` with the pair's paths on one leading axis. Its
-decode state is the conv window ``conv`` [B, K-1, d_inner] in the cache
-type and the recurrent state ``h`` [B, d_inner, N] in fp32, stacked on the
-pair axis under bare names like k/v (``conv0``/``h0`` for a single layer),
-and updated in place.
+A recurrent group runs its mixer phase with the pair's paths on one
+leading axis: Mamba (falcon-mamba: one mixer per layer, no FFN) through
+``ssm.ssm_mix``, RG-LRU (recurrentgemma: with an MLP) through
+``rglru.rglru_mix``. Its decode state is the conv window ``conv`` [B, K-1,
+C] in the cache type and the recurrent state ``h`` in fp32 ([B, d_inner,
+N] for Mamba, [B, lru_width, 1] for RG-LRU), stacked on the pair axis
+under bare names like k/v (``conv0``/``h0`` for a single layer), and
+updated in place.
 
-Ported so far: attention mixers with an MLP, and Mamba mixers. RG-LRU,
-MoE, cross-attention and pairs of mixed mixer kinds raise
-``NotImplementedError``.
+Ported so far: attention mixers with an MLP, Mamba mixers, and RG-LRU
+mixers with an MLP. MoE, cross-attention and pairs of mixed mixer kinds
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.model import attention as A
 from repro_torch.model import mlp as M
+from repro_torch.model import rglru as RG
 from repro_torch.model import ssm as SSM
 from repro_torch.model.norms import apply_norm, dual_norm
 from repro_torch.model.params import PD, tree_map
@@ -54,7 +57,8 @@ class Group:
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port runs "
-                               "attention + MLP layers and Mamba layers)")
+                               "attention, Mamba and RG-LRU mixers, with an "
+                               "MLP or no FFN)")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +81,8 @@ def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
         t["attn"] = A.attn_template(cfg, tp)
     elif spec.mixer == "mamba":
         t["mamba"] = SSM.ssm_template(cfg, tp)
+    elif spec.mixer == "rec":
+        t["rec"] = RG.rglru_template(cfg, tp)
     else:
         raise _not_ported(f"mixer {spec.mixer!r}")
     if spec.ffn == "mlp":
@@ -228,8 +234,8 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
     """{entry name: (shape, dtype)} for one group's decode cache. A pair
     stores one stacked entry per tensor under a bare name ("k", "v"; "conv",
     "h") with a leading pair axis of 2; a single layer keeps indexed names
-    ("k0", "v0"; "conv0", "h0"). The Mamba state ``h`` is fp32 whatever the
-    cache type."""
+    ("k0", "v0"; "conv0", "h0"). The recurrent state ``h`` (Mamba, RG-LRU)
+    is fp32 whatever the cache type."""
     mixer = _homogeneous_kind(group)
     if mixer.startswith("attn"):
         shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
@@ -238,11 +244,25 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
         di = cfg.d_inner
         entries = {"conv": ((batch, cfg.ssm_conv - 1, di), dtype),
                    "h": ((batch, di, cfg.ssm_state), torch.float32)}
+    elif mixer == "rec":
+        W = cfg.lru_width
+        entries = {"conv": ((batch, cfg.rec_conv - 1, W), dtype),
+                   "h": ((batch, W, 1), torch.float32)}
     else:
         raise _not_ported(f"mixer {mixer!r}")
     if group.pair:
         return {name: ((2, *shp), dt) for name, (shp, dt) in entries.items()}
     return {f"{name}0": spec for name, spec in entries.items()}
+
+
+#: Recurrent mixers: the mixer kind is also its weights' key in the layer.
+_RECURRENT = {"mamba": SSM.ssm_mix, "rec": RG.rglru_mix}
+
+
+def _recurrent_params(gp, group: Group, mixer: str):
+    """The group's recurrent-mixer weights with the leading path axis P (a
+    single layer gets P = 1 as views)."""
+    return gp[mixer] if group.pair else tree_map(lambda w: w[None], gp[mixer])
 
 
 # ---------------------------------------------------------------------------
@@ -276,13 +296,14 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                 cache["k"], cache["v"] = torch.stack(fks), torch.stack(fvs)
             else:
                 cache["k0"], cache["v0"] = fks[0], fvs[0]
-    elif mixer == "mamba":
+    elif mixer in _RECURRENT:
         if ctx_kv is not None:
             raise NotImplementedError(
                 "suffix prefill needs attention mixers (recurrent state "
                 "cannot resume from cached kv)")
-        out, (conv, h) = SSM.ssm_mix(_mamba_params(gp, group),
-                                     xn if group.pair else xn[None], cfg, pc)
+        out, (conv, h) = _RECURRENT[mixer](_recurrent_params(gp, group, mixer),
+                                           xn if group.pair else xn[None],
+                                           cfg, pc)
         if emit_cache:
             if group.pair:  # already stacked [2, ...]
                 cache["conv"], cache["h"] = conv, h
@@ -299,12 +320,6 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
         out, aux = ffn_phase(gp, xn2, cfg, pc, group=group)
         x = x + pc.phase_out(out).to(x.dtype)
     return x, aux, cache
-
-
-def _mamba_params(gp, group: Group):
-    """The group's Mamba weights with the leading path axis P (a single
-    layer gets P = 1 as views)."""
-    return gp["mamba"] if group.pair else tree_map(lambda w: w[None], gp["mamba"])
 
 
 # ---------------------------------------------------------------------------
@@ -326,20 +341,20 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     indirected through ``block_tables`` [B, n_pg]; the pair stays one
     decode_attn_paged(pair=True) call.
 
-    A Mamba group advances its state (``conv``/``h``, batch-indexed in both
-    layouts: the pool keeps it per decode slot) by one token, for both
-    halves of a pair in one ``ssm_mix`` call, and writes it back in
-    place."""
+    A recurrent group (Mamba, RG-LRU) advances its state (``conv``/``h``,
+    batch-indexed in both layouts: the pool keeps it per decode slot) by
+    one token, for both halves of a pair in one mixer call, and writes it
+    back in place."""
     mixer = _homogeneous_kind(group)
     xn = _norm_inputs(gp, "ln1", x, cfg, group)
-    if mixer == "mamba":
+    if mixer in _RECURRENT:
         names = ("conv", "h") if group.pair else ("conv0", "h0")
         conv, h = cache[names[0]], cache[names[1]]
         if not group.pair:
             conv, h = conv[None], h[None]
-        out, (nconv, nh) = SSM.ssm_mix(_mamba_params(gp, group),
-                                       xn if group.pair else xn[None], cfg,
-                                       pc, state=(conv, h))
+        out, (nconv, nh) = _RECURRENT[mixer](_recurrent_params(gp, group, mixer),
+                                             xn if group.pair else xn[None],
+                                             cfg, pc, state=(conv, h))
         conv.copy_(nconv)
         h.copy_(nh)
     elif mixer.startswith("attn"):

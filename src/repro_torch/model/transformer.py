@@ -159,7 +159,7 @@ def cache_batch_axis(entry_name: str) -> int:
 
 def cast_cache(caches, dtype):
     """The cache cast of ``prefill``: float entries to ``dtype``, except the
-    recurrent state ``h`` (Mamba), which stays fp32 as ``cache_meta``
+    recurrent state ``h`` (Mamba, RG-LRU), which stays fp32 as ``cache_meta``
     declares it."""
     return [{k: (c.to(dtype) if c.dtype in (torch.float32, torch.bfloat16)
                  and k.rstrip("0123456789") != "h" else c)

@@ -44,8 +44,10 @@ requests carry deadlines and can be cancelled; ``max_queue`` bounds the
 queue with deadline-aware shedding; a ``serve.faults.FaultPlan`` injects
 seeded faults through the same hooks.
 
-Recurrent mixers (Mamba): the state lives per decode slot beside the
-pages (``serve.paged_cache``), so there is nothing to share or to pad. The
+Recurrent mixers (Mamba, RG-LRU): the state lives per decode slot beside
+the pages (``serve.paged_cache``), so there is nothing to share or to pad;
+a hybrid (recurrentgemma) keeps its attention layers' kv in pages and its
+RG-LRU state in slots of the same pool. The
 prefix cache and the bucket ladder switch off for such a model (as in the
 JAX engine): every admission prefills its exact prompt in its own launch,
 and a preempted request resumes by a full re-prefill and a replay that
@@ -70,8 +72,9 @@ positions are then un-written in both pool trees. Greedy streams equal the
 ``spec_k = 0`` engine's. Recurrent mixers turn speculation off with a
 warning.
 
-This is the JAX engine at world size 1, for attention + MLP models and
-Mamba models: tensor parallelism (``mesh``, ROADMAP item 10) raises
+This is the JAX engine at world size 1, for attention + MLP models, Mamba
+models and the RG-LRU hybrid: tensor parallelism (``mesh``, ROADMAP item
+10) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations

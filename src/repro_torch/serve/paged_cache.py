@@ -20,9 +20,9 @@ Page 0 is RESERVED as the garbage page: idle slots and the unused tail of
 every block-table row point at it, so the fixed-shape decode batch writes
 and reads it harmlessly. The free list never hands out page 0.
 
-Mamba state entries (``conv``/``h``) are O(1) per request and are not
-paged: they stay slot-indexed, ``[count, (2,) n_slots, ...]``, with the
-decode slot as their batch axis. ``scatter_prefill`` writes a request's
+Recurrent state entries (``conv``/``h`` of Mamba and RG-LRU) are O(1)
+per request and are not paged: they stay slot-indexed,
+``[count, (2,) n_slots, ...]``, with the decode slot as their batch axis. ``scatter_prefill`` writes a request's
 state at its slot and ``scrub_pages`` clears it. The state ``h`` stays
 fp32 whatever the pool's type.
 

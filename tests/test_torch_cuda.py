@@ -128,13 +128,14 @@ def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("g,hd", [(8, 64), (32, 64), (3, 128), (16, 16),
                                   (48, 128), (36, 64), (12, 128),
-                                  (130, 128), (200, 16)])
+                                  (130, 128), (200, 16), (16, 256), (40, 256)])
 def test_decode_group_widths_on_gpu(cuda, dtype, g, hd):
     """GQA groups on both sides of 16 heads (in bf16 one warp per 16 heads
-    on the tensor cores: granite-34b's MQA is g = 48 at hd = 128; g = 130
-    and 200 are cut into head slices): ring and paged, pair and single
-    layer, against their plain versions, paged == ring bit for bit,
-    horizons that make a block walk two chunks."""
+    on the tensor cores, two at hd = 256: granite-34b's MQA is g = 48 at
+    hd = 128, recurrentgemma-9b's g = 16 at hd = 256; g = 130 and 200 are
+    cut into head slices): ring and paged, pair and single layer, against
+    their plain versions, paged == ring bit for bit, horizons that make a
+    block walk two chunks."""
     td, tol = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(6)
 
@@ -210,6 +211,29 @@ def test_flash_padding_transparent_on_gpu(cuda, dtype):
         assert torch.equal(ops.flash_attention(q, kj, vj, block_n=16)[:, :lq], cut), lq
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_hd256_on_gpu(cuda, dtype):
+    """recurrentgemma-9b's prefill head shape (16 query heads over one kv
+    head at hd = 256), window mask with a prompt past the window and the
+    causal mask, at the paths' block_n (16 and 64), against the plain
+    version; block_n = 128 does not fit a block's shared memory and is
+    refused."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    q, k, v = rand(2, 70, 1, 16, 256), rand(2, 70, 1, 256), rand(2, 70, 1, 256)
+    for kw in ({"kind": "window", "window": 24}, {}):
+        for bn in (16, 64):
+            torch.testing.assert_close(ops.flash_attention(q, k, v, block_n=bn, **kw),
+                                       ops.flash_attention_plain(q, k, v, **kw),
+                                       atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.flash_attention(q, k, v, block_n=128)
+
+
 def test_flash_bf16_refuses_what_it_does_not_take_on_gpu(cuda):
     """The tensor-core body takes block_n in 16/32/64/128 and 16-byte
     aligned pointers and strides; it raises on anything else."""
@@ -224,13 +248,14 @@ def test_flash_bf16_refuses_what_it_does_not_take_on_gpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,G,hd", [(2, 4, 64), (1, 48, 128)])
+@pytest.mark.parametrize("H,G,hd", [(2, 4, 64), (1, 48, 128), (1, 16, 256)])
 def test_decode_batch_invariant_on_gpu(cuda, dtype, H, G, hd):
     """Each row of an 8-slot paged pair launch equals, bit for bit, the
     same row launched alone and inside a 40-row launch (the 8 rows five
-    times, the speculative verifier's width at k = 4), at a narrow group
-    and at granite-34b's MQA (1 kv head, g = 48, hd = 128). Horizons up to
-    319 make a block of the split walk two chunks; slot 1 is idle."""
+    times, the speculative verifier's width at k = 4), at a narrow group,
+    at granite-34b's MQA (1 kv head, g = 48, hd = 128) and at
+    recurrentgemma-9b's (1 kv head, g = 16, hd = 256). Horizons up to 319
+    make a block of the split walk two chunks; slot 1 is idle."""
     td, tol = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(5)
 
@@ -412,3 +437,46 @@ def test_rewind_tokens_on_gpu_equals_cpu(cuda):
     for cseg, gseg in zip(cpu, gpu):
         for name, v in cseg.items():
             assert torch.equal(gseg[name].cpu(), v), name
+
+
+def test_hybrid_card_equals_cpu_on_gpu(cuda):
+    """Reduced recurrentgemma (RG-LRU pairs and local attention, window 16)
+    in fp32 with TF32 off: generate's greedy tokens on the card equal the
+    CPU's for prompts past the window (the ring wraps), and the engine on
+    the card (window raised to the cache length, as the paged pool needs)
+    gives generate()'s tokens on the card."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc = ParallelContext()
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    base = reduced_config(get_config("recurrentgemma-9b"), n_layers=6)
+    for cfg in (base, dataclasses.replace(base, window=48)):
+        ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 6))
+        p_cpu = T.init_params(ms, torch.Generator().manual_seed(0), torch.float32,
+                              device="cpu")
+        p_gpu = T.init_params(ms, torch.Generator().manual_seed(0), torch.float32,
+                              device="cpu").to(cuda)
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 21)))
+        want = generate(p_cpu, prompts, 10, ms=ms, pc=pc, sv=sv)
+        got = generate(p_gpu, prompts.to(cuda), 10, ms=ms, pc=pc, sv=sv).cpu()
+        assert torch.equal(got, want), cfg.window
+        if cfg.window < sv.max_len:
+            continue
+        eng = PagedEngine(p_gpu, ms, PagedServeConfig(
+            n_slots=2, page_size=8, n_pages=13, max_len=48,
+            cache_dtype=torch.float32, prefix_cache=True))
+        rids = [eng.add_request(p.numpy(), 10) for p in prompts]
+        res = eng.drain()
+        assert eng.prefix is None
+        assert [res[r].tolist() for r in rids] == got.tolist()

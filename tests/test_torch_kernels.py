@@ -269,3 +269,89 @@ def test_kernel_strides_and_alignment(kind, ok):
     assert build.aligned16(x, 3) is ok
     want = [0 if d == 1 else s for d, s in zip(x.shape[:3], x.stride()[:3])]
     assert build.strides(x, 3) == want
+
+
+# ---------------------------------------------------------------------------
+# hd = 256 (recurrentgemma-9b: 16 query heads over one kv head)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("t", [0, 40, 79])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_hd256(pair, t, dtype):
+    """The ring decode plain versions at hd = 256, g = 16, one kv head,
+    against the JAX Pallas kernels (interpret mode)."""
+    rng = np.random.default_rng(t + 256 * pair)
+    tol = DTYPES[dtype][2]
+    lead = (2,) if pair else ()
+    jq, tq = _both(rng.standard_normal(lead + (2, 1, 16, 256)), dtype)
+    jk, tk = _both(rng.standard_normal(lead + (2, 80, 1, 256)), dtype)
+    jv, tv = _both(rng.standard_normal(lead + (2, 80, 1, 256)), dtype)
+    if pair:
+        o = ops.decode_attention_pair(tq, tk, tv, t)
+        _close(o, JOPS.decode_attention_pair(jq, jk, jv, t, block_l=32), tol)
+        assert torch.equal(o, ref.decode_attention_pair_ref(tq, tk, tv, t))
+    else:
+        o = ops.decode_attention(tq, tk, tv, t)
+        _close(o, JOPS.decode_attention(jq, jk, jv, t, block_l=32), tol)
+        assert torch.equal(o, ref.decode_attention_ref(tq, tk, tv, t))
+
+
+@pytest.mark.parametrize("s,window", [(24, 16), (40, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_hd256(s, window, dtype):
+    """The flash plain version (the wrapper's grouped layout) at hd = 256,
+    g = 16, one kv head, kind window, against the JAX Pallas kernel in
+    interpret mode on the folded rows (row = position * g + head)."""
+    g, hd, tol = 16, 256, DTYPES[dtype][2]
+    rng = np.random.default_rng(s + window)
+    q = rng.standard_normal((2, s, 1, g, hd))
+    jq, tq = _both(q.reshape(2, s * g, hd), dtype)
+    jk, tk = _both(rng.standard_normal((2, s, hd)), dtype)
+    jv, tv = _both(rng.standard_normal((2, s, hd)), dtype)
+    want = JOPS.flash_attention(jq, jk, jv, kind="window", window=window,
+                                q_group=g, block_q=32, block_k=16)
+    got = ops.flash_attention(tq.reshape(2, s, 1, g, hd), tk[:, :, None],
+                              tv[:, :, None], kind="window", window=window,
+                              block_n=16)
+    _close(got.reshape(2, s * g, hd), want, tol)
+
+
+def _attn_inputs(hd, dtype=torch.bfloat16):
+    q = torch.zeros(2, 1, 16, hd, dtype=dtype)
+    kv = torch.zeros(2, 32, 1, hd, dtype=dtype)
+    bt = torch.zeros(2, 4, dtype=torch.int32)
+    return q, kv, bt
+
+
+@pytest.mark.parametrize("hd", [96, 512])
+def test_kernel_wrappers_refuse_untaken_widths(hd):
+    """A head width the kernels are not instantiated at is refused before
+    any launch, on any device (no fallback)."""
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    q, kv, bt = _attn_inputs(hd)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        KD.launch(q[None], kv[None], kv[None], 5)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        KD.launch_paged(q[None], kv.reshape(1, 8, 8, 1, hd), kv.reshape(1, 8, 8, 1, hd),
+                        bt, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match=f"got {hd}"):
+        KF.launch(q.reshape(2, 1, 1, 16, hd), kv, kv, kind="causal", window=0,
+                  chunk=0, prefix_len=0, q0=0, k0=0, block_n=16)
+
+
+@pytest.mark.parametrize("dtype,block_n,ok", [
+    (torch.float32, 128, False), (torch.bfloat16, 128, False),
+    (torch.float32, 64, True), (torch.bfloat16, 64, True), (torch.bfloat16, 16, True)])
+def test_flash_wrapper_refuses_tiles_over_shared_memory(dtype, block_n, ok):
+    """At hd = 256 a block_n of 128 needs more shared memory than a block
+    may take (fp32 264 KB, bf16 297 KB) and is refused with that reason;
+    64 and the engine's 16 fit (a CPU tensor then fails on its device)."""
+    from repro_torch.kernels import flash_attention as KF
+    q, kv, _ = _attn_inputs(256, dtype)
+    assert (KF.smem_bytes(dtype, block_n, 256) <= KF.MAX_SMEM) is ok
+    match = "CUDA device" if ok else "shared memory"
+    with pytest.raises(ValueError, match=match):
+        KF.launch(q.reshape(2, 1, 1, 16, 256), kv, kv, kind="window", window=2048,
+                  chunk=0, prefix_len=0, q0=0, k0=0, block_n=block_n)

@@ -82,13 +82,77 @@ def knobs():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "falcon-mamba-7b", "yi-6b",
-                                  "minicpm-2b", "granite-34b"])
+                                  "minicpm-2b", "granite-34b", "recurrentgemma-9b"])
 @pytest.mark.parametrize("n_layers", [None, 4])
 def test_config_copy_matches(n_layers, arch):
     j, t = jget_config(arch), TC.get_config(arch)
     if n_layers:
         j, t = jreduced(j, n_layers=n_layers), TC.reduced_config(t, n_layers=n_layers)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
+
+
+def test_recurrentgemma_param_count():
+    """9,572,147,200 parameters at full width, by the config's count and by
+    the port's template (the untied 256,000-entry head included), as the
+    JAX package counts them."""
+    cfg = TC.get_config("recurrentgemma-9b")
+    assert cfg.param_count() == jget_config("recurrentgemma-9b").param_count() \
+        == 9_572_147_200
+    ms = TT.build_structure(cfg)
+    n = sum(int(np.prod(d.shape)) for d in tree_leaves(TT.model_template(ms)))
+    jms = JT.build_structure(jget_config("recurrentgemma-9b"))
+    assert n == JT.param_count(jms)
+    assert not cfg.tie_embeddings and cfg.vocab_size == 256_000
+
+
+def _gemma_cfgs():
+    j = jreduced(jget_config("recurrentgemma-9b"), n_layers=3)
+    t = TC.reduced_config(TC.get_config("recurrentgemma-9b"), n_layers=3)
+    return j, t
+
+
+def test_gemma_embedding_head_and_norm_match_jax():
+    """The Gemma-style leaves of recurrentgemma against the JAX package: the
+    sqrt(D) embedding scale, the (1 + scale) RMSNorm and the untied head's
+    logits, with the norm scale and both tables drawn from a numpy seed."""
+    jcfg, tcfg = _gemma_cfgs()
+    assert tcfg.norm_plus_one and not tcfg.tie_embeddings
+    jms, tms = JT.build_structure(jcfg), TT.build_structure(tcfg)
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
+                          JT.init_params(jms, jax.random.PRNGKey(0)))
+    weights = params_from_numpy(params, device="cpu").tree()
+    jparams = jax.tree.map(jnp.asarray, params)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 7))
+    pos = np.arange(7)[None]
+    xj = JT._embed(jparams, jnp.asarray(toks, jnp.int32), jcfg, JPC(),
+                   positions=jnp.asarray(pos))
+    xt = TT._embed(weights, torch.from_numpy(toks), tcfg, TPC(),
+                   positions=torch.from_numpy(pos))
+    _close(xt, xj)
+    _close(TN.apply_norm(xt, weights["final_norm"], tcfg),
+           JN.apply_norm(xj, jparams["final_norm"], jcfg))
+    _close(TT._head(weights, xt, tcfg, TPC()), JT._head(jparams, xj, jcfg, JPC()),
+           tol=1e-4)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_gemma_geglu_mlp_matches_jax(pair):
+    """recurrentgemma's gated GeLU MLP (GeGLU, tanh GeLU as jax.nn.gelu),
+    single layer and LP pair, against the JAX package's."""
+    from repro.model import mlp as JM
+    from repro_torch.model import mlp as TM
+    jcfg, tcfg = _gemma_cfgs()
+    assert tcfg.mlp_gated and tcfg.mlp_act == "gelu"
+    tmpl = JM.mlp_template(jcfg, 1)
+    tree = jax.tree.map(np.asarray, init_tree(stack_tmpl(tmpl, 2) if pair else tmpl,
+                                              jax.random.PRNGKey(pair)))
+    x = np.random.default_rng(6).standard_normal(
+        ((2,) if pair else ()) + (2, 5, jcfg.d_model)).astype(np.float32)
+    want = JM.mlp_forward(jax.tree.map(jnp.asarray, tree), jnp.asarray(x), jcfg, 1,
+                          pair=pair)
+    got = TM.mlp_forward(tree_map(_t, tree), _t(x), tcfg, 1, pair=pair)
+    _close(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -112,6 +112,24 @@ def test_paged_plain_matches_pallas(pair, g):
 
 
 @pytest.mark.parametrize("pair", [True, False])
+def test_paged_plain_matches_pallas_hd256(pair):
+    """recurrentgemma's head shape: 16 query heads over one kv head at hd =
+    256, ragged horizons and an idle slot, against the JAX Pallas paged
+    kernels (interpret mode)."""
+    rng = np.random.default_rng(256)
+    kp, vp, bt, t = _pool_case(rng, pair, H=1, hd=256)
+    B = bt.shape[0]
+    q = rng.standard_normal(((2,) if pair else ()) + (B, 1, 16, 256)).astype(np.float32)
+    jfn = JOPS.decode_attention_pair_paged if pair else JOPS.decode_attention_paged
+    tfn = ops.decode_attention_pair_paged if pair else ops.decode_attention_paged
+    want = jfn(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+               jnp.asarray(bt), jnp.asarray(t))
+    got = tfn(_t(q), _t(kp), _t(vp), _t(bt), _t(t))
+    assert got.shape == tuple(want.shape)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("pair", [True, False])
 def test_decode_attn_paged_matches_jax(pair):
     jcfg, tcfg = _cfgs(2, n_kv=2)
     jdims = JA.attn_dims(jcfg, 1)
