@@ -41,7 +41,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ring bit for bit, granite's and recurrentgemma's paged rows
      batch-invariant, and each is timed beside its bound, its plain version
      and SDPA; at recurrentgemma's shape also flash with the window mask
-     (W = 2048) at generate's prefill and at a 2304-token prompt.
+     (W = 2048) at generate's prefill and at a 2304-token prompt. The same
+     at the MoE models' head shapes (``MOE_SHAPES``: dbrx-132b's 8 kv heads
+     with g = 6, llama4-scout's with g = 5, hd 128), and at llama4's flash
+     with the chunk mask (chunk 8192) at generate's prefill and at an
+     8448-token prompt; the dual RMSNorm also at D = 5120 (llama4).
   4. reduced parity: tinyllama, yi-6b, minicpm-2b, granite-34b and
      falcon-mamba cut to 4 layers in fp32, LP pairs (0,1), (2,3) (the dense
      three: plan_for_depth 3, one pair and two single layers, biases and
@@ -103,9 +107,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths (granite cut to its first 44 of 88 layers, ``DENSE_LAYERS``),
+     widths (granite cut to its first 22 of 88 layers, ``DENSE_LAYERS``),
      each under plan_for_depth(3/4 of its layers): 32 -> 24, 40 -> 30,
-     44 -> 33 groups, bf16 random weights made on the card from the
+     22 -> 16 groups, bf16 random weights made on the card from the
      seed (each model freed before the next): phase 5's ``generate`` and
      phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
@@ -127,9 +131,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      first flash launch and its wrapped-ring decode launches held against
      their plain versions, and in fp32 compute prefill + one decode step
      equal to the full forward over prompt + 1 within 2e-3.
+ 11. MoE path: dbrx-132b (16 experts, top 4, LayerNorm) and llama4-scout
+     (16 experts, top 1 and a shared expert; three chunked-attention
+     layers, then one global NoPE layer) at their published widths, cut to
+     4 layers (``MOE_LAYERS``), bf16 random weights made on the card from
+     the seed (each model freed before the next): phase 5's ``generate``
+     (dbrx under plan_for_depth(3): its pair (2, 3); llama4 under
+     plan_for_depth(2): pairs (0, 1), chunked + chunked, and (2, 3),
+     chunked + global, which decodes in two single-layer launches), at the
+     published capacity factor 1.25, with the share of slots dropped in
+     the first MoE layer's prefill and the flash launches by mask kind;
+     for llama4 a chunk run (``ring_run``: one 8448-token prompt, 16 new;
+     the fp32 check at capacity E/k); then phase 6's engine (llama4 on new
+     weights under the pair (0, 1) alone: the pool refuses a mixed pair;
+     exact prefills: the prefix cache and buckets switch off for an MoE
+     model; streams held to ``generate`` in fp32 compute at the capacity
+     factor E/k, where nothing drops, over 8 new tokens; the timed bf16
+     run at 1.25 reconciled).
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phases 9 and 10 after 7. The second-to-last line is the kernels JSON (with every
+phases 9, 10 and 11 after 7. The second-to-last line is the kernels JSON (with every
 path's metrics and each phase's seconds), the last line the device JSON.
 
     python3 chip_smoke.py --norm-times
@@ -181,14 +202,16 @@ MAMBA_EFF_DEPTH, DI, NS = 48, 8192, 16
 # Dual RMSNorm (D, M) on the paths: tinyllama decode (generate, engine) and
 # prefill (generate's 4 x 128 and the engine's 8 x 64 bucket); falcon-mamba
 # decode, an exact engine admission of 97 tokens, and generate's prefill.
+# llama4-scout's decode (4 rows, 8 slots) and generate's prefill at D = 5120.
 NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
-               (4096, 4), (4096, 8), (4096, 97), (4096, 512))
+               (4096, 4), (4096, 8), (4096, 97), (4096, 512),
+               (5120, 4), (5120, 8), (5120, 512))
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
 # Layers phase 9 keeps where it cuts a model's depth: granite-34b's 88
-# layers are halved, so that with phase 10 the script keeps room in its
-# time limit on a slow host (PERF.md §4).
-DENSE_LAYERS = {"granite-34b": 44}
+# layers are cut to a quarter, so that with phases 10 and 11 the script
+# keeps room in its time limit on a slow host (PERF.md §4).
+DENSE_LAYERS = {"granite-34b": 22}
 # Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
 # tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
 # recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
@@ -202,6 +225,24 @@ HYBRID = "recurrentgemma-9b"
 HYBRID_EFF_DEPTH, WINDOW = 29, 2048
 WINDOW_PROMPT, WINDOW_NEW = WINDOW + 256, 16
 WINDOW_TOL = 2e-3   # prefill + one decode step against the full forward, fp32
+# MoE path (phase 11): dbrx-132b and llama4-scout cut to 4 layers (one
+# iRoPE period of llama4) at their published widths (8 layers took phase 11
+# to 77 s and the script past 600 s, PERF.md §4). generate under
+# plan_for_depth: dbrx's pair (2, 3) after two single layers, llama4's
+# pairs (0, 1), chunked + chunked, and (2, 3), chunked + global. llama4's
+# engine pairs (0, 1) only (layers 2, chunked, and 3, global, single): the
+# paged pool refuses a pair of mixed kinds. Its chunk run takes a prompt of
+# CHUNK + 256 tokens.
+DBRX, LLAMA4 = "dbrx-132b", "llama4-scout-17b-a16e"
+MOE = (DBRX, LLAMA4)
+MOE_LAYERS = 4
+MOE_EFF_DEPTH = {DBRX: 3, LLAMA4: 2}
+MOE_PAIRS = {DBRX: ((2, 3),), LLAMA4: ((0, 1), (2, 3))}
+LLAMA4_ENGINE_PAIRS = ((0, 1),)
+CHUNK = 8192
+CHUNK_PROMPT, CHUNK_NEW = CHUNK + 256, 16
+# Head shapes of the MoE models held in phase 3 (kv heads, GQA group, hd).
+MOE_SHAPES = ((DBRX, 8, 6, 128), (LLAMA4, 8, 5, 128))
 
 
 def log(msg):
@@ -491,11 +532,15 @@ def check_kernels():
             record(name, dtype, e["max_abs_err"], None, None, 0, 0)
         del kr, vr, qp, kp, vp
 
-        for model, hkv, g, hd in DENSE_SHAPES:
+        for model, hkv, g, hd in DENSE_SHAPES + MOE_SHAPES:
             log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
             found = check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol)
             if model == HYBRID:
-                found.update(check_window_flash(ops, rand, dtype, hkv, g, hd, tol))
+                found.update(check_masked_flash(ops, rand, dtype, hkv, g, hd, tol,
+                                                "window", WINDOW, WINDOW_PROMPT))
+            if model == LLAMA4:
+                found.update(check_masked_flash(ops, rand, dtype, hkv, g, hd, tol,
+                                                "chunk", CHUNK, CHUNK_PROMPT))
             for (name, key), e in found.items():
                 record(name, dtype, e["max_abs_err"], None, None, 0, 0)
                 rows[("dense", name, key, model, dtype)] = e
@@ -604,14 +649,15 @@ def check_norm_rows(ops, rand, dtype):
     """Each dual RMSNorm row equals, bit for bit, the same row launched
     alone (M = 1), inside an 8-row launch and at three offsets of a
     2048-row launch (8 rows x a 256-token bucket), plus_one both ways: at
-    D = 2048 and 4096, and at D = 100, where the scales are the two rows of
+    D = 2048, 4096 and 5120 (8 warps x 3 vectors, the last round ragged),
+    and at D = 100, where the scales are the two rows of
     a [2, D] pair as the model slices them (in bf16 the second starts 200
     bytes in: element-wise loads), also held against the plain version. A
     16-byte-misaligned sb gives the bits of an aligned copy."""
     import torch
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     offsets = (0, 1001, 2040)
-    for d in (2048, 4096, 100):
+    for d in (2048, 4096, 5120, 100):
         scales = rand(2, d, dtype=dtype)
         sa, sb = scales[0], scales[1]
         x8, big = rand(8, d, dtype=dtype), rand(2048, d, dtype=dtype)
@@ -637,7 +683,7 @@ def check_norm_rows(ops, rand, dtype):
     if not torch.equal(ops.dual_rmsnorm(x8, sa, sb), ops.dual_rmsnorm(x8, sa, sb.clone())):
         raise AssertionError(f"dual_rmsnorm {dtype}: a misaligned sb changes the bits")
     log(f"  dual_rmsnorm rows {dtype}: alone == in 8 rows == at {offsets} of 2048 rows, "
-        f"bit for bit (D = 2048, 4096, 100; plus_one both ways); misaligned sb == "
+        f"bit for bit (D = 2048, 4096, 5120, 100; plus_one both ways); misaligned sb == "
         f"aligned copy")
 
 
@@ -800,42 +846,57 @@ def check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol):
     return out
 
 
-def check_window_flash(ops, rand, dtype, hkv, g, hd, tol):
-    """Flash with the window mask (W = 2048) at recurrentgemma-9b's head
-    shape and its paths' kv tile (block_n = 16): generate's prefill (B = 4
-    prompts of 128, the window not reached) and the window run's prefill
-    (B = 1, S = W + 256, where the mask cuts each late row to its last W
-    keys). Each held against its plain version and timed beside its bound
-    and SDPA with a boolean mask. Returns {(kernel name, key): entry}."""
+def check_masked_flash(ops, rand, dtype, hkv, g, hd, tol, kind, span, long_len):
+    """Flash with the window mask (``kind`` "window", W = ``span``) or the
+    chunk mask ("chunk", chunk = ``span``) at a model's head shape and its
+    paths' kv tile (block_n = 16): generate's prefill (B = 4 prompts of
+    128, where neither mask cuts) and the long run's prefill (B = 1, S =
+    ``long_len`` = span + 256, where the mask cuts the late rows). Each held
+    against its plain version kv head by kv head (the heads are
+    independent; at the long length the plain version's fp32 scores of all
+    heads at once take tens of GB) and timed beside its bound and SDPA with
+    a boolean mask. Returns {(kernel name, key): entry}."""
     import torch
     import torch.nn.functional as F
     dt = str(dtype).split(".")[1]
     out = {}
-    for key, b, s_len in (("prefill window", B, S),
-                          ("prefill window long", 1, WINDOW_PROMPT)):
+    mask_kw = {"window": span} if kind == "window" else {"chunk": span}
+    for key, b, s_len in ((f"prefill {kind}", B, S), (f"prefill {kind} long", 1, long_len)):
         q = rand(b, s_len, hkv, g, hd, dtype=dtype)
         k, v = rand(b, s_len, hkv, hd, dtype=dtype), rand(b, s_len, hkv, hd, dtype=dtype)
-        run = lambda: ops.flash_attention(q, k, v, kind="window", window=WINDOW,  # noqa: E731
-                                          block_n=16)
-        plain = lambda: ops.flash_attention_plain(q, k, v, kind="window",  # noqa: E731
-                                                  window=WINDOW)
-        err = compare(f"flash window={WINDOW} B={b} S={s_len} hd={hd}", run(), plain(), tol)
+        run = lambda: ops.flash_attention(q, k, v, kind=kind, block_n=16,  # noqa: E731
+                                          **mask_kw)
+        plain = lambda: ops.flash_attention_plain(q, k, v, kind=kind, **mask_kw)  # noqa: E731
+        want = torch.cat([ops.flash_attention_plain(q[:, :, h:h + 1], k[:, :, h:h + 1],
+                                                    v[:, :, h:h + 1], kind=kind, **mask_kw)
+                          for h in range(hkv)], dim=2)
+        err = compare(f"flash {kind}={span} B={b} S={s_len} Hkv={hkv} g={g} hd={hd}",
+                      run(), want, tol)
+        del want
         pos = torch.arange(s_len, device=q.device)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < WINDOW)
+        causal = pos[None, :] <= pos[:, None]
+        mask = causal & ((pos[:, None] - pos[None, :] < span) if kind == "window"
+                         else (pos[:, None] // span == pos[None, :] // span))
         ql = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, s_len, hd)
         kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
         lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,  # noqa: E731
                                                      enable_gqa=True)
         pairs = int(mask.sum()) * b * hkv * g   # allowed (query, key) pairs
         b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs, dt)
+        long = s_len > S
+        # The long launches take up to tens of ms in fp32: fewer timed calls,
+        # and the plain version (tens of GB of scores) outside a graph.
+        n = dict(iters=2, reps=3) if long else {}
         out[("flash_attention", key)] = e = {
-            "shape": f"B={b}, S={s_len}, {hkv} kv head, g={g}, hd={hd}, window "
-                     f"{WINDOW}, block_n=16",
-            "max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain, iters=2),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
+            "shape": f"B={b}, S={s_len}, {hkv} kv heads, g={g}, hd={hd}, {kind} "
+                     f"{span}, block_n=16",
+            "max_abs_err": err, "ms": time_ms(run, **n),
+            "plain_ms": call_ms(plain, iters=2) if long else time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, **n)}
         log(f"  flash_attention {key} {dt}: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}) library_ms={e['library_ms']:.5f}")
-        del q, k, v, ql, kl, vl
+        del q, k, v, ql, kl, vl, mask, causal
+        torch.cuda.empty_cache()
     return out
 
 
@@ -874,7 +935,7 @@ def decode_times():
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     out = []
-    for model, hkv, g, hd in (("tinyllama-1.1b", HKV, G, HD),) + DENSE_SHAPES:
+    for model, hkv, g, hd in (("tinyllama-1.1b", HKV, G, HD),) + DENSE_SHAPES + MOE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q1 = rand(B, hkv, g, hd, dtype=dtype)
             k1, v1 = (rand(B, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
@@ -1307,11 +1368,15 @@ class DecodeProbe:
         return max(errs)
 
 
-def generate_path(what, cfg, ms, params):
+def generate_path(what, cfg, ms, params, *, check_ms=None):
     """A model through ``generate``: B = 4 prompts of 128 random tokens, 64
     new, bf16 ring cache of 256, with the exact launch count of every
     kernel, and prefill ms and decode ms per step taken inside that one
-    ``generate`` call. Returns (launches, metrics)."""
+    ``generate`` call. One decode step after the prefill is held against a
+    prefill of the longer prompt under ``check_ms`` (default ``ms``; for a
+    mixture of experts the structure at a capacity that drops nothing,
+    since a prefill drops slots that a decode step keeps). Returns
+    (launches, metrics)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.model import transformer as T
@@ -1359,9 +1424,14 @@ def generate_path(what, cfg, ms, params):
         raise AssertionError("first generated token is not the prefill argmax")
     # One decode step against the prefill cache vs a prefill of the longer
     # prompt: the same logits up to bf16 rounding of two different paths.
-    step_logits, _ = T.decode_step(params, tok0, caches, S, ms=ms, pc=pc)
+    cms = check_ms or ms
+    if cms is not ms:
+        del logits, caches
+        logits, caches = make_prefill(cms, pc, sv)(params, prompts)
+        tok0 = logits.argmax(-1)
+    step_logits, _ = T.decode_step(params, tok0, caches, S, ms=cms, pc=pc)
     longer = torch.cat([prompts, tok0[:, None]], dim=1)
-    full_logits, _, _ = T.forward_full(params, longer, ms=ms, pc=pc,
+    full_logits, _, _ = T.forward_full(params, longer, ms=cms, pc=pc,
                                        attn_impl=sv.attn_impl)
     scale = full_logits[:, -1].abs().max().item()
     diff = (step_logits - full_logits[:, -1]).abs().max().item()
@@ -1544,11 +1614,16 @@ def mixer_counts(ms):
     """(single attention layers, attention LP pairs, recurrent groups) of a
     model structure: per forward one flash launch per attention group and
     one scan per recurrent group (Mamba, RG-LRU); per decode step one
-    decode launch per attention group (the pair form for a pair)."""
+    decode launch per attention group (the pair form for a pair). A pair of
+    mixed attention kinds (llama4's chunked + global) runs half by half:
+    it counts as two single layers."""
     single = pair = rec = 0
     for seg in ms.segments:
+        kinds = {spec.mixer for spec in seg.group.specs}
         if not seg.group.specs[0].mixer.startswith("attn"):
             rec += seg.count
+        elif len(kinds) > 1:
+            single += 2 * seg.count
         elif seg.group.pair:
             pair += seg.count
         else:
@@ -1556,7 +1631,8 @@ def mixer_counts(ms):
     return single, pair, rec
 
 
-MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_rec", "w_out")
+MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_rec", "w_out",
+            "router")
 
 
 def set_compute_dtype(params, dtype):
@@ -1570,13 +1646,24 @@ def set_compute_dtype(params, dtype):
             p.data = p.data.to(dtype)
 
 
-def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
+def exact_prefills(ms):
+    """True where the engine switches the prefix cache and the bucket
+    ladder off and prefills every admission at its exact length: a
+    recurrent mixer (its state has no page form) or a mixture of experts
+    (as in the JAX engine)."""
+    return any(not spec.mixer.startswith("attn") or spec.ffn == "moe"
+               for seg in ms.segments for spec in seg.group.specs)
+
+
+def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW,
+                parity_ms=None):
     """Returns (kernel launches of the timed run, engine metrics, the
     fp32-pool run's streams). The parity run holds the engine's streams in
-    an fp32 pool against ``generate``'s, ``parity_new`` tokens each; with
-    ``fp32_compute`` both compute in fp32 on the bf16 weights
-    (``set_compute_dtype``). The timed bf16 run's paged decode launches
-    are held against their plain versions (``DecodeProbe``)."""
+    an fp32 pool against ``generate``'s, ``parity_new`` tokens each, both
+    under ``parity_ms`` (default ``ms``; the MoE models' runs at a capacity
+    that drops nothing); with ``fp32_compute`` both compute in fp32 on the
+    bf16 weights (``set_compute_dtype``). The timed bf16 run's paged decode
+    launches are held against their plain versions (``DecodeProbe``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import PagedEngine, default_buckets
@@ -1592,13 +1679,15 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     if fp32_compute:
         set_compute_dtype(params, torch.float32)
     parity_work = engine_traffic(cfg.vocab_size, parity_new)
-    eng = PagedEngine(params, ms, engine_config(torch.float32))
-    recurrent = eng.prefix is None   # prefix cache and buckets off: exact prefills
-    if recurrent and (not n_rec or eng._buckets):
-        raise AssertionError(f"{cfg.name}: prefix cache off, buckets {eng._buckets}")
+    pms = parity_ms or ms
+    eng = PagedEngine(params, pms, engine_config(torch.float32))
+    exact = eng.prefix is None   # prefix cache and buckets off: exact prefills
+    if exact != exact_prefills(ms) or (exact and eng._buckets):
+        raise AssertionError(f"{cfg.name}: prefix cache {eng.prefix}, buckets "
+                             f"{eng._buckets}")
     got = serve(eng, parity_work)
     shared = shared_bucket_launches(eng)
-    models = [(params, ms)] * len(parity_work)
+    models = [(params, pms)] * len(parity_work)
     n_equal = held_to("engine", models, parity_work, got,
                       generate_streams(models, parity_work))
     del eng
@@ -1608,7 +1697,7 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
         f"{parity_new} new tokens): {n_equal}/{len(parity_work)} streams equal to "
         f"generate on the card; bucket launches holding hit and cold rows "
         f"(hit, cold): {shared}")
-    if not shared and not recurrent:
+    if not shared and not exact:
         raise AssertionError("no bucket launch held both a radix-hit row and a "
                              "cold row")
 
@@ -1642,7 +1731,7 @@ def engine_path(cfg, ms, params, *, fp32_compute=False, parity_new=ENGINE_NEW):
     if any(len(o) != ENGINE_NEW or o.min() < 0 or o.max() >= cfg.vocab_size
            for o in out):
         raise AssertionError("engine streams of the wrong length or out of range")
-    if recurrent and (c["bucket_groups"] or c["suffix_prefills"] or c["prefix_hits"]
+    if exact and (c["bucket_groups"] or c["suffix_prefills"] or c["prefix_hits"]
                       or c["full_prefills"] != c["admitted"]):
         raise AssertionError(f"{cfg.name} engine prefills not all exact and cold: {c}")
     resident = eng.prefix.resident_pages if eng.prefix else 0
@@ -2189,7 +2278,9 @@ def hybrid_path():
         f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card")
     gen_launches, gen = generate_path(cfg.name, cfg, ms, params)
     eng_launches, eng, _ = engine_path(cfg, ms, params, fp32_compute=True)
-    win_launches, win = window_run(cfg, ms, params)
+    win_launches, win = ring_run(cfg, ms, params, what=f"{cfg.name} window run",
+                                 kind="window", ring=WINDOW,
+                                 prompt_len=WINDOW_PROMPT, n_new=WINDOW_NEW)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[hybrid] {cfg.name}: max_memory_allocated {peak:.2f} GiB")
     return gen_launches, eng_launches, win_launches, {
@@ -2198,15 +2289,17 @@ def hybrid_path():
         "max_memory_allocated_gib": peak, "generate": gen, "engine": eng, "window": win}
 
 
-def window_run(cfg, ms, params):
-    """A prompt of W + 256 tokens at B = 1 through ``generate`` (bf16, 16
-    new tokens): the prefill's window mask cuts the late rows, and every
-    decode step reads a wrapped ring. The first attention layer's flash
-    launch and its ring decode launches at steps 0 and 8 are copied and
-    held against their plain versions; the launches reconcile. Then, in
-    fp32 compute on the same weights, prefill + one decode step equals the
-    full forward over the prompt and the new token within WINDOW_TOL.
-    Returns (launches, metrics)."""
+def ring_run(cfg, ms, params, *, what, kind, ring, prompt_len, n_new, check=None):
+    """A prompt of ``prompt_len`` = ring + 256 tokens at B = 1 through
+    ``generate`` (bf16, ``n_new`` new tokens): the prefill's window or
+    chunk mask (``kind``, span ``ring``) cuts the late rows, and every
+    decode step reads a ring that has wrapped. The first attention layer's
+    flash launch and its decode launches at steps 0 and 8 are copied and
+    held against their plain versions (the flash kv head by kv head); the
+    launches reconcile. Then, in fp32 compute on the same weights, prefill
+    + one decode step equals the full forward over the prompt and the new
+    token within WINDOW_TOL, on ``check`` = (structure, weights) (default
+    the run's own). Returns (launches, metrics)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.model import transformer as T
@@ -2215,11 +2308,11 @@ def window_run(cfg, ms, params):
 
     pc = ParallelContext()
     _, n_pairs = model_counts(ms)
-    n_single, _, n_rec = mixer_counts(ms)
-    prompt = torch.randint(0, cfg.vocab_size, (1, WINDOW_PROMPT),
+    n_single, n_attn_pairs, n_rec = mixer_counts(ms)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
                            generator=torch.Generator(device="cuda").manual_seed(SEED + 7),
                            device="cuda")
-    sv = ServeConfig(max_len=WINDOW_PROMPT + WINDOW_NEW, cache_dtype=torch.bfloat16)
+    sv = ServeConfig(max_len=prompt_len + n_new, cache_dtype=torch.bfloat16)
     generate(params, prompt, 2, ms=ms, pc=pc, sv=sv)   # warm-up
     flash_kept = []
     flash = ops.flash_attention
@@ -2235,58 +2328,210 @@ def window_run(cfg, ms, params):
     ops.flash_attention = first_flash
     try:
         with DecodeProbe(ms, paged=False, steps=(0, 8)) as probe:
-            out = generate(params, prompt, WINDOW_NEW, ms=ms, pc=pc, sv=sv,
+            out = generate(params, prompt, n_new, ms=ms, pc=pc, sv=sv,
                            timings=timings)
     finally:
         ops.flash_attention = flash
     launches = dict(ops.LAUNCHES)
-    steps = WINDOW_NEW - 1
+    steps = n_new - 1
     want = {name: 0 for name in launches}
-    want.update(flash_attention=n_single, ssm_scan=n_rec,
+    want.update(flash_attention=n_single + n_attn_pairs, ssm_scan=n_rec,
                 decode_attention=steps * n_single,
+                decode_attention_pair=steps * n_attn_pairs,
                 dual_rmsnorm=norm_launches(cfg, n_pairs) * (1 + steps))
-    reconcile(f"{cfg.name} window run", launches, want)
-    if tuple(out.shape) != (1, WINDOW_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
-        raise AssertionError(f"window run tokens {tuple(out.shape)} out of range")
-    decode_err = probe.check(f"{cfg.name} window run")
+    reconcile(what, launches, want)
+    if tuple(out.shape) != (1, n_new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{what} tokens {tuple(out.shape)} out of range")
+    decode_err = probe.check(what)
     (q, k, v), kw, got = flash_kept[0]
-    if kw.get("kind") != "window" or q.shape[1] != WINDOW_PROMPT:
-        raise AssertionError(f"window run flash launch {kw} at {tuple(q.shape)}")
-    flash_err = compare(f"[{cfg.name} window run] flash_attention, prefill of "
-                        f"{WINDOW_PROMPT}, on the model path", got,
-                        ops.flash_attention_plain(q, k, v, **kw), BF16_TOL)
-    del flash_kept, q, k, v, got
+    if kw.get("kind") != kind or q.shape[1] != prompt_len:
+        raise AssertionError(f"{what} flash launch {kw} at {tuple(q.shape)}")
+    want_o = torch.cat([ops.flash_attention_plain(q[:, :, h:h + 1], k[:, :, h:h + 1],
+                                                  v[:, :, h:h + 1], **kw)
+                        for h in range(q.shape[2])], dim=2)
+    flash_err = compare(f"[{what}] flash_attention, prefill of {prompt_len}, on the "
+                        f"model path", got, want_o, BF16_TOL)
+    del flash_kept, q, k, v, got, want_o
 
+    cms, cparams = check or (ms, params)
     set_compute_dtype(params, torch.float32)
     try:
-        sv32 = ServeConfig(max_len=WINDOW_PROMPT + WINDOW_NEW, cache_dtype=torch.float32)
-        logits, caches = make_prefill(ms, pc, sv32)(params, prompt)
+        sv32 = ServeConfig(max_len=prompt_len + n_new, cache_dtype=torch.float32)
+        logits, caches = make_prefill(cms, pc, sv32)(cparams, prompt)
         tok0 = logits.argmax(-1)
-        step_logits, _ = T.decode_step(params, tok0, caches, WINDOW_PROMPT, ms=ms, pc=pc)
+        step_logits, _ = T.decode_step(cparams, tok0, caches, prompt_len, ms=cms, pc=pc)
         del caches
-        full, _, _ = T.forward_full(params, torch.cat([prompt, tok0[:, None]], dim=1),
-                                    ms=ms, pc=pc, attn_impl=sv32.attn_impl)
+        full, _, _ = T.forward_full(cparams, torch.cat([prompt, tok0[:, None]], dim=1),
+                                    ms=cms, pc=pc, attn_impl=sv32.attn_impl)
         full = full[:, -1]
         diff = (step_logits - full).abs().max().item()
         scale = full.abs().max().item()
         del logits, step_logits, full
     finally:
         set_compute_dtype(params, torch.bfloat16)
-    log(f"[{cfg.name} window run] fp32 compute: prefill of {WINDOW_PROMPT} + one decode "
-        f"step (ring of {WINDOW}, wrapped) vs the full forward over "
-        f"{WINDOW_PROMPT + 1} tokens: logits max_abs_diff={diff:.3e} (logit scale "
+    log(f"[{what}] fp32 compute, {cms.cfg.n_layers} layers: prefill of {prompt_len} "
+        f"+ one decode step (ring of {ring}, wrapped) vs the full forward over "
+        f"{prompt_len + 1} tokens: logits max_abs_diff={diff:.3e} (logit scale "
         f"{scale:.3f}, tol {WINDOW_TOL:g})")
     if diff > WINDOW_TOL:
-        raise AssertionError("the window ring's decode step disagrees with the full "
+        raise AssertionError(f"{what}: the ring's decode step disagrees with the full "
                              "forward")
-    metrics = {"prompt": WINDOW_PROMPT, "new_tokens": WINDOW_NEW,
+    metrics = {"prompt": prompt_len, "new_tokens": n_new,
                "prefill_ms": timings["prefill_s"] * 1e3,
                "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
                "flash_path_max_abs_err": flash_err, "decode_path_max_abs_err": decode_err,
-               "fp32_decode_vs_full_max_abs_diff": diff, "logit_scale": scale}
-    log(f"[{cfg.name} window run] " + " ".join(
+               "fp32_decode_vs_full_max_abs_diff": diff, "logit_scale": scale,
+               "fp32_check_layers": cms.cfg.n_layers}
+    log(f"[{what}] " + " ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in metrics.items()))
     return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family (dbrx-132b, llama4-scout) at full width
+# ---------------------------------------------------------------------------
+
+def moe_model(name, plan_pairs=None):
+    """``name`` at its published widths cut to ``MOE_LAYERS`` layers, under
+    plan_for_depth(MOE_EFF_DEPTH[name]) or the given pairs, bf16 random weights
+    made on the card from the seed. Returns (cfg, ms, params)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan, plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = dataclasses.replace(get_config(name), n_layers=MOE_LAYERS)
+    plan = LPPlan(plan_pairs) if plan_pairs else plan_for_depth(cfg, MOE_EFF_DEPTH[name])
+    ms = T.build_structure(cfg, plan=plan)
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    return cfg, ms, params
+
+
+def no_drops(ms):
+    """``ms`` at the capacity factor E/k, where C >= T and nothing drops."""
+    import dataclasses
+    from repro_torch.model import transformer as T
+    cfg = ms.cfg
+    return T.build_structure(dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k), plan=ms.plan)
+
+
+def first_moe_drops(ms, params):
+    """Share of slots the capacity drops in the first MoE layer of one
+    prefill of generate's prompts (B = 4 x 128): its dispatch recomputed
+    from that layer's own inputs."""
+    import torch
+    from repro_torch.model import moe as MOE
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, make_prefill
+
+    prompts = torch.randint(0, ms.cfg.vocab_size, (B, S),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 5),
+                            device="cuda")
+    seen, single = [], MOE._moe_single
+
+    def probe(p, xn, cfg, pc):
+        if not seen:
+            x = xn.reshape(-1, xn.shape[-1])
+            idx, _, _ = MOE._route(x @ p["router"].to(x.dtype), cfg)
+            keep = MOE.slot_positions(idx, cfg)[2]
+            seen.append((int((~keep).sum()), keep.numel(), MOE.capacity(x.shape[0], cfg)))
+        return single(p, xn, cfg, pc)
+    MOE._moe_single = probe
+    try:
+        make_prefill(ms, ParallelContext(), ServeConfig(max_len=MAX_LEN))(params, prompts)
+    finally:
+        MOE._moe_single = single
+    dropped, slots, cap = seen[0]
+    log(f"[moe] {ms.cfg.name} first MoE layer, prefill of {B} x {S} at capacity "
+        f"factor {ms.cfg.moe_capacity_factor}: C = {cap}, {dropped} of {slots} slots "
+        f"dropped ({dropped / slots:.4f})")
+    return dropped / slots
+
+
+class FlashKinds:
+    """While on, counts the flash launches of each mask kind (no launch is
+    added)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.kinds, self.orig = {}, ops.flash_attention
+
+        def count(*args, **kw):
+            kind = kw.get("kind", "causal")
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            return self.orig(*args, **kw)
+        ops.flash_attention = count
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.orig
+
+
+def moe_path(name):
+    """Phase 11: ``name`` at its published widths, cut to MOE_LAYERS layers,
+    bf16 random weights made on the card from the seed: phase 5's
+    ``generate`` traffic at the published capacity factor (1.25; the share
+    of slots dropped in the first MoE layer's prefill printed), then phase
+    6's engine (exact prefills: the prefix cache and bucket ladder switch
+    off for a mixture of experts, as in the JAX engine; fp32-pool streams
+    held to ``generate`` in fp32 compute at the capacity factor E/k, where
+    nothing drops; a timed bf16-pool run at 1.25 reconciled with the
+    counters, its decode launches held against their plain versions). For
+    llama4 the chunk run sits between the two, and the engine runs on new
+    weights from the seed under LLAMA4_ENGINE_PAIRS. Returns ({path:
+    launches}, metrics)."""
+    import torch
+    llama4 = name == LLAMA4
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ms, params = moe_model(name)
+    n_params = sum(v.numel() for v in params.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[moe] {name}: {cfg.n_layers} layers (cut), d {cfg.d_model}, {cfg.moe_experts} "
+        f"experts top {cfg.moe_top_k}{' + shared' if cfg.moe_shared_expert else ''}, "
+        f"d_ff {cfg.d_ff}; pairs {ms.plan.pairs} "
+        f"{[[s.mixer for s in seg.group.specs] for seg in ms.segments if seg.group.pair]}; "
+        f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card")
+    if ms.plan.pairs != MOE_PAIRS[name]:
+        raise AssertionError(f"{name}: pairs {ms.plan.pairs}")
+    metrics = {"layers": cfg.n_layers, "pairs": list(ms.plan.pairs),
+               "params_b": n_params / 1e9, "weights_gib": weights_gib,
+               "first_layer_drop_share": first_moe_drops(ms, params)}
+    by_path = {}
+    with FlashKinds() as kinds:
+        by_path["generate"], metrics["generate"] = generate_path(
+            name, cfg, ms, params, check_ms=no_drops(ms))
+    log(f"[moe] {name} generate: flash launches by mask kind {kinds.kinds}")
+    want_kinds = {"causal", "chunk"} if llama4 else {"causal"}
+    if set(kinds.kinds) != want_kinds:
+        raise AssertionError(f"{name} generate flash kinds {kinds.kinds}")
+    if llama4:
+        # The fp32 check at the capacity factor E/k: a prefill drops slots
+        # that a decode step keeps.
+        by_path["chunk"], metrics["chunk_run"] = ring_run(
+            cfg, ms, params, what=f"{name} chunk run", kind="chunk", ring=CHUNK,
+            prompt_len=CHUNK_PROMPT, n_new=CHUNK_NEW, check=(no_drops(ms), params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, ms, params = moe_model(name, LLAMA4_ENGINE_PAIRS)
+    by_path["engine"], metrics["engine"], _ = engine_path(
+        cfg, ms, params, fp32_compute=True, parity_new=8, parity_ms=no_drops(ms))
+    metrics["engine"]["pairs"] = list(ms.plan.pairs)
+    for path, names in (("generate", ("flash_attention", "decode_attention",
+                                      "decode_attention_pair")),
+                        ("engine", ("flash_attention", "decode_attention_paged",
+                                    "decode_attention_pair_paged"))):
+        for kernel in names + (("dual_rmsnorm",) if llama4 else ()):
+            if not by_path[path][kernel]:
+                raise AssertionError(f"{kernel} was not launched on {name} {path}")
+    metrics["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[moe] {name}: max_memory_allocated {metrics['max_memory_allocated_gib']:.2f} GiB")
+    del params
+    return by_path, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -2404,6 +2649,12 @@ def main() -> int:
     torch.cuda.empty_cache()                  # the dense models' weights are gone
     (by_path[f"{HYBRID}_generate"], by_path[f"{HYBRID}_engine"],
      by_path[f"{HYBRID}_window"], hybrid) = phase(f"10 {HYBRID}", hybrid_path)
+    moe = {}
+    for name in MOE:
+        gc.collect()
+        torch.cuda.empty_cache()              # the previous model's weights are gone
+        paths, moe[name] = phase(f"11 {name}", moe_path, name)
+        by_path.update({f"{name}_{path}": launches for path, launches in paths.items()})
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -2455,7 +2706,7 @@ def main() -> int:
                       **e2e, "engine": engine, "engine_spec": spec,
                       "engine_degraded": degraded,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
-                      "dense": dense, "hybrid": hybrid,
+                      "dense": dense, "hybrid": hybrid, "moe": moe,
                       "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

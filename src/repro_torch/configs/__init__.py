@@ -3,8 +3,11 @@ architectures the port runs so far: the dense decoders tinyllama-1.1b,
 yi-6b (GQA, hd 128), minicpm-2b (MHA) and granite-34b (MQA, LayerNorm,
 GeLU MLP with biases, learned positions), falcon-mamba-7b (Mamba-1,
 attention-free) and recurrentgemma-9b (RG-LRU recurrent blocks and local
-attention at hd 256). Each module is a copy of the JAX package's file of the
-same name."""
+attention at hd 256), and the mixture-of-experts pair dbrx-132b (16
+experts, top 4, LayerNorm) and llama4-scout (16 experts, top 1, a shared
+expert; three chunked-attention layers, then one global layer without
+positions). Each module is a copy of the JAX package's file of the same
+name."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
@@ -16,8 +19,10 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # Registration side effects — one module per architecture.
 from repro_torch.configs import (  # noqa: F401
+    dbrx_132b,
     falcon_mamba_7b,
     granite_34b,
+    llama4_scout,
     minicpm_2b,
     recurrentgemma_9b,
     tinyllama_1b,

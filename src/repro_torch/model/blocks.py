@@ -23,9 +23,17 @@ N] for Mamba, [B, lru_width, 1] for RG-LRU), stacked on the pair axis
 under bare names like k/v (``conv0``/``h0`` for a single layer), and
 updated in place.
 
-Ported so far: attention mixers with an MLP, Mamba mixers, and RG-LRU
-mixers with an MLP. MoE, cross-attention and pairs of mixed mixer kinds
-raise ``NotImplementedError``.
+An LP pair of two attention kinds (llama4's chunked + global layers:
+different rings, and the global half takes no rotary embedding) keeps
+per-layer cache entries ``k0``/``v0``/``k1``/``v1`` and runs its halves
+one after the other: per-half attention cores in prefill (one merged output
+projection, one phase_out) and one ring decode launch per half. The paged
+pool refuses such a pair, as the JAX package does.
+
+Ported so far: attention mixers (pairs of mixed attention kinds too),
+Mamba mixers and RG-LRU mixers, with an MLP, a mixture of experts
+(``moe.moe_forward``) or no FFN. Cross-attention and recurrent pairs of
+mixed kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.model import attention as A
 from repro_torch.model import mlp as M
+from repro_torch.model import moe as MOE
 from repro_torch.model import rglru as RG
 from repro_torch.model import ssm as SSM
 from repro_torch.model.norms import apply_norm, dual_norm
@@ -58,7 +67,7 @@ class Group:
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port runs "
                                "attention, Mamba and RG-LRU mixers, with an "
-                               "MLP or no FFN)")
+                               "MLP, a mixture of experts or no FFN)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +97,9 @@ def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
     if spec.ffn == "mlp":
         t["ln2"] = _norm_tmpl(cfg)
         t["mlp"] = M.mlp_template(cfg, tp)
+    elif spec.ffn == "moe":
+        t["ln2"] = _norm_tmpl(cfg)
+        t["moe"] = MOE.moe_template(cfg, tp)
     elif spec.ffn is not None:
         raise _not_ported(f"ffn {spec.ffn!r}")
     return t
@@ -105,8 +117,25 @@ def _norm_inputs(gp, key, x, cfg, group: Group):
     return apply_norm(x, gp[key], cfg)
 
 
-def _homogeneous_kind(group: Group) -> str:
-    kinds = {s.mixer for s in group.specs}
+def _mixer_kinds(group: Group):
+    return tuple(s.mixer for s in group.specs)
+
+
+def pair_cache_stacked(group: Group) -> bool:
+    """True when the group's decode caches use the stacked pair layout
+    ([2, ...], bare key names) and the fused pair decode path. A pair of
+    mixed attention kinds (llama4 chunked + global) keeps per-layer entries:
+    its ring lengths and slots differ."""
+    return group.pair and len(set(_mixer_kinds(group))) == 1
+
+
+def _mixer(group: Group) -> str:
+    """The group's mixer family: "attn" for any attention kinds (a pair
+    may mix them), else its one recurrent kind (a recurrent pair of two
+    kinds is not ported)."""
+    kinds = set(_mixer_kinds(group))
+    if all(k.startswith("attn") for k in kinds):
+        return "attn"
     if len(kinds) != 1:
         raise _not_ported(f"a pair of mixed mixer kinds {sorted(kinds)}")
     return kinds.pop()
@@ -125,11 +154,16 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     reduction shape the full-prompt forward gives that row. ``q0`` is the
     absolute position of the first query row: an int, or a [B] tensor of
     per-row context lengths (bucketed radix-hit rows)."""
-    kind = _homogeneous_kind(group)
+    kinds = _mixer_kinds(group)
     p = gp["attn"]
     B = xn.shape[1] if group.pair else xn.shape[0]
     S = xn.shape[2] if group.pair else xn.shape[1]
     nP = 2 if group.pair else 1
+    if len(set(kinds)) > 1:
+        return _mixed_attention_full(p, xn, cfg, dims, kinds=kinds,
+                                     positions=positions, attn_impl=attn_impl,
+                                     ctx_kv=ctx_kv)
+    kind = kinds[0]
     q = A.project_q(p, xn, cfg, dims, positions=positions, kind=kind,
                     pair=group.pair)
     k, v = A.project_kv(p, xn, cfg, dims, positions=positions, kind=kind,
@@ -169,6 +203,31 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     return out, _split_kv(k, v, dims, pair=group.pair)
 
 
+def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, attn_impl,
+                          ctx_kv):
+    """A pair of mixed attention kinds (llama4 chunked + global): per-half
+    projections and cores, still one merged output projection and one
+    phase_out. Returns (partial_out, [(k, v)] per half)."""
+    if ctx_kv is not None:
+        raise NotImplementedError(
+            "suffix prefill supports homogeneous attention groups only")
+    B, S = xn.shape[1], xn.shape[2]
+    os, kvs = [], []
+    for i, kind in enumerate(kinds):
+        ph = tree_map(lambda w: w[i], p)
+        qi = A.project_q(ph, xn[i], cfg, dims, positions=positions, kind=kind,
+                         pair=False)
+        ki, vi = A.project_kv(ph, xn[i], cfg, dims, positions=positions,
+                              kind=kind, pair=False)
+        oi = A.attention_core(qi.reshape(B, S, dims.hkv, dims.group, dims.hd),
+                              ki, vi, kind=kind, window=cfg.window,
+                              chunk=cfg.chunk, impl=attn_impl)
+        os.append(oi.reshape(B, S, dims.hq, dims.hd))
+        kvs.append((ki, vi))
+    o = torch.cat(os, dim=2)
+    return A.output_proj(p, o, dims, pair=True), kvs
+
+
 def _fold_ctx_kv(ctx_kv, dims, *, group: Group):
     """Cached context kv (stored layout) -> the folded [B,Tc,P*hkv,hd]
     layout of fresh projections, so a suffix forward can put context before
@@ -194,9 +253,11 @@ def _split_kv(k, v, dims, *, pair: bool):
 def ffn_phase(gp, xn, cfg, pc, *, group: Group):
     """Returns (partial_out, aux)."""
     ffn = group.specs[0].ffn
-    if ffn != "mlp":
-        raise _not_ported(f"ffn {ffn!r}")
-    return M.mlp_forward(gp["mlp"], xn, cfg, pc.tp_size, pair=group.pair), 0.0
+    if ffn == "mlp":
+        return M.mlp_forward(gp["mlp"], xn, cfg, pc.tp_size, pair=group.pair), 0.0
+    if ffn == "moe":
+        return MOE.moe_forward(gp["moe"], xn, cfg, pc, pair=group.pair)
+    raise _not_ported(f"ffn {ffn!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +278,13 @@ def fill_cache(k, L: int, *, mixer, cfg):
     if mixer == "attn_local" and cfg.window and S >= (W := ring_len(cfg, mixer, L)):
         return torch.roll(k[:, S - W:], (S - W) % W, dims=1)
     if mixer == "attn_chunked" and cfg.chunk:
+        # The ring holds the chunk that position S falls in (empty when S
+        # starts a chunk). The chunk's start is counted in whole chunks, not
+        # in ring slots: a ring cut to L < chunk holds positions 0..L-1 of
+        # the first chunk. (The JAX package counts in ring slots, so there a
+        # prompt of exactly L tokens leaves an empty ring: ROADMAP §3.)
         C = ring_len(cfg, mixer, L)
-        cstart = (S // C) * C if S % C else S  # S%C==0 -> empty fresh chunk
+        cstart = (S // cfg.chunk) * cfg.chunk
         ring = torch.zeros((B, C, H, hd), dtype=k.dtype, device=k.device)
         ring[:, :S - cstart] = k[:, cstart:]
         return ring
@@ -232,11 +298,19 @@ def fill_cache(k, L: int, *, mixer, cfg):
 def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
                      dtype=torch.bfloat16):
     """{entry name: (shape, dtype)} for one group's decode cache. A pair
-    stores one stacked entry per tensor under a bare name ("k", "v"; "conv",
-    "h") with a leading pair axis of 2; a single layer keeps indexed names
-    ("k0", "v0"; "conv0", "h0"). The recurrent state ``h`` (Mamba, RG-LRU)
-    is fp32 whatever the cache type."""
-    mixer = _homogeneous_kind(group)
+    of one mixer kind stores one stacked entry per tensor under a bare name
+    ("k", "v"; "conv", "h") with a leading pair axis of 2; a single layer
+    keeps indexed names ("k0", "v0"; "conv0", "h0"), and a pair of mixed
+    attention kinds one indexed entry per layer ("k0", "v0", "k1", "v1"),
+    each with its own ring length. The recurrent state ``h`` (Mamba,
+    RG-LRU) is fp32 whatever the cache type."""
+    if _mixer(group) == "attn" and group.pair and not pair_cache_stacked(group):
+        out = {}
+        for i, m in enumerate(_mixer_kinds(group)):
+            shp = (batch, ring_len(cfg, m, max_len), dims.hkv, dims.hd)
+            out[f"k{i}"], out[f"v{i}"] = (shp, dtype), (shp, dtype)
+        return out
+    mixer = group.specs[0].mixer
     if mixer.startswith("attn"):
         shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
         entries = {"k": (shp, dtype), "v": (shp, dtype)}
@@ -280,22 +354,26 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     emitted cache covers only the suffix (length ``max_len``, local 0 ==
     absolute ``q0``); the caller places it after the context."""
     cache: Dict[str, Any] = {}
-    mixer = _homogeneous_kind(group)
+    mixer = _mixer(group)
 
     # ---- phase 1: the mixer ---------------------------------------------
     xn = _norm_inputs(gp, "ln1", pc.phase_in(x), cfg, group)
-    if mixer.startswith("attn"):
+    if mixer == "attn":
         out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
                                         positions=positions,
                                         attn_impl=attn_impl, ctx_kv=ctx_kv,
                                         q0=q0)
         if emit_cache:
-            fks = [fill_cache(k, max_len, mixer=mixer, cfg=cfg) for k, _ in kvs]
-            fvs = [fill_cache(v, max_len, mixer=mixer, cfg=cfg) for _, v in kvs]
-            if group.pair:  # stacked-contiguous layout for the fused decode
+            kinds = _mixer_kinds(group)
+            fks = [fill_cache(k, max_len, mixer=m, cfg=cfg)
+                   for (k, _), m in zip(kvs, kinds)]
+            fvs = [fill_cache(v, max_len, mixer=m, cfg=cfg)
+                   for (_, v), m in zip(kvs, kinds)]
+            if pair_cache_stacked(group):  # stacked layout for the fused decode
                 cache["k"], cache["v"] = torch.stack(fks), torch.stack(fvs)
             else:
-                cache["k0"], cache["v0"] = fks[0], fvs[0]
+                for i, (fk, fv) in enumerate(zip(fks, fvs)):
+                    cache[f"k{i}"], cache[f"v{i}"] = fk, fv
     elif mixer in _RECURRENT:
         if ctx_kv is not None:
             raise NotImplementedError(
@@ -332,9 +410,12 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     """One group for one new token. x: [B,1,D]; ``cache`` entries are
     updated in place. Returns (x, cache).
 
-    A pair takes the fused path: one decode_attn_standard(pair=True) call
-    over the stacked [2, ...] cache (one QKV projection, one cache write,
-    one attention launch, one phase_out per phase).
+    A pair of one attention kind takes the fused path: one
+    decode_attn_standard(pair=True) call over the stacked [2, ...] cache
+    (one QKV projection, one cache write, one attention launch, one
+    phase_out per phase). A pair of mixed attention kinds decodes half by
+    half over its per-layer rings (one launch each), still one phase_out;
+    the paged pool refuses it.
 
     cache_layout="paged" (continuous batching): ``t`` is an int32 [B]
     tensor of per-slot positions and the k/v entries are page pools
@@ -345,7 +426,12 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     batch-indexed in both layouts: the pool keeps it per decode slot) by
     one token, for both halves of a pair in one mixer call, and writes it
     back in place."""
-    mixer = _homogeneous_kind(group)
+    mixer = _mixer(group)
+    paged = cache_layout == "paged"
+    if paged and group.pair and not pair_cache_stacked(group):
+        raise NotImplementedError(
+            "paged decode requires the stacked pair cache layout "
+            "(heterogeneous attention pairs are not pageable)")
     xn = _norm_inputs(gp, "ln1", x, cfg, group)
     if mixer in _RECURRENT:
         names = ("conv", "h") if group.pair else ("conv0", "h0")
@@ -357,19 +443,28 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
                                              cfg, pc, state=(conv, h))
         conv.copy_(nconv)
         h.copy_(nh)
-    elif mixer.startswith("attn"):
+    elif group.pair and not pair_cache_stacked(group):
+        # A pair of mixed attention kinds: half by half over its own rings.
+        outs = []
+        for i, kind in enumerate(_mixer_kinds(group)):
+            o, _, _ = A.decode_attn_standard(
+                tree_map(lambda w: w[i], gp["attn"]), xn[i], cache[f"k{i}"],
+                cache[f"v{i}"], t, cfg, dims, kind=kind, pair=False,
+                window=cfg.window, chunk=cfg.chunk)
+            outs.append(o)
+        out = outs[0] + outs[1]
+    else:
+        kind = group.specs[0].mixer
         names = ("k", "v") if group.pair else ("k0", "v0")
-        if cache_layout == "paged":
+        if paged:
             out, _, _ = A.decode_attn_paged(
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t,
-                block_tables, cfg, dims, kind=mixer, pair=group.pair)
+                block_tables, cfg, dims, kind=kind, pair=group.pair)
         else:
             out, _, _ = A.decode_attn_standard(
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg,
-                dims, kind=mixer, pair=group.pair, window=cfg.window,
+                dims, kind=kind, pair=group.pair, window=cfg.window,
                 chunk=cfg.chunk)
-    else:
-        raise _not_ported(f"mixer {mixer!r}")
     x = x + pc.psum_tp(out).to(x.dtype)
 
     if group.specs[0].ffn is not None:

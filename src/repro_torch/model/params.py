@@ -113,14 +113,28 @@ def _to_module(node):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                                  for k, v in node.items()})
     if any(isinstance(v, torch.Tensor) for v in node.values()):
-        raise TypeError(f"param tree dict mixes tensors and subtrees: "
-                        f"{sorted(node)}")
+        return _MixedDict(node)
     return nn.ModuleDict({k: _to_module(v) for k, v in node.items()})
+
+
+class _MixedDict(nn.Module):
+    """A tree dict that holds tensors beside subtrees (a MoE layer: the
+    experts' weights beside its ``shared`` expert)."""
+
+    def __init__(self, node):
+        super().__init__()
+        for k, v in node.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, _to_module(v))
 
 
 def _from_module(m):
     if isinstance(m, nn.ParameterDict):
         return {k: v for k, v in m.items()}
+    if isinstance(m, _MixedDict):
+        return {**m._parameters, **{k: _from_module(v) for k, v in m._modules.items()}}
     if isinstance(m, nn.ModuleList):
         return [_from_module(x) for x in m]
     return {k: _from_module(v) for k, v in m.items()}

@@ -2,9 +2,10 @@
 paged kernel against the ring kernel, the selective scan against its plain
 version in fp32, bit for bit), the flash kernel's padding transparency, the
 decode and dual RMSNorm kernels' batch invariance (bit for bit), the
-engine against ``generate``, the speculative and degraded-cohort engines
-and ``rewind_tokens`` against their CPU runs, on an NVIDIA GPU (CUDA C++
-has no CPU mode): skipped elsewhere.
+engine against ``generate``, the speculative and degraded-cohort engines,
+``rewind_tokens`` and the reduced hybrid and mixture-of-experts models
+against their CPU runs, on an NVIDIA GPU (CUDA C++ has no CPU mode):
+skipped elsewhere.
 
 This file imports only torch and the port, so it runs on a machine without
 JAX:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
@@ -127,7 +128,7 @@ def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("g,hd", [(8, 64), (32, 64), (3, 128), (16, 16),
-                                  (48, 128), (36, 64), (12, 128),
+                                  (48, 128), (36, 64), (12, 128), (5, 128), (6, 128),
                                   (130, 128), (200, 16), (16, 256), (40, 256)])
 def test_decode_group_widths_on_gpu(cuda, dtype, g, hd):
     """GQA groups on both sides of 16 heads (in bf16 one warp per 16 heads
@@ -284,7 +285,7 @@ def test_decode_batch_invariant_on_gpu(cuda, dtype, H, G, hd):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [2048, 4096])
+@pytest.mark.parametrize("d", [2048, 4096, 5120])
 @pytest.mark.parametrize("plus_one", [False, True])
 def test_dual_rmsnorm_rows_bit_identical_on_gpu(cuda, dtype, d, plus_one):
     """A dual RMSNorm row comes out bit for bit the same launched alone, in
@@ -472,6 +473,59 @@ def test_hybrid_card_equals_cpu_on_gpu(cuda):
         got = generate(p_gpu, prompts.to(cuda), 10, ms=ms, pc=pc, sv=sv).cpu()
         assert torch.equal(got, want), cfg.window
         if cfg.window < sv.max_len:
+            continue
+        eng = PagedEngine(p_gpu, ms, PagedServeConfig(
+            n_slots=2, page_size=8, n_pages=13, max_len=48,
+            cache_dtype=torch.float32, prefix_cache=True))
+        rids = [eng.add_request(p.numpy(), 10) for p in prompts]
+        res = eng.drain()
+        assert eng.prefix is None
+        assert [res[r].tolist() for r in rids] == got.tolist()
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_moe_card_equals_cpu_on_gpu(cuda, arch):
+    """Reduced dbrx (4 experts, top 2, LayerNorm; plan_for_depth 3) and
+    llama4 (4 experts, top 1, a shared expert; pairs chunked + chunked and
+    chunked + global, chunk 16) in fp32 with TF32 off, at the capacity
+    factor E/k (nothing dropped): generate's greedy tokens on the card
+    equal the CPU's for 21-token prompts (past llama4's chunk), and the
+    engine on the card gives generate()'s tokens on the card (llama4 with
+    its chunk raised to the cache length and one chunked + chunked pair,
+    as the paged pool needs)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import LPPlan, plan_for_depth, plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import (PagedEngine, PagedServeConfig, ServeConfig,
+                                   generate)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc = ParallelContext()
+    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+    base = reduced_config(get_config(arch), n_layers=4)
+    base = dataclasses.replace(base, moe_capacity_factor=base.moe_experts / base.moe_top_k)
+    if arch.startswith("llama4"):
+        cases = ((base, plan_range(base, 0, 4), False),
+                 (dataclasses.replace(base, chunk=48), LPPlan(((0, 1),)), True))
+    else:
+        cases = ((base, plan_for_depth(base, 3), True),)
+    for cfg, plan, paged in cases:
+        ms = T.build_structure(cfg, plan=plan)
+        p_cpu = T.init_params(ms, torch.Generator().manual_seed(0), torch.float32,
+                              device="cpu")
+        p_gpu = T.init_params(ms, torch.Generator().manual_seed(0), torch.float32,
+                              device="cpu").to(cuda)
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 21)))
+        want = generate(p_cpu, prompts, 10, ms=ms, pc=pc, sv=sv)
+        got = generate(p_gpu, prompts.to(cuda), 10, ms=ms, pc=pc, sv=sv).cpu()
+        assert torch.equal(got, want), (cfg.chunk, plan)
+        if not paged:
             continue
         eng = PagedEngine(p_gpu, ms, PagedServeConfig(
             n_slots=2, page_size=8, n_pages=13, max_len=48,

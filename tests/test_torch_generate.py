@@ -171,7 +171,8 @@ for kw in (dict(spec_k=2), dict(degrade_delta=True, degrade_slots=1,
     out = eng.drain()
     assert [len(out[r]) for r in rids] == [4, 4], kw
 assert eng.counters["degraded_admissions"] == 1
-for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "dbrx-132b",
+             "llama4-scout-17b-a16e"):
     cfg = reduced_config(get_config(arch), n_layers=4)
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
     params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
@@ -179,6 +180,7 @@ for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
                    pc=ParallelContext(), sv=ServeConfig(max_len=16))
     assert out.shape == (2, 4), (arch, out.shape)
 assert "repro_torch.model.rglru" in sys.modules
+assert "repro_torch.model.moe" in sys.modules
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), \
     [m for m in sys.modules if m.startswith("repro.")]
 print("OK")
@@ -195,6 +197,7 @@ def test_port_sources_import_no_jax():
     files.append(SRC.parent / "chip_smoke.py")
     assert len(files) > 10
     assert SRC / "repro_torch" / "model" / "rglru.py" in files
+    assert SRC / "repro_torch" / "model" / "moe.py" in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f}: imports {hits}"
