@@ -45,7 +45,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      at the MoE models' head shapes (``MOE_SHAPES``: dbrx-132b's 8 kv heads
      with g = 6, llama4-scout's with g = 5, hd 128), and at llama4's flash
      with the chunk mask (chunk 8192) at generate's prefill and at an
-     8448-token prompt; the dual RMSNorm also at D = 5120 (llama4).
+     8448-token prompt; the dual RMSNorm also at D = 5120 (llama4). The
+     same at paligemma-3b's and whisper-medium's head shapes
+     (``PREFIX_ENCDEC_SHAPES``: 8 query heads over 1 kv head at hd 256; 16
+     heads at hd 64), with flash at phase 12's launches: the causal mask
+     with a prefix of 256 over 384 positions (hd 256), the bidirectional
+     encoder at S = T = 1500, and cross-attention of 32 and of 1 query row
+     against 1500 keys.
   4. reduced parity: tinyllama, yi-6b, minicpm-2b, granite-34b and
      falcon-mamba cut to 4 layers in fp32, LP pairs (0,1), (2,3) (the dense
      three: plan_for_depth 3, one pair and two single layers, biases and
@@ -62,6 +68,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      length, the engine on the card == generate == the engine on the CPU;
      and one recurrentgemma period at full width (3 layers, 2.7 B fp32):
      card == CPU, the engine == generate (the hd 256 kernels in fp32).
+     Then reduced paligemma (a prefix of 8) and whisper (2 encoder layers
+     over 24 frames), plan_for_depth 3: card == CPU through ``generate``
+     (the paged pool refuses both, as the JAX package's does); paligemma
+     at full width cut to 2 layers (one pair) behind its 256 patch
+     embeddings, fp32: card == CPU (prefix flash and the pair decode at hd
+     256 on a model path); and ``core.interventions.apply_intervened`` on
+     reduced paligemma, every plan kind and form: card == CPU, and on the
+     card the sequential plan == the model's stack, bit for bit, and the
+     "tp" groups of two == the LP pair path within 2e-4.
   5. generate path: LP tinyllama-1.1b at full width (22 layers,
      plan_for_depth 16 -> 6 pairs + 10 single layers), bf16 random weights
      from a seed, 4 prompts of 128 tokens, 64 new tokens through
@@ -91,10 +106,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      an fp32-pool run whose streams are held against ``generate`` at their
      cohort's plan, and a timed bf16-pool run whose launches reconcile per
      cohort with the engine's spans.
-  7. Mamba path: LP falcon-mamba-7b at full width (64 layers, d 4096,
-     d_inner 8192, N 16, vocab 65024; plan_for_depth 48 -> 16 pairs + 32
-     single layers), random weights made on the card from a seed, after
-     the tinyllama weights are freed. First in fp32 (29 GB): the engine
+  7. Mamba path: LP falcon-mamba-7b at full width (d 4096, d_inner 8192,
+     N 16, vocab 65024) cut to its first 32 of 64 layers (plan_for_depth
+     24 -> 8 pairs + 16 single layers), random weights made on the card
+     from a seed, after the tinyllama weights are freed. First in fp32
+     (~8 GB): the engine
      with phase 6's geometry and traffic, fp32 pool, held stream by stream
      against ``generate`` (the prefix cache and the bucket ladder switch
      off for the recurrent mixer: every admission prefills at its exact
@@ -107,11 +123,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths (granite cut to its first 22 of 88 layers, ``DENSE_LAYERS``),
-     each under plan_for_depth(3/4 of its layers): 32 -> 24, 40 -> 30,
-     22 -> 16 groups, bf16 random weights made on the card from the
-     seed (each model freed before the next): phase 5's ``generate`` and
-     phase 6's engine (streams held to ``generate`` under the near-tie rule
+     widths, minicpm cut to its first 20 of 40 layers and granite to its
+     first 22 of 88 (``DENSE_LAYERS``), each under plan_for_depth(3/4 of
+     its layers): 32 -> 24, 20 -> 15, 22 -> 16 groups, bf16 random weights
+     made on the card from the seed (each model freed before the next):
+     phase 5's ``generate`` and phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
      logits tie at the top too often on these deeper models to hold bf16
      streams; granite's over 8 new tokens, the others' over 32; a timed
@@ -119,14 +135,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      decode launches are held against their plain versions; granite, a
      LayerNorm model, launches no dual RMSNorm), with the peak of allocated
      device memory.
- 10. hybrid path: LP recurrentgemma-9b at its published widths (38
-     layers, plan_for_depth(29): 9 RG-LRU pairs, 8 single RG-LRU layers,
-     12 single local-attention layers at hd 256), bf16 random weights
-     made on the card from the seed: phase 5's ``generate`` and phase 6's
-     engine (the prefix cache and the bucket ladder switch off for the
-     recurrent state; streams held to ``generate`` in fp32 compute, the
-     timed bf16 run reconciled: per decode step 12 decode attention and
-     18 dual RMSNorm launches, per prefill 12 flash and 17 scans), then a
+ 10. hybrid path: LP recurrentgemma-9b at its published widths, cut to
+     its first 20 of 38 layers (plan_for_depth(15): 5 RG-LRU pairs, 4
+     single RG-LRU layers, 6 single local-attention layers at hd 256),
+     bf16 random weights made on the card from the seed: phase 5's
+     ``generate`` and phase 6's engine (the prefix cache and the bucket
+     ladder switch off for the recurrent state; streams held to
+     ``generate`` in fp32 compute, the timed bf16 run reconciled: per
+     decode step 6 decode attention and 10 dual RMSNorm launches, per
+     prefill 6 flash and 9 scans), then a
      window run: one 2304-token prompt (W + 256) and 16 new tokens, its
      first flash launch and its wrapped-ring decode launches held against
      their plain versions, and in fp32 compute prefill + one decode step
@@ -148,9 +165,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      model; streams held to ``generate`` in fp32 compute at the capacity
      factor E/k, where nothing drops, over 8 new tokens; the timed bf16
      run at 1.25 reconciled).
+ 12. prefix-LM and encoder-decoder paths, through ``generate`` (the paged
+     pool refuses both): LP paligemma-3b at full width (18 layers under
+     plan_for_depth(14): 4 pairs + 10 single layers), 4 prompts of 128
+     behind 256 patch embeddings (0.02 N(0, 1) from the seed), 64 new, a
+     ring cache of 512; then LP whisper-medium at full width (24 encoder
+     layers over frames [4, 1500, 1024] from the seed; 24 decoder layers
+     under plan_for_depth(18): 6 pairs + 12 single layers), 4 prompts of
+     32, 64 new, a ring cache of 128, with the encoder timed alone. bf16
+     random weights made on the card from the seed; phase 5's metrics, the
+     exact launch counts (whisper: a flash launch per encoder layer, per
+     decoder group for self- and for cross-attention at prefill, and per
+     group for cross-attention at every decode step) and the decode
+     launches at steps 0 and 40 held against their plain versions.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phases 9, 10 and 11 after 7. The second-to-last line is the kernels JSON (with every
+phases 9, 10, 11 and 12 after 7. The second-to-last line is the kernels JSON (with every
 path's metrics and each phase's seconds), the last line the device JSON.
 
     python3 chip_smoke.py --norm-times
@@ -196,9 +226,12 @@ ENGINE_NEW = 32
 # degraded cohort: the top 2 of the 8 slots, at maximal pairing.
 SPEC_K, DEG_SLOTS = 4, 2
 MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
-# Mamba path: falcon-mamba-7b, d_inner 8192, state 16, 48 LP groups.
+# Mamba path: falcon-mamba-7b, d_inner 8192, state 16, cut to its first 32
+# of 64 layers under plan_for_depth(24): 8 pairs + 16 single layers (at all
+# 64 layers, 48 groups, the phase took 78.9-107.7 s; the cut pays for
+# phase 12, PERF.md §4).
 MAMBA = "falcon-mamba-7b"
-MAMBA_EFF_DEPTH, DI, NS = 48, 8192, 16
+MAMBA_LAYERS, MAMBA_EFF_DEPTH, DI, NS = 32, 24, 8192, 16
 # Dual RMSNorm (D, M) on the paths: tinyllama decode (generate, engine) and
 # prefill (generate's 4 x 128 and the engine's 8 x 64 bucket); falcon-mamba
 # decode, an exact engine admission of 97 tokens, and generate's prefill.
@@ -208,10 +241,11 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
                (5120, 4), (5120, 8), (5120, 512))
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
-# Layers phase 9 keeps where it cuts a model's depth: granite-34b's 88
-# layers are cut to a quarter, so that with phases 10 and 11 the script
-# keeps room in its time limit on a slow host (PERF.md §4).
-DENSE_LAYERS = {"granite-34b": 22}
+# Layers phase 9 keeps of each model (its first ones): minicpm-2b's 40 are
+# cut by half, granite-34b's 88 to a quarter, so that with phases 10 to 12
+# the script keeps room in its time limit on a slow host (PERF.md §4);
+# yi-6b keeps its 32.
+DENSE_LAYERS = {"minicpm-2b": 20, "granite-34b": 22}
 # Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
 # tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
 # recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
@@ -219,10 +253,12 @@ DENSE_LAYERS = {"granite-34b": 22}
 DENSE_SHAPES = (("yi-6b", 4, 8, 128), ("minicpm-2b", 36, 1, 64),
                 ("granite-34b", 1, 48, 128), ("recurrentgemma-9b", 1, 16, 256))
 # Hybrid path: recurrentgemma-9b (RG-LRU and local attention, window 2048)
-# under plan_for_depth(29): 9 rec pairs, 8 single rec layers, 12 single
-# attn_local layers. Its window run takes a prompt of W + 256 tokens.
+# cut to its first 20 of 38 layers (6 periods and a trailing rec pair;
+# every layer kind stays) under plan_for_depth(15): 5 rec pairs, 4 single
+# rec layers, 6 single attn_local layers. Its window run takes a prompt of
+# W + 256 tokens.
 HYBRID = "recurrentgemma-9b"
-HYBRID_EFF_DEPTH, WINDOW = 29, 2048
+HYBRID_LAYERS, HYBRID_EFF_DEPTH, WINDOW = 20, 15, 2048
 WINDOW_PROMPT, WINDOW_NEW = WINDOW + 256, 16
 WINDOW_TOL = 2e-3   # prefill + one decode step against the full forward, fp32
 # MoE path (phase 11): dbrx-132b and llama4-scout cut to 4 layers (one
@@ -243,6 +279,19 @@ CHUNK = 8192
 CHUNK_PROMPT, CHUNK_NEW = CHUNK + 256, 16
 # Head shapes of the MoE models held in phase 3 (kv heads, GQA group, hd).
 MOE_SHAPES = ((DBRX, 8, 6, 128), (LLAMA4, 8, 5, 128))
+# Prefix-LM and encoder-decoder paths (phase 12), through generate only (the
+# paged pool refuses both, as in the JAX package). paligemma-3b: 18 layers
+# under plan_for_depth(14) (4 pairs, 10 single layers), 256 patch
+# embeddings in front of prompts of 128, a ring cache of 512.
+# whisper-medium: 24 encoder layers over 1500 frames, 24 decoder layers
+# under plan_for_depth(18) (6 pairs, 12 single layers), prompts of 32, a
+# ring cache of 128.
+PALI, WHISPER = "paligemma-3b", "whisper-medium"
+PALI_EFF_DEPTH, PALI_PREFIX, PALI_MAX_LEN = 14, 256, 512
+WHISPER_EFF_DEPTH, WHISPER_PROMPT, WHISPER_MAX_LEN, ENC_SEQ = 18, 32, 128, 1500
+# Their head shapes held in phase 3 (kv heads, GQA group, hd): paligemma's
+# 8 query heads over 1 kv head at hd 256, whisper's 16 heads at hd 64.
+PREFIX_ENCDEC_SHAPES = ((PALI, 1, 8, 256), (WHISPER, 16, 1, 64))
 
 
 def log(msg):
@@ -532,9 +581,11 @@ def check_kernels():
             record(name, dtype, e["max_abs_err"], None, None, 0, 0)
         del kr, vr, qp, kp, vp
 
-        for model, hkv, g, hd in DENSE_SHAPES + MOE_SHAPES:
+        for model, hkv, g, hd in DENSE_SHAPES + MOE_SHAPES + PREFIX_ENCDEC_SHAPES:
             log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
             found = check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol)
+            if model in (PALI, WHISPER):
+                found.update(check_prefix_encdec_flash(ops, rand, dtype, tol, model))
             if model == HYBRID:
                 found.update(check_masked_flash(ops, rand, dtype, hkv, g, hd, tol,
                                                 "window", WINDOW, WINDOW_PROMPT))
@@ -900,6 +951,67 @@ def check_masked_flash(ops, rand, dtype, hkv, g, hd, tol, kind, span, long_len):
     return out
 
 
+def check_prefix_encdec_flash(ops, rand, dtype, tol, model):
+    """Flash at the shapes phase 12 launches it, each against its plain
+    version and timed beside its bound and SDPA (with a boolean mask for
+    the prefix). paligemma (Hkv 1, g 8, hd 256): the causal mask with a
+    prefix of 256 over S = 384 (256 patches + 128 text), B = 4, the pair
+    layer (2 folded kv heads) and a single one, block_n 16. whisper (16
+    heads, g 1, hd 64): the encoder's bidirectional S = T = 1500, the
+    cross-attention prefill (S 32 against T 1500; the pair's 32 folded
+    heads and a single layer's 16) at block_n 16, and the cross-attention
+    decode (S 1 against T 1500; the pair folded into the batch: 8 rows,
+    and a single layer's 4) at block_n 64. T = 1500 is no multiple of a
+    tile: the ragged last tile is on the path. Returns {(kernel name,
+    key): entry}."""
+    import torch
+    import torch.nn.functional as F
+    dt = str(dtype).split(".")[1]
+    if model == PALI:
+        P, St = PALI_PREFIX, PALI_PREFIX + S
+        cases = [("prefill prefix", B, St, St, 2, 8, 256, "causal", P, 16),
+                 ("prefill prefix single", B, St, St, 1, 8, 256, "causal", P, 16)]
+    else:
+        cases = [("encoder bidir", B, ENC_SEQ, ENC_SEQ, 16, 1, 64, "bidir", 0, 16),
+                 ("cross prefill", B, WHISPER_PROMPT, ENC_SEQ, 32, 1, 64, "bidir", 0, 16),
+                 ("cross prefill single", B, WHISPER_PROMPT, ENC_SEQ, 16, 1, 64, "bidir", 0, 16),
+                 ("cross decode", 2 * B, 1, ENC_SEQ, 16, 1, 64, "bidir", 0, 64),
+                 ("cross decode single", B, 1, ENC_SEQ, 16, 1, 64, "bidir", 0, 64)]
+    out = {}
+    for key, b, s_len, t_len, h, g, hd, kind, prefix, bn in cases:
+        q = rand(b, s_len, h, g, hd, dtype=dtype)
+        k, v = rand(b, t_len, h, hd, dtype=dtype), rand(b, t_len, h, hd, dtype=dtype)
+        run = lambda: ops.flash_attention(q, k, v, kind=kind, prefix_len=prefix,  # noqa: E731
+                                          block_n=bn)
+        plain = lambda: ops.flash_attention_plain(q, k, v, kind=kind,  # noqa: E731
+                                                  prefix_len=prefix)
+        err = compare(f"flash {kind} prefix={prefix} B={b} S={s_len} T={t_len} H={h} "
+                      f"g={g} hd={hd} block_n={bn}", run(), plain(), tol)
+        mask = None
+        pairs = s_len * t_len
+        if kind == "causal":
+            qpos = torch.arange(s_len, device=q.device)[:, None]
+            kpos = torch.arange(t_len, device=q.device)[None, :]
+            mask = (kpos <= qpos) | (kpos < prefix)
+            pairs = int(mask.sum())
+        ql = q.permute(0, 2, 3, 1, 4).reshape(b, h * g, s_len, hd)
+        kl, vl = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,  # noqa: E731
+                                                     enable_gqa=True)
+        b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * b * h * g, dt)
+        n = dict(iters=5, reps=3) if s_len * t_len > 10 ** 6 else {}
+        out[("flash_attention", key)] = e = {
+            "shape": f"B={b}, S={s_len}, T={t_len}, {h} kv heads, g={g}, hd={hd}, "
+                     f"{kind}{f' prefix {prefix}' if prefix else ''}, block_n={bn}",
+            "max_abs_err": err, "ms": time_ms(run, **n), "plain_ms": time_ms(plain, **n),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, **n)}
+        log(f"  flash_attention {key} {dt}: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms={e['library_ms']:.5f}")
+        del q, k, v, ql, kl, vl
+    torch.cuda.empty_cache()
+    return out
+
+
 def engine_decode_inputs(rand, gen, dtype, hkv, g, hd):
     """The engine's decode at one head shape: q [2, 8, hkv, g, hd] (strided,
     as on the path), ring caches kr, vr [2, 8, 256, hkv, hd], the same keys
@@ -935,7 +1047,8 @@ def decode_times():
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     out = []
-    for model, hkv, g, hd in (("tinyllama-1.1b", HKV, G, HD),) + DENSE_SHAPES + MOE_SHAPES:
+    for model, hkv, g, hd in (("tinyllama-1.1b", HKV, G, HD),) + DENSE_SHAPES + MOE_SHAPES \
+            + PREFIX_ENCDEC_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q1 = rand(B, hkv, g, hd, dtype=dtype)
             k1, v1 = (rand(B, MAX_LEN, hkv, hd, dtype=dtype) for _ in range(2))
@@ -996,16 +1109,18 @@ def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv):
 # phase 4: reduced config, card against CPU
 # ---------------------------------------------------------------------------
 
-def fill_biases(params, seed):
+def fill_biases(params, seed, plus_one=False):
     """Biases 0.2 * N(0, 1) and norm scales 1 + 0.2 * N(0, 1), in place, from
-    a seed: the init's zeros and ones would leave those branches untested."""
+    a seed: the init's zeros and ones would leave those branches untested.
+    With ``plus_one`` (a (1 + scale) norm) the scales are 0.2 * N(0, 1), so
+    the norms multiply by the same factors."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     for name, p in params.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("bq", "bk", "bv", "bo", "b_up", "b_down", "bias", "scale"):
             x = 0.2 * torch.randn(p.shape, generator=gen)
-            p.data.copy_(x + 1 if leaf == "scale" else x)
+            p.data.copy_(x + 1 if leaf == "scale" and not plus_one else x)
     return params
 
 
@@ -1073,7 +1188,7 @@ def reduced_parity():
             raise AssertionError(f"reduced engine parity failed ({what})")
 
 
-def full_width_cut(name, n_layers, prompt_len):
+def full_width_cut(name, n_layers, prompt_len, *, prefix=False):
     """``name`` at its published widths cut to its first ``n_layers``
     layers under plan_range (one LP pair and what follows it), fp32 weights
     (biases and norms filled) and caches: B = 2 prompts of ``prompt_len``
@@ -1083,7 +1198,12 @@ def full_width_cut(name, n_layers, prompt_len):
     at 2 layers (d 6144, 48 query heads over 1 kv head at hd 128, vocab
     49152; ~6 GB on the CPU side) takes the wide-group decode body;
     recurrentgemma-9b at 3 layers, one period (the RG-LRU pair and the
-    attn_local layer at hd 256, vocab 256,000; ~11 GB), the hd 256 ones."""
+    attn_local layer at hd 256, vocab 256,000; ~11 GB), the hd 256 ones.
+    With ``prefix`` (paligemma-3b at 2 layers, one pair: 8 query heads
+    over 1 kv head at hd 256, vocab 257,216; ~3 GB) the prompts follow
+    ``cfg.prefix_len`` patch embeddings (0.02 N(0, 1) from the seed): the
+    prefix-LM flash and the pair decode at hd 256 on a model path in fp32;
+    the paged pool refuses a prefix-LM, so no engine runs."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1101,26 +1221,36 @@ def full_width_cut(name, n_layers, prompt_len):
         raise AssertionError(f"{name} at {n_layers} layers: pairs {ms.plan.pairs}")
     what = f"{name} {n_layers} layers"
     p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
-                                      torch.float32, device="cpu"), SEED + 6)
+                                      torch.float32, device="cpu"), SEED + 6,
+                        plus_one=prefix)
     p_gpu = ModelParams(tree_map(lambda x: x.to("cuda"), p_cpu.tree()))
     n_params = sum(v.numel() for v in p_cpu.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                             generator=torch.Generator().manual_seed(SEED + 1))
-    sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
-    lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts)
-    lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda())
+    extra, P = {}, 0
+    if prefix:
+        P = cfg.prefix_len
+        extra["prefix"] = 0.02 * torch.randn(
+            (2, P, cfg.d_model), generator=torch.Generator().manual_seed(SEED + 7))
+    extra_gpu = {k: x.cuda() for k, x in extra.items()}
+    sv = ServeConfig(max_len=max(48, P + prompt_len + 8), cache_dtype=torch.float32)
+    lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts, **extra)
+    lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda(), **extra_gpu)
     err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
     scale = lg_cpu.abs().max().item()
-    tok_cpu = generate(p_cpu, prompts, 8, ms=ms, pc=pc, sv=sv)
-    tok_gpu = generate(p_gpu, prompts.cuda(), 8, ms=ms, pc=pc, sv=sv).cpu()
+    tok_cpu = generate(p_cpu, prompts, 8, ms=ms, pc=pc, sv=sv, **extra)
+    tok_gpu = generate(p_gpu, prompts.cuda(), 8, ms=ms, pc=pc, sv=sv, **extra_gpu).cpu()
     same = bool((tok_cpu == tok_gpu).all())
     log(f"[{what}] {n_params / 1e9:.3f} B parameters (fp32), pairs "
-        f"{ms.plan.pairs}: prefill logits max_abs_err={err:.3e} (logit scale "
-        f"{scale:.3f}, tol {LOGIT_TOL:g}); greedy tokens equal card == CPU: {same}")
+        f"{ms.plan.pairs}{f', prefix {P}' if P else ''}: prefill logits "
+        f"max_abs_err={err:.3e} (logit scale {scale:.3f}, tol {LOGIT_TOL:g}); "
+        f"greedy tokens equal card == CPU: {same}")
     if err > LOGIT_TOL or not same:
         raise AssertionError(f"{what} parity failed: logits err {err:.3e}, "
                              f"tokens\n{tok_cpu}\n{tok_gpu}")
     del p_cpu
+    if prefix:
+        return
     eng = PagedEngine(p_gpu, ms, PagedServeConfig(
         n_slots=2, page_size=PS, n_pages=7, max_len=48, cache_dtype=torch.float32,
         prefix_cache=True))
@@ -1129,6 +1259,133 @@ def full_width_cut(name, n_layers, prompt_len):
         raise AssertionError(f"{what} engine differs from generate on the "
                              f"card:\n{got}\n{tok_gpu}")
     log(f"[{what}] engine on the card == generate on the card (2 streams)")
+
+
+def reduced_prefix_encdec_parity():
+    """Reduced paligemma (a prefix of 8 patch embeddings) and whisper (2
+    encoder layers over 24 frames), 4 layers under plan_for_depth(3) (a
+    pair and two single layers; biases and norms filled), fp32: the
+    prefill logits on the card within LOGIT_TOL of the CPU's and greedy
+    tokens equal, through ``generate`` (the paged pool refuses both
+    models, as the JAX package's does)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import PagedEngine, PagedServeConfig, ServeConfig, generate, make_prefill
+
+    pc = ParallelContext()
+    for name in (PALI, WHISPER):
+        cfg = reduced_config(get_config(name), n_layers=4)
+        ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+        p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
+                                          torch.float32, device="cpu"), SEED + 6,
+                            plus_one=cfg.norm_plus_one)
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        gen = torch.Generator().manual_seed(SEED + 1)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        key, n = ("prefix", cfg.prefix_len) if cfg.prefix_len else ("frames", cfg.enc_seq)
+        extra = {key: 0.5 * torch.randn((2, n, cfg.d_model), generator=gen)}
+        extra_gpu = {key: extra[key].cuda()}
+        sv = ServeConfig(max_len=48, cache_dtype=torch.float32)
+        lg_cpu, _ = make_prefill(ms, pc, sv)(p_cpu, prompts, **extra)
+        lg_gpu, _ = make_prefill(ms, pc, sv)(p_gpu, prompts.cuda(), **extra_gpu)
+        err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+        tok_cpu = generate(p_cpu, prompts, 16, ms=ms, pc=pc, sv=sv, **extra)
+        tok_gpu = generate(p_gpu, prompts.cuda(), 16, ms=ms, pc=pc, sv=sv,
+                           **extra_gpu).cpu()
+        same = bool((tok_cpu == tok_gpu).all())
+        log(f"[reduced] {cfg.name} pairs={ms.plan.pairs} {key} {n}: prefill logits "
+            f"max_abs_err={err:.3e} (tol {LOGIT_TOL:g}); greedy tokens equal: {same}")
+        if err > LOGIT_TOL or not same:
+            raise AssertionError(f"reduced {cfg.name} parity failed: logits err "
+                                 f"{err:.3e}, tokens\n{tok_cpu}\n{tok_gpu}")
+        try:
+            PagedEngine(p_gpu, ms, PagedServeConfig(n_slots=2, page_size=8, n_pages=9,
+                                                    max_len=48))
+        except ValueError as e:
+            log(f"[reduced] {cfg.name}: PagedEngine refuses it: {e}")
+        else:
+            raise AssertionError(f"PagedEngine accepted {cfg.name}")
+
+
+def interventions_parity():
+    """``core.interventions.apply_intervened`` on the card against the CPU
+    (reduced paligemma, 6 layers, fp32, a prefix of 8, norms filled): every
+    plan kind (sequential, shuffle, prune, merge, a 3-way parallel group
+    and parallel2, each parallel one in both forms) within LOGIT_TOL, and
+    the run launched flash. On the card the sequential plan equals the
+    model's own stack bit for bit, and the generic "tp" loop over groups of
+    two is held to the LP pair path (stacked weights, one dual RMSNorm
+    launch per norm) within LOGIT_TOL; whether it is bit for bit there is
+    printed."""
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import interventions as IV
+    from repro_torch.core.lp import LPPlan, extract_layers, lp_convert
+    from repro_torch.kernels import ops
+    from repro_torch.model import attention as A
+    from repro_torch.model import stack as ST
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import tree_map
+    from repro_torch.parallel.context import ParallelContext
+
+    n, Sx = 6, 16
+    cfg = reduced_config(get_config(PALI), n_layers=n)
+    ms = T.build_structure(cfg)
+    params = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
+                                       torch.float32, device="cpu"), SEED + 6,
+                         plus_one=True)
+    layers = {"cpu": extract_layers(params.tree()["segments"], ms.segments)}
+    layers["cuda"] = [tree_map(lambda t: t.cuda(), p) for p in layers["cpu"]]
+    x = {"cpu": torch.randn((2, Sx, cfg.d_model),
+                            generator=torch.Generator().manual_seed(SEED + 2))}
+    x["cuda"] = x["cpu"].cuda()
+    plans = {"sequential": IV.sequential_plan(n),
+             "shuffle": IV.shuffle_plan(n, 1, 4, torch.Generator().manual_seed(SEED)),
+             "prune": IV.prune_plan(n, 2, 3)}
+    for form in ("par", "tp"):
+        plans[f"parallel {form}"] = IV.parallel_plan(n, 1, 3, form=form)
+        plans[f"parallel2 {form}"] = IV.parallel2_plan(n, 1, 4, form=form)
+
+    def run(dev, plan, lp=None):
+        return IV.apply_intervened(lp or layers[dev], plan, x[dev], cfg=cfg,
+                                   positions=torch.arange(Sx, device=dev)[None],
+                                   prefix_len=cfg.prefix_len)
+
+    ops.reset_launches()
+    errs = {}
+    for name, plan in plans.items():
+        errs[name] = (run("cuda", plan).cpu() - run("cpu", plan)).abs().max().item()
+    merged = {dev: IV.merge_avg(layers[dev], 2, 4) for dev in ("cpu", "cuda")}
+    errs["merge"] = (run("cuda", merged["cuda"][1], merged["cuda"][0]).cpu()
+                     - run("cpu", merged["cpu"][1], merged["cpu"][0])).abs().max().item()
+    launches = dict(ops.LAUNCHES)
+    log(f"[interventions] {cfg.name} {n} layers, prefix {cfg.prefix_len}: card vs "
+        f"CPU max_abs_err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {LOGIT_TOL:g}); launches {launches}")
+    if max(errs.values()) > LOGIT_TOL:
+        raise AssertionError(f"interventions card != CPU: {errs}")
+    if not launches["flash_attention"]:
+        raise AssertionError(f"interventions launched {launches}")
+
+    def stack(pairs):
+        segs, sp = lp_convert(cfg, layers["cuda"], LPPlan(pairs))
+        return ST.apply_stack_full(sp, x["cuda"], segs, cfg=cfg, dims=A.attn_dims(cfg, 1),
+                                   pc=ParallelContext(),
+                                   positions=torch.arange(Sx, device="cuda")[None],
+                                   prefix_len=cfg.prefix_len)[0]
+    tp, pairs = run("cuda", plans["parallel2 tp"]), stack(((1, 2), (3, 4)))
+    tp_err = (tp - pairs).abs().max().item()
+    same_seq = torch.equal(run("cuda", plans["sequential"]), stack(()))
+    log(f"[interventions] on the card: parallel2 tp vs LP pairs (1, 2), (3, 4) "
+        f"max_abs_err {tp_err:.2e} (tol {LOGIT_TOL:g}; bit for bit: "
+        f"{torch.equal(tp, pairs)}); sequential == the stack bit for bit: {same_seq}")
+    if not (tp_err <= LOGIT_TOL and same_seq):
+        raise AssertionError("interventions differ from the port's own stack")
+    return max(errs.values())
 
 
 def reduced_mamba_parity():
@@ -1368,14 +1625,17 @@ class DecodeProbe:
         return max(errs)
 
 
-def generate_path(what, cfg, ms, params, *, check_ms=None):
-    """A model through ``generate``: B = 4 prompts of 128 random tokens, 64
-    new, bf16 ring cache of 256, with the exact launch count of every
-    kernel, and prefill ms and decode ms per step taken inside that one
-    ``generate`` call. One decode step after the prefill is held against a
-    prefill of the longer prompt under ``check_ms`` (default ``ms``; for a
-    mixture of experts the structure at a capacity that drops nothing,
-    since a prefill drops slots that a decode step keeps). Returns
+def generate_path(what, cfg, ms, params, *, check_ms=None, inputs=None,
+                  prompt_len=S, max_len=MAX_LEN):
+    """A model through ``generate``: B = 4 prompts of ``prompt_len`` (128)
+    random tokens, 64 new, bf16 ring cache of ``max_len`` (256), with the
+    exact launch count of every kernel, and prefill ms and decode ms per
+    step taken inside that one ``generate`` call. ``inputs``: generate's
+    extra inputs (``prefix`` patch embeddings, whose positions come first,
+    or encoder ``frames``). One decode step after the prefill is held
+    against a prefill of the longer prompt under ``check_ms`` (default
+    ``ms``; for a mixture of experts the structure at a capacity that drops
+    nothing, since a prefill drops slots that a decode step keeps). Returns
     (launches, metrics)."""
     import torch
     from repro_torch.kernels import ops
@@ -1384,27 +1644,37 @@ def generate_path(what, cfg, ms, params, *, check_ms=None):
     from repro_torch.serve import ServeConfig, generate, make_prefill
 
     pc = ParallelContext()
+    inputs = inputs or {}
     n_groups, n_pairs = model_counts(ms)
     n_single, n_attn_pairs, n_rec = mixer_counts(ms)
+    n_enc = sum(seg.count for seg in ms.enc_segments)
+    n_cross = sum(seg.count for seg in ms.segments if seg.group.specs[0].cross_attn)
+    P = cfg.prefix_len if "prefix" in inputs else 0
     log(f"[{what}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, pairs "
-        f"{ms.plan.pairs[0]}..{ms.plan.pairs[-1]} ({n_pairs}), {n_groups} groups")
-    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+        f"{ms.plan.pairs[0]}..{ms.plan.pairs[-1]} ({n_pairs}), {n_groups} groups"
+        + (f", {n_enc} encoder layers over {inputs['frames'].shape[1]} frames"
+           if n_enc else "") + (f", a prefix of {P}" if P else ""))
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt_len),
                             generator=torch.Generator(device="cuda").manual_seed(SEED + 5),
                             device="cuda")
-    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+    sv = ServeConfig(max_len=max_len, cache_dtype=torch.bfloat16)
 
-    generate(params, prompts, 2, ms=ms, pc=pc, sv=sv)   # warm-up
+    generate(params, prompts, 2, ms=ms, pc=pc, sv=sv, **inputs)   # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
     timings = {}
     with DecodeProbe(ms, paged=False) as probe:
-        out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings)
+        out = generate(params, prompts, N_NEW, ms=ms, pc=pc, sv=sv, timings=timings,
+                       **inputs)
     launches = dict(ops.LAUNCHES)
     path_err = probe.check(f"{what} generate")
 
+    # Per prefill one flash launch per encoder layer and per attention group,
+    # and one per cross-attention group; per decode step one per
+    # cross-attention group (its query row against the encoder's keys).
     steps = N_NEW - 1
-    want = {"flash_attention": n_single + n_attn_pairs,
+    want = {"flash_attention": n_enc + n_single + n_attn_pairs + n_cross * (1 + steps),
             "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
             "decode_attention": steps * n_single,
             "decode_attention_pair": steps * n_attn_pairs,
@@ -1414,7 +1684,7 @@ def generate_path(what, cfg, ms, params, *, check_ms=None):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
-    logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+    logits, caches = make_prefill(ms, pc, sv)(params, prompts, **inputs)
     if tuple(out.shape) != (B, N_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
     if not torch.isfinite(logits).all():
@@ -1427,11 +1697,13 @@ def generate_path(what, cfg, ms, params, *, check_ms=None):
     cms = check_ms or ms
     if cms is not ms:
         del logits, caches
-        logits, caches = make_prefill(cms, pc, sv)(params, prompts)
+        logits, caches = make_prefill(cms, pc, sv)(params, prompts, **inputs)
         tok0 = logits.argmax(-1)
-    step_logits, _ = T.decode_step(params, tok0, caches, S, ms=cms, pc=pc)
+    step_logits, _ = T.decode_step(params, tok0, caches, P + prompt_len, ms=cms, pc=pc)
     longer = torch.cat([prompts, tok0[:, None]], dim=1)
     full_logits, _, _ = T.forward_full(params, longer, ms=cms, pc=pc,
+                                       prefix_embed=inputs.get("prefix"),
+                                       enc_frames=inputs.get("frames"),
                                        attn_impl=sv.attn_impl)
     scale = full_logits[:, -1].abs().max().item()
     diff = (step_logits - full_logits[:, -1]).abs().max().item()
@@ -1447,16 +1719,16 @@ def generate_path(what, cfg, ms, params, *, check_ms=None):
     log(f"[{what}] " + " ".join(f"{k}={v:.3f}" for k, v in e2e.items()))
     e2e["decode_path_max_abs_err"] = path_err
     e2e["busy_share"] = profile_decode(
-        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv),
+        lambda: generate(params, prompts, 9, ms=ms, pc=pc, sv=sv, **inputs),
         f"{cfg.name} generate(9 new)")
     return launches, e2e
 
 
 def norm_launches(cfg, n_pairs):
     """Dual RMSNorm launches per forward: 2 per LP pair (one per phase) for
-    RMSNorm models. A LayerNorm model (granite-34b) launches none: its
-    ``dual_norm`` is plain PyTorch, as in the JAX package, which has no
-    kernel for it."""
+    RMSNorm models. A LayerNorm model (granite-34b, dbrx, whisper) launches
+    none: its ``dual_norm`` is plain PyTorch, as in the JAX package, which
+    has no kernel for it."""
     if cfg.norm_kind == "rmsnorm":
         return 2 * n_pairs
     log(f"  {cfg.name}: norm_kind={cfg.norm_kind}: no dual_rmsnorm launch expected")
@@ -2004,19 +2276,21 @@ def degraded_path(cfg, ms, params):
 # ---------------------------------------------------------------------------
 
 def mamba_model():
-    """falcon-mamba-7b under plan_for_depth(48), fp32 random weights from
-    the seed,
+    """falcon-mamba-7b cut to MAMBA_LAYERS layers under
+    plan_for_depth(MAMBA_EFF_DEPTH), fp32 random weights from the seed,
     made on the card (``init_params`` draws in fp32 and casts, so
     a later cast to bf16 gives the weights a bf16 init would)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.lp import plan_for_depth
     from repro_torch.model import transformer as T
 
-    cfg = get_config(MAMBA)
+    cfg = dataclasses.replace(get_config(MAMBA), n_layers=MAMBA_LAYERS)
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, MAMBA_EFF_DEPTH))
     n_groups = sum(s.count for s in ms.segments)
-    if (n_groups, len(ms.plan.pairs)) != (48, 16) or cfg.d_inner != DI:
+    if ((n_groups, len(ms.plan.pairs)) != (MAMBA_EFF_DEPTH, MAMBA_LAYERS - MAMBA_EFF_DEPTH)
+            or cfg.d_inner != DI):
         raise AssertionError(f"{cfg.name}: {n_groups} groups, pairs {ms.plan.pairs}")
     params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
                            torch.float32, device="cuda")
@@ -2251,8 +2525,9 @@ def dense_path(name):
 # ---------------------------------------------------------------------------
 
 def hybrid_path():
-    """Phase 10: LP recurrentgemma-9b at full width under
-    plan_for_depth(29), bf16 random weights made on the card from the seed:
+    """Phase 10: LP recurrentgemma-9b at full width cut to HYBRID_LAYERS
+    layers under plan_for_depth(HYBRID_EFF_DEPTH), bf16 random weights made
+    on the card from the seed:
     phase 5's ``generate`` traffic, phase 6's engine (the prefix cache
     requested and off: exact prefills; streams held to ``generate`` in fp32
     compute on the bf16 weights), and the window run. Returns (launches of
@@ -2262,10 +2537,14 @@ def hybrid_path():
     from repro_torch.core.lp import plan_for_depth
     from repro_torch.model import transformer as T
 
-    cfg = get_config(HYBRID)
+    import dataclasses
+    cfg = dataclasses.replace(get_config(HYBRID), n_layers=HYBRID_LAYERS)
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, HYBRID_EFF_DEPTH))
     counts = (model_counts(ms), mixer_counts(ms))
-    if counts != ((29, 9), (12, 0, 17)) or cfg.window != WINDOW:
+    n_pairs, n_attn = HYBRID_LAYERS - HYBRID_EFF_DEPTH, HYBRID_LAYERS // 3
+    want = ((HYBRID_EFF_DEPTH, n_pairs),
+            (n_attn, 0, HYBRID_LAYERS - n_attn - n_pairs))
+    if counts != want or cfg.window != WINDOW:
         raise AssertionError(f"{cfg.name}: (groups, pairs), (attention singles, "
                              f"attention pairs, recurrent groups) = {counts}")
     torch.cuda.reset_peak_memory_stats()
@@ -2274,7 +2553,8 @@ def hybrid_path():
     n_params = sum(v.numel() for v in params.parameters())
     weights_gib = torch.cuda.memory_allocated() / 2**30
     log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers at depth {HYBRID_EFF_DEPTH} "
-        f"({len(ms.plan.pairs)} rec pairs, 8 single rec, 12 single attn_local); "
+        f"({n_pairs} rec pairs, {want[1][2] - n_pairs} single rec, {n_attn} single "
+        f"attn_local); "
         f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card")
     gen_launches, gen = generate_path(cfg.name, cfg, ms, params)
     eng_launches, eng, _ = engine_path(cfg, ms, params, fp32_compute=True)
@@ -2535,6 +2815,116 @@ def moe_path(name):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the prefix-LM (paligemma-3b) and encoder-decoder (whisper-medium)
+# ---------------------------------------------------------------------------
+
+def prefix_lm_path():
+    """Phase 12a: LP paligemma-3b at full width (18 layers under
+    plan_for_depth(14): 4 pairs, 10 single layers), bf16 random weights
+    made on the card from the seed, through ``generate``: 4 prompts of 128
+    behind 256 patch embeddings (0.02 N(0, 1) from the seed), 64 new, a
+    ring cache of 512; the launches reconcile with the plan, the decode
+    launches at steps 0 and 40 are held against their plain versions, and
+    flash runs the causal mask with the prefix. Returns (launches,
+    metrics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+
+    cfg = get_config(PALI)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, PALI_EFF_DEPTH))
+    counts = (model_counts(ms), mixer_counts(ms))
+    if counts != ((14, 4), (10, 4, 0)) or cfg.prefix_len != PALI_PREFIX:
+        raise AssertionError(f"{cfg.name}: (groups, pairs), (attention singles, "
+                             f"attention pairs, recurrent groups) = {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in params.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[prefix-lm] {cfg.name}: {cfg.n_layers} layers at depth {PALI_EFF_DEPTH} "
+        f"(pairs {ms.plan.pairs}); {n_params / 1e9:.3f} B parameters, "
+        f"{weights_gib:.2f} GiB on the card")
+    prefix = (0.02 * torch.randn((B, PALI_PREFIX, cfg.d_model), device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
+              ).to(torch.bfloat16)
+    with FlashKinds() as kinds:
+        launches, gen = generate_path(cfg.name, cfg, ms, params, inputs={"prefix": prefix},
+                                      max_len=PALI_MAX_LEN)
+    log(f"[prefix-lm] {cfg.name} generate: flash launches by mask kind {kinds.kinds}")
+    if set(kinds.kinds) != {"causal"}:
+        raise AssertionError(f"{cfg.name} flash kinds {kinds.kinds}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[prefix-lm] {cfg.name}: max_memory_allocated {peak:.2f} GiB")
+    return launches, {"layers": cfg.n_layers, "depth": PALI_EFF_DEPTH,
+                      "pairs": list(ms.plan.pairs), "prefix": PALI_PREFIX,
+                      "params_b": n_params / 1e9, "weights_gib": weights_gib,
+                      "max_memory_allocated_gib": peak, "generate": gen}
+
+
+def encdec_path():
+    """Phase 12b: LP whisper-medium at full width (24 encoder layers; 24
+    decoder layers under plan_for_depth(18): 6 pairs, 12 single layers),
+    bf16 random weights made on the card from the seed, through
+    ``generate``: frames [4, 1500, 1024] (N(0, 1) from the seed), 4 prompts
+    of 32, 64 new, a ring cache of 128; the encoder timed on its own; the
+    launches reconcile (flash: 24 encoder layers, 18 self- and 18
+    cross-attention launches per prefill, and 18 cross-attention launches
+    of one query row per decode step), the decode launches at steps 0 and
+    40 are held against their plain versions. Returns (launches,
+    metrics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+
+    cfg = get_config(WHISPER)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, WHISPER_EFF_DEPTH))
+    counts = (model_counts(ms), mixer_counts(ms), sum(s.count for s in ms.enc_segments))
+    if counts != ((18, 6), (12, 6, 0), 24) or cfg.enc_seq != ENC_SEQ:
+        raise AssertionError(f"{cfg.name}: (groups, pairs), (attention singles, "
+                             f"attention pairs, recurrent groups), encoder layers "
+                             f"= {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in params.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[encdec] {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, decoder depth {WHISPER_EFF_DEPTH} (pairs {ms.plan.pairs}); "
+        f"{n_params / 1e9:.3f} B parameters, {weights_gib:.2f} GiB on the card")
+    frames = torch.randn((B, ENC_SEQ, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 8)
+                         ).to(torch.bfloat16)
+    pc = ParallelContext()
+    T._encoder(params, frames, ms, pc, attn_impl="chunked:16")   # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        T._encoder(params, frames, ms, pc, attn_impl="chunked:16")
+    end.record()
+    torch.cuda.synchronize()
+    encoder_ms = start.elapsed_time(end) / 3
+    log(f"[encdec] {cfg.name} encoder alone ({cfg.enc_layers} layers, {B} x {ENC_SEQ} "
+        f"frames): {encoder_ms:.3f} ms")
+    with FlashKinds() as kinds:
+        launches, gen = generate_path(cfg.name, cfg, ms, params, inputs={"frames": frames},
+                                      prompt_len=WHISPER_PROMPT, max_len=WHISPER_MAX_LEN)
+    log(f"[encdec] {cfg.name} generate: flash launches by mask kind {kinds.kinds}")
+    if set(kinds.kinds) != {"causal", "bidir"}:
+        raise AssertionError(f"{cfg.name} flash kinds {kinds.kinds}")
+    gen["encoder_ms"] = encoder_ms
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[encdec] {cfg.name}: max_memory_allocated {peak:.2f} GiB")
+    return launches, {"enc_layers": cfg.enc_layers, "layers": cfg.n_layers,
+                      "depth": WHISPER_EFF_DEPTH, "pairs": list(ms.plan.pairs),
+                      "params_b": n_params / 1e9, "weights_gib": weights_gib,
+                      "max_memory_allocated_gib": peak, "generate": gen}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
@@ -2625,7 +3015,10 @@ def main() -> int:
     phase("4 reduced parity", lambda: (reduced_parity(), reduced_mamba_parity(),
                                         full_width_cut("granite-34b", 2, 32),
                                         reduced_hybrid_parity(),
-                                        full_width_cut(HYBRID, 3, 16)))
+                                        full_width_cut(HYBRID, 3, 16),
+                                        reduced_prefix_encdec_parity(),
+                                        full_width_cut(PALI, 2, 16, prefix=True),
+                                        interventions_parity()))
     by_path = {}                              # each path reads its own counts
     by_path["generate"], e2e = phase("5 generate", main_path)
     cfg, ms, params = tinyllama_model()
@@ -2655,6 +3048,11 @@ def main() -> int:
         torch.cuda.empty_cache()              # the previous model's weights are gone
         paths, moe[name] = phase(f"11 {name}", moe_path, name)
         by_path.update({f"{name}_{path}": launches for path, launches in paths.items()})
+    prefix_encdec = {}
+    for name, fn in ((PALI, prefix_lm_path), (WHISPER, encdec_path)):
+        gc.collect()
+        torch.cuda.empty_cache()              # the previous model's weights are gone
+        by_path[f"{name}_generate"], prefix_encdec[name] = phase(f"12 {name}", fn)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -2671,6 +3069,10 @@ def main() -> int:
         for name in names + ("flash_attention", "ssm_scan", "dual_rmsnorm"):
             if not by_path[f"{HYBRID}_{path}"][name]:
                 raise AssertionError(f"{name} was not launched on {HYBRID} {path}")
+    for model, names in ((PALI, ("dual_rmsnorm",)), (WHISPER, ())):
+        for name in names + ("flash_attention", "decode_attention", "decode_attention_pair"):
+            if not by_path[f"{model}_generate"][name]:
+                raise AssertionError(f"{name} was not launched on {model} generate")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2707,7 +3109,7 @@ def main() -> int:
                       "engine_degraded": degraded,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
                       "dense": dense, "hybrid": hybrid, "moe": moe,
-                      "phase_s": phase_s}))
+                      "prefix_encdec": prefix_encdec, "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

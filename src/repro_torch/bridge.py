@@ -2,10 +2,12 @@
 
 The caller converts on its side (``jax.tree.map(np.asarray, params)``); this
 module imports no JAX. The tree keeps the JAX package's structure —
-``embed`` / ``segments`` / ``final_norm``, with segment leaves stacked
-``[count, (2,) ...]`` as ``transformer.model_template`` builds them — which
-is the port's structure too, so both packages then compute the same
-function.
+``embed`` / ``segments`` / ``final_norm`` (and ``enc_segments`` /
+``enc_norm`` for an encoder-decoder; the ``lnx`` / ``xattn`` leaves of its
+cross-attention layers sit in the decoder's segments), with segment leaves
+stacked ``[count, (2,) ...]`` as ``transformer.model_template`` builds
+them — which is the port's structure too, so both packages then compute
+the same function.
 """
 from __future__ import annotations
 

@@ -6,8 +6,11 @@ attention-free) and recurrentgemma-9b (RG-LRU recurrent blocks and local
 attention at hd 256), and the mixture-of-experts pair dbrx-132b (16
 experts, top 4, LayerNorm) and llama4-scout (16 experts, top 1, a shared
 expert; three chunked-attention layers, then one global layer without
-positions). Each module is a copy of the JAX package's file of the same
-name."""
+positions), the prefix-LM paligemma-3b (a Gemma decoder behind 256 patch
+embeddings that attend bidirectionally) and the encoder-decoder
+whisper-medium (a bidirectional encoder over 1500 frame embeddings, a
+decoder with cross-attention). Each module is a copy of the JAX package's
+file of the same name."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
@@ -24,7 +27,9 @@ from repro_torch.configs import (  # noqa: F401
     granite_34b,
     llama4_scout,
     minicpm_2b,
+    paligemma_3b,
     recurrentgemma_9b,
     tinyllama_1b,
+    whisper_medium,
     yi_6b,
 )

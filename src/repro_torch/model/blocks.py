@@ -30,10 +30,20 @@ one after the other: per-half attention cores in prefill (one merged output
 projection, one phase_out) and one ring decode launch per half. The paged
 pool refuses such a pair, as the JAX package does.
 
-Ported so far: attention mixers (pairs of mixed attention kinds too),
-Mamba mixers and RG-LRU mixers, with an MLP, a mixture of experts
-(``moe.moe_forward``) or no FFN. Cross-attention and recurrent pairs of
-mixed kinds raise ``NotImplementedError``.
+A layer with cross-attention (whisper's decoder) runs a third phase
+between the mixer and the FFN: q from the normed stream (``lnx``), keys
+and values projected from the encoder output once at prefill, never
+roped, the mask bidirectional. Prefill writes them to the cache entries
+``xk``/``xv`` ([2, B, T_enc, Hkv, hd] for a pair, ``xk0``/``xv0`` for a
+single layer); decode only reads them. A pair's cross phase is one q
+projection, one attention core with the pair folded into the batch axis
+(the stacked cache is then a view, no copy) and one merged output
+projection.
+
+Ported: attention mixers (pairs of mixed attention kinds too, a
+prefix-LM mask, cross-attention), Mamba mixers and RG-LRU mixers, with an
+MLP, a mixture of experts (``moe.moe_forward``) or no FFN. Recurrent pairs
+of mixed kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,8 +76,9 @@ class Group:
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port runs "
-                               "attention, Mamba and RG-LRU mixers, with an "
-                               "MLP, a mixture of experts or no FFN)")
+                               "attention, Mamba and RG-LRU mixers, with "
+                               "cross-attention, an MLP, a mixture of "
+                               "experts or no FFN)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,8 +94,6 @@ def _norm_tmpl(cfg):
 
 
 def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
-    if spec.cross_attn:
-        raise _not_ported("cross-attention")
     t: Dict[str, Any] = {"ln1": _norm_tmpl(cfg)}
     if spec.mixer.startswith("attn"):
         t["attn"] = A.attn_template(cfg, tp)
@@ -94,6 +103,11 @@ def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
         t["rec"] = RG.rglru_template(cfg, tp)
     else:
         raise _not_ported(f"mixer {spec.mixer!r}")
+    if spec.cross_attn:
+        t["lnx"] = _norm_tmpl(cfg)
+        # Cross-attention (q from the decoder stream, k and v from the
+        # encoder output) has the self-attention layout.
+        t["xattn"] = A.attn_template(cfg, tp)
     if spec.ffn == "mlp":
         t["ln2"] = _norm_tmpl(cfg)
         t["mlp"] = M.mlp_template(cfg, tp)
@@ -142,9 +156,18 @@ def _mixer(group: Group) -> str:
 
 
 def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
-                         attn_impl="auto", ctx_kv=None, q0=0):
+                         prefix_len=0, cross_kv=None, attn_impl="auto",
+                         ctx_kv=None, q0=0):
     """Full-sequence attention (prefill). Returns (partial_out, kv_list)
     with one (k, v) in stored layout per layer in the group.
+
+    ``prefix_len`` (paligemma's prefix-LM): keys below it are visible to
+    every query of a causal kind.
+
+    ``cross_kv`` (whisper's decoder): the encoder output's k/v, projected
+    by the caller in the folded layout [B,T,P*hkv,hd]; q comes from
+    ``xn`` through the layer's ``xattn`` weights, and the mask is
+    bidirectional (kind ``attn_bidir``, keys never roped).
 
     ``ctx_kv`` (suffix prefill, prefix sharing): this group's cached
     CONTEXT keys/values for absolute positions [0, q0), in stored layout
@@ -155,19 +178,23 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     absolute position of the first query row: an int, or a [B] tensor of
     per-row context lengths (bucketed radix-hit rows)."""
     kinds = _mixer_kinds(group)
-    p = gp["attn"]
+    cross = cross_kv is not None
+    p = gp["xattn"] if cross else gp["attn"]
     B = xn.shape[1] if group.pair else xn.shape[0]
     S = xn.shape[2] if group.pair else xn.shape[1]
     nP = 2 if group.pair else 1
-    if len(set(kinds)) > 1:
+    if len(set(kinds)) > 1 and not cross:
         return _mixed_attention_full(p, xn, cfg, dims, kinds=kinds,
-                                     positions=positions, attn_impl=attn_impl,
-                                     ctx_kv=ctx_kv)
-    kind = kinds[0]
+                                     positions=positions, prefix_len=prefix_len,
+                                     attn_impl=attn_impl, ctx_kv=ctx_kv)
+    kind = "attn_bidir" if cross else kinds[0]
     q = A.project_q(p, xn, cfg, dims, positions=positions, kind=kind,
                     pair=group.pair)
-    k, v = A.project_kv(p, xn, cfg, dims, positions=positions, kind=kind,
-                        pair=group.pair)
+    if cross:
+        k, v = cross_kv
+    else:
+        k, v = A.project_kv(p, xn, cfg, dims, positions=positions, kind=kind,
+                            pair=group.pair)
     ks, vs = k, v
     if ctx_kv is not None:
         cks, cvs = _fold_ctx_kv(ctx_kv, dims, group=group)
@@ -197,14 +224,15 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     # Pair-major folds: q heads [2*hq] group onto kv heads [2*hkv].
     qh = q.reshape(B, S, nP * dims.hkv, dims.group, dims.hd)
     o = A.attention_core(qh, ks, vs, kind=kind, window=cfg.window,
-                         chunk=cfg.chunk, q0=q0, impl=attn_impl)
+                         chunk=cfg.chunk, prefix_len=prefix_len, q0=q0,
+                         impl=attn_impl)
     o = o.reshape(B, S, nP * dims.hq, dims.hd)
     out = A.output_proj(p, o, dims, pair=group.pair)
     return out, _split_kv(k, v, dims, pair=group.pair)
 
 
-def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, attn_impl,
-                          ctx_kv):
+def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
+                          attn_impl, ctx_kv):
     """A pair of mixed attention kinds (llama4 chunked + global): per-half
     projections and cores, still one merged output projection and one
     phase_out. Returns (partial_out, [(k, v)] per half)."""
@@ -221,7 +249,8 @@ def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, attn_impl,
                               kind=kind, pair=False)
         oi = A.attention_core(qi.reshape(B, S, dims.hkv, dims.group, dims.hd),
                               ki, vi, kind=kind, window=cfg.window,
-                              chunk=cfg.chunk, impl=attn_impl)
+                              chunk=cfg.chunk, prefix_len=prefix_len,
+                              impl=attn_impl)
         os.append(oi.reshape(B, S, dims.hq, dims.hd))
         kvs.append((ki, vi))
     o = torch.cat(os, dim=2)
@@ -296,24 +325,31 @@ def fill_cache(k, L: int, *, mixer, cfg):
 
 
 def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
-                     dtype=torch.bfloat16):
+                     enc_len: int = 0, dtype=torch.bfloat16):
     """{entry name: (shape, dtype)} for one group's decode cache. A pair
     of one mixer kind stores one stacked entry per tensor under a bare name
-    ("k", "v"; "conv", "h") with a leading pair axis of 2; a single layer
-    keeps indexed names ("k0", "v0"; "conv0", "h0"), and a pair of mixed
-    attention kinds one indexed entry per layer ("k0", "v0", "k1", "v1"),
-    each with its own ring length. The recurrent state ``h`` (Mamba,
-    RG-LRU) is fp32 whatever the cache type."""
+    ("k", "v"; "xk", "xv"; "conv", "h") with a leading pair axis of 2; a
+    single layer keeps indexed names ("k0", "v0"; "conv0", "h0"), and a
+    pair of mixed attention kinds one indexed entry per layer ("k0", "v0",
+    "k1", "v1"), each with its own ring length. Cross-attention layers add
+    the encoder's keys and values ``xk``/``xv`` of length ``enc_len``. The
+    recurrent state ``h`` (Mamba, RG-LRU) is fp32 whatever the cache
+    type."""
+    cross = (batch, enc_len, dims.hkv, dims.hd)
     if _mixer(group) == "attn" and group.pair and not pair_cache_stacked(group):
         out = {}
-        for i, m in enumerate(_mixer_kinds(group)):
-            shp = (batch, ring_len(cfg, m, max_len), dims.hkv, dims.hd)
+        for i, spec in enumerate(group.specs):
+            shp = (batch, ring_len(cfg, spec.mixer, max_len), dims.hkv, dims.hd)
             out[f"k{i}"], out[f"v{i}"] = (shp, dtype), (shp, dtype)
+            if spec.cross_attn:
+                out[f"xk{i}"], out[f"xv{i}"] = (cross, dtype), (cross, dtype)
         return out
     mixer = group.specs[0].mixer
     if mixer.startswith("attn"):
         shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
         entries = {"k": (shp, dtype), "v": (shp, dtype)}
+        if group.specs[0].cross_attn:
+            entries.update(xk=(cross, dtype), xv=(cross, dtype))
     elif mixer == "mamba":
         di = cfg.d_inner
         entries = {"conv": ((batch, cfg.ssm_conv - 1, di), dtype),
@@ -344,10 +380,14 @@ def _recurrent_params(gp, group: Group, mixer: str):
 # ---------------------------------------------------------------------------
 
 def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
-                     positions, attn_impl="auto", emit_cache=False, max_len=0,
-                     ctx_kv=None, q0=0):
+                     positions, prefix_len=0, enc_out=None, attn_impl="auto",
+                     emit_cache=False, max_len=0, ctx_kv=None, q0=0):
     """One group over the full sequence. x: [B,S,D]. Returns (x, aux,
     cache_dict).
+
+    ``prefix_len``: the prefix-LM's bidirectional prefix (causal kinds).
+    ``enc_out`` [B,T,D]: the encoder output, which layers with
+    cross-attention attend to in a phase between the mixer and the FFN.
 
     ``ctx_kv``/``q0`` (suffix prefill): cached kv for positions [0, q0) in
     stored layout; the sequence starts at absolute position ``q0``. The
@@ -361,6 +401,7 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     if mixer == "attn":
         out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
                                         positions=positions,
+                                        prefix_len=prefix_len,
                                         attn_impl=attn_impl, ctx_kv=ctx_kv,
                                         q0=q0)
         if emit_cache:
@@ -390,6 +431,25 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     else:
         raise _not_ported(f"mixer {mixer!r}")
     x = x + pc.phase_out(out).to(x.dtype)
+
+    # ---- cross-attention phase (whisper's decoder) ----------------------
+    if group.specs[0].cross_attn and enc_out is not None:
+        xnx = _norm_inputs(gp, "lnx", pc.phase_in(x), cfg, group)
+        enc_in = torch.stack([enc_out] * 2) if group.pair else enc_out
+        xk, xv = A.project_kv(gp["xattn"], enc_in, cfg, dims, positions=None,
+                              kind="attn_bidir", pair=group.pair)
+        out, halves = attention_phase_full(gp, xnx, cfg, dims, group=group,
+                                           positions=positions,
+                                           cross_kv=(xk, xv),
+                                           attn_impl=attn_impl)
+        if emit_cache:
+            if pair_cache_stacked(group):
+                cache["xk"] = torch.stack([k for k, _ in halves])
+                cache["xv"] = torch.stack([v for _, v in halves])
+            else:
+                for i, (k, v) in enumerate(halves):
+                    cache[f"xk{i}"], cache[f"xv{i}"] = k, v
+        x = x + pc.phase_out(out).to(x.dtype)
 
     # ---- phase 2: FFN ---------------------------------------------------
     aux = 0.0
@@ -425,7 +485,10 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     A recurrent group (Mamba, RG-LRU) advances its state (``conv``/``h``,
     batch-indexed in both layouts: the pool keeps it per decode slot) by
     one token, for both halves of a pair in one mixer call, and writes it
-    back in place."""
+    back in place.
+
+    A layer with cross-attention then attends to the encoder's keys and
+    values that prefill left in ``xk``/``xv`` (read, never written)."""
     mixer = _mixer(group)
     paged = cache_layout == "paged"
     if paged and group.pair and not pair_cache_stacked(group):
@@ -467,8 +530,56 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
                 chunk=cfg.chunk)
     x = x + pc.psum_tp(out).to(x.dtype)
 
+    if group.specs[0].cross_attn:
+        xnx = _norm_inputs(gp, "lnx", x, cfg, group)
+        out = _cross_attention_decode(gp["xattn"], xnx, cache, cfg, dims,
+                                      group=group)
+        x = x + pc.psum_tp(out).to(x.dtype)
+
     if group.specs[0].ffn is not None:
         xn2 = _norm_inputs(gp, "ln2", x, cfg, group)
         out, _ = ffn_phase(gp, xn2, cfg, pc, group=group)
         x = x + pc.psum_tp(out).to(x.dtype)
     return x, cache
+
+
+def _cross_attention_decode(p, xnx, cache, cfg, dims, *, group: Group):
+    """One token's cross-attention over the encoder kv of the cache
+    (``xk``/``xv``, never written here). Returns the partial output
+    [B,1,D]. The core is the dense impl, as in the JAX package; on a CUDA
+    tensor it is the flash kernel with the bidirectional mask.
+
+    A stacked pair is one q projection, one core and one merged output
+    projection: the pair goes into the core's batch axis, where the
+    stacked cache [2, B, T, Hkv, hd] is a view as [2B, T, Hkv, hd] (folded
+    into the head axis it would need a copy of the whole cache every
+    step). A single layer, or each half of a pair of mixed kinds, runs one
+    projection, core and output projection of its own."""
+    hkv, g, hd = dims.hkv, dims.group, dims.hd
+    if pair_cache_stacked(group):
+        xk, xv = cache["xk"], cache["xv"]                  # [2,B,T,Hkv,hd]
+        B, T = xk.shape[1], xk.shape[2]
+        q = A.project_q(p, xnx, cfg, dims, positions=None, kind="attn_bidir",
+                        pair=True)                          # [B,1,2*hq,hd]
+        qb = q.reshape(B, 1, 2, hkv, g, hd).permute(2, 0, 1, 3, 4, 5)
+        o = A.attention_core(A._widen(qb.reshape(2 * B, 1, hkv, g, hd), xk),
+                             xk.reshape(2 * B, T, hkv, hd),
+                             xv.reshape(2 * B, T, hkv, hd),
+                             kind="attn_bidir", impl="dense").to(xnx.dtype)
+        o = o.reshape(2, B, 1, dims.hq, hd).permute(1, 2, 0, 3, 4)
+        return A.output_proj(p, o.reshape(B, 1, 2 * dims.hq, hd), dims,
+                             pair=True)
+    out = 0.0
+    for i in range(len(group.specs)):
+        ph = tree_map(lambda w: w[i], p) if group.pair else p
+        xi = xnx[i] if group.pair else xnx
+        q = A.project_q(ph, xi, cfg, dims, positions=None, kind="attn_bidir",
+                        pair=False)
+        B = q.shape[0]
+        xk = cache[f"xk{i}"]
+        o = A.attention_core(A._widen(q.reshape(B, 1, hkv, g, hd), xk), xk,
+                             cache[f"xv{i}"], kind="attn_bidir",
+                             impl="dense").to(xnx.dtype)
+        out = out + A.output_proj(ph, o.reshape(B, 1, dims.hq, hd), dims,
+                                  pair=False)
+    return out

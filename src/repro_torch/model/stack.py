@@ -99,11 +99,14 @@ def _group_params(sp, seg: Segment, c: int):
 # ---------------------------------------------------------------------------
 
 def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
-                     attn_impl="auto", emit_cache=False, max_len=0, ctx=None,
-                     q0=0):
+                     prefix_len=0, enc_out=None, attn_impl="auto",
+                     emit_cache=False, max_len=0, ctx=None, q0=0):
     """Run all segments over the full sequence. Returns (x, aux, caches):
     caches is a list (one tree per segment, entries stacked to
     [count, ...]) when emit_cache, else None.
+
+    ``prefix_len`` (prefix-LM) and ``enc_out`` (the encoder output the
+    cross-attention layers read) go to every group.
 
     ``ctx``/``q0`` (suffix prefill): cached context kv for absolute
     positions [0, q0), one count-stacked tree per segment in the layout of
@@ -119,8 +122,9 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
                      else {name: e[c] for name, e in ctx_seg.items()})
             x, a, cache = B.apply_group_full(
                 _group_params(sp, seg, c), x, cfg=cfg, group=seg.group,
-                dims=dims, pc=pc, positions=positions, attn_impl=attn_impl,
-                emit_cache=emit_cache, max_len=max_len, ctx_kv=ctx_g, q0=q0)
+                dims=dims, pc=pc, positions=positions, prefix_len=prefix_len,
+                enc_out=enc_out, attn_impl=attn_impl, emit_cache=emit_cache,
+                max_len=max_len, ctx_kv=ctx_g, q0=q0)
             aux = aux + a
             seg_caches.append(cache)
         if emit_cache:
@@ -146,12 +150,14 @@ def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,
     return x, caches
 
 
-def stack_cache_meta(cfg, segments, dims, *, batch, max_len,
+def stack_cache_meta(cfg, segments, dims, *, batch, max_len, enc_len=0,
                      dtype=torch.bfloat16):
-    """Per segment, {entry name: (shape, dtype)} stacked to [count, ...]."""
+    """Per segment, {entry name: (shape, dtype)} stacked to [count, ...];
+    ``enc_len`` is the length of the cross-attention entries."""
     out = []
     for seg in segments:
         meta = B.group_cache_meta(cfg, seg.group, dims, batch=batch,
-                                  max_len=max_len, dtype=dtype)
+                                  max_len=max_len, enc_len=enc_len,
+                                  dtype=dtype)
         out.append({k: ((seg.count, *shp), dt) for k, (shp, dt) in meta.items()})
     return out

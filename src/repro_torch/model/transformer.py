@@ -1,4 +1,4 @@
-"""Full model assembly: embedding -> LP-grouped stack -> head.
+"""Full model assembly: embedding -> (encoder) -> LP-grouped stack -> head.
 
 One ``ModelStructure`` describes everything static (config, LP plan, TP
 degree, segments); the functional entry points mirror the JAX package:
@@ -8,6 +8,17 @@ degree, segments); the functional entry points mirror the JAX package:
   prefill        — forward_full + KV cache emission
   decode_step    — one new token against the ring cache or the paged pool
                    (updated in place)
+
+Two families take more than tokens, as in the JAX package:
+  encdec (whisper)  — the encoder (``enc_segments``: bidirectional
+                      attention layers, then ``enc_norm``) runs on frame
+                      embeddings [B, T, D] (the audio frontend is a stub:
+                      the caller passes the embeddings); the decoder's
+                      layers cross-attend to its output.
+  vlm (paligemma)   — patch embeddings [B, P, D] (the vision tower is a
+                      stub) go in front of the token embeddings as a prefix
+                      that every position sees (the prefix-LM mask, P =
+                      ``cfg.prefix_len``); text positions start at P.
 
 Weights live in a ``ModelParams`` module (``init_params`` or
 ``repro_torch.bridge.params_from_numpy``); the functions take it or its
@@ -21,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.lp import EMPTY_PLAN, LPPlan
 from repro_torch.model import attention as A
 from repro_torch.model import blocks as B
@@ -42,6 +53,7 @@ class ModelStructure:
     plan: LPPlan
     tp: int
     segments: Tuple[ST.Segment, ...]
+    enc_segments: Tuple[ST.Segment, ...] = ()
 
     @property
     def dims(self) -> A.AttnDims:
@@ -56,21 +68,29 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
                     tp: int = 1) -> ModelStructure:
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported")
-    if cfg.enc_layers or cfg.prefix_len:
-        raise NotImplementedError(f"{cfg.name}: encoder / prefix-LM inputs "
-                                  "are not ported")
     plan = plan or EMPTY_PLAN
     groups = ST.make_groups(cfg, plan.pairs)
-    return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)))
+    enc_segments: Tuple[ST.Segment, ...] = ()
+    if cfg.enc_layers:
+        # The encoder: bidirectional attention + MLP layers, never paired.
+        enc_spec = LayerSpec(mixer="attn_bidir", ffn="mlp")
+        enc_groups = ST.make_groups(cfg, (), specs=[enc_spec] * cfg.enc_layers)
+        enc_segments = tuple(ST.make_segments(enc_groups))
+    return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)),
+                          enc_segments)
 
 
 def model_template(ms: ModelStructure) -> Dict[str, Any]:
     cfg, tp = ms.cfg, ms.tp
-    return {
+    t = {
         "embed": E.embed_template(cfg, tp),
         "segments": ST.stack_template(cfg, ms.segments, tp),
         "final_norm": B._norm_tmpl(cfg),
     }
+    if ms.enc_segments:
+        t["enc_segments"] = ST.stack_template(cfg, ms.enc_segments, tp)
+        t["enc_norm"] = B._norm_tmpl(cfg)
+    return t
 
 
 def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
@@ -103,14 +123,38 @@ def _head(params, x, cfg, pc: ParallelContext):
     return E.local_logits(params["embed"], x, cfg, pc)
 
 
+def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
+             *, attn_impl="auto"):
+    """The encoder on frame embeddings [B,T,D] (stub frontend): the
+    ``enc_segments`` stack (bidirectional attention), then ``enc_norm``.
+    Runs without sequence parallelism, so the output is full-length (the
+    decoder's cross-attention projects its k/v from it)."""
+    params = as_tree(params)
+    pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    h, _, _ = ST.apply_stack_full(params["enc_segments"], frames,
+                                  ms.enc_segments, cfg=ms.cfg, dims=ms.dims,
+                                  pc=pc.with_sp(False), positions=pos,
+                                  attn_impl=attn_impl)
+    return apply_norm(h, params["enc_norm"], ms.cfg)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
 def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
-                 emit_cache=False, max_len=0, attn_impl="auto", ctx_kv=None,
-                 start=0):
-    """tokens: [B, S] -> (local_logits [B, S, V/tp], aux, caches).
+                 prefix_embed=None, enc_frames=None, emit_cache=False,
+                 max_len=0, attn_impl="auto", ctx_kv=None, start=0):
+    """tokens: [B, S_text] -> (local_logits [B, S_total, V/tp], aux, caches).
+
+    prefix_embed (vlm): [B, P, D] patch embeddings, P = ``cfg.prefix_len``,
+    put in front of the token embeddings (cast to their type, after the
+    gemma sqrt(D) scale of the tokens, so the prefix is not scaled) and
+    seen by every position; S_total = P + S_text, and text positions
+    start at P.
+    enc_frames (encdec): [B, T, D] frame embeddings for the encoder, whose
+    output the decoder's cross-attention layers read; an encoder-decoder
+    refuses to run without them.
 
     ctx_kv/start (suffix prefill, prefix sharing): process ``tokens`` as
     the SUFFIX of a stream whose first ``start`` positions have cached kv
@@ -123,15 +167,35 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
     local 0 == absolute ``start``)."""
     params = as_tree(params)
     cfg = ms.cfg
-    S = tokens.shape[1]
+    prefix_len = cfg.prefix_len if prefix_embed is not None else 0
+    if ctx_kv is not None and (prefix_len or enc_frames is not None):
+        raise ValueError("suffix prefill does not compose with prefix-LM or "
+                         "encoder inputs")
+    if prefix_embed is not None and (
+            not prefix_len or prefix_embed.shape[:2] != (tokens.shape[0], prefix_len)):
+        raise ValueError(f"{cfg.name}: prefix embeddings "
+                         f"{tuple(prefix_embed.shape)} for a prefix of "
+                         f"{cfg.prefix_len} and {tokens.shape[0]} rows")
+    if enc_frames is not None and not ms.enc_segments:
+        raise ValueError(f"{cfg.name} has no encoder for the frames")
+    if ms.enc_segments and enc_frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs frames for "
+                         "its encoder")
+    S = tokens.shape[1] + prefix_len
     rel = torch.arange(S, device=tokens.device)[None, :]
     positions = start.long()[:, None] + rel if torch.is_tensor(start) else start + rel
-    x = _embed(params, tokens, cfg, pc, positions=positions)
+    x = _embed(params, tokens, cfg, pc, positions=positions[:, prefix_len:])
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    enc_out = None
+    if enc_frames is not None:
+        enc_out = _encoder(params, enc_frames, ms, pc, attn_impl=attn_impl)
     x = pc.shard_seq(x)
     x, aux, caches = ST.apply_stack_full(
         params["segments"], x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
-        positions=positions, attn_impl=attn_impl, emit_cache=emit_cache,
-        max_len=max_len or S, ctx=ctx_kv, q0=start)
+        positions=positions, prefix_len=prefix_len, enc_out=enc_out,
+        attn_impl=attn_impl, emit_cache=emit_cache, max_len=max_len or S,
+        ctx=ctx_kv, q0=start)
     x = pc.phase_in(x)
     logits = _head(params, x, cfg, pc)
     return logits, aux, caches
@@ -143,9 +207,13 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
 
 def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
                dtype=torch.bfloat16):
-    """Per segment, {entry name: (shape, dtype)} of the decode cache."""
+    """Per segment, {entry name: (shape, dtype)} of the decode cache; the
+    cross-attention entries of an encoder-decoder hold ``cfg.enc_seq``
+    positions."""
     return ST.stack_cache_meta(ms.cfg, ms.segments, ms.dims, batch=batch,
-                               max_len=max_len, dtype=dtype)
+                               max_len=max_len,
+                               enc_len=ms.cfg.enc_seq if ms.enc_segments else 0,
+                               dtype=dtype)
 
 
 def cache_batch_axis(entry_name: str) -> int:
@@ -167,10 +235,14 @@ def cast_cache(caches, dtype):
 
 
 def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
-            max_len: int, attn_impl="auto", cache_dtype=torch.bfloat16):
-    """Returns (last-position local logits [B, V/tp], caches)."""
+            max_len: int, prefix_embed=None, enc_frames=None, attn_impl="auto",
+            cache_dtype=torch.bfloat16):
+    """Returns (last-position local logits [B, V/tp], caches). The cache
+    holds the prefix (when given) before the prompt, and the encoder's
+    keys and values (when frames are given) in ``xk``/``xv``."""
     logits, _, caches = forward_full(
-        params, tokens, ms=ms, pc=pc, emit_cache=True, max_len=max_len,
+        params, tokens, ms=ms, pc=pc, prefix_embed=prefix_embed,
+        enc_frames=enc_frames, emit_cache=True, max_len=max_len,
         attn_impl=attn_impl)
     return logits[:, -1], cast_cache(caches, cache_dtype)
 

@@ -73,9 +73,11 @@ positions are then un-written in both pool trees. Greedy streams equal the
 warning.
 
 This is the JAX engine at world size 1, for attention + MLP models, Mamba
-models and the RG-LRU hybrid: tensor parallelism (``mesh``, ROADMAP item
-10) raises
-``NotImplementedError``.
+models, the RG-LRU hybrid and the mixture-of-experts models (dbrx,
+llama4): tensor parallelism (``mesh``, ROADMAP item 10) raises
+``NotImplementedError``. The prefix-LM (paligemma) and encoder-decoder
+(whisper) models run through ``generate`` only, as in the JAX package:
+the paged pool refuses them (``paged_cache.validate_paged_support``).
 """
 from __future__ import annotations
 
@@ -121,8 +123,13 @@ class ServeConfig:
 
 
 def make_prefill(ms: T.ModelStructure, pc: ParallelContext, sv: ServeConfig):
-    def prefill_fn(params, tokens):
+    """prefill(params, tokens, prefix=None, frames=None) -> (last-position
+    logits, caches); ``prefix`` (patch embeddings, vlm) and ``frames``
+    (frame embeddings, encdec) as ``transformer.forward_full`` takes
+    them."""
+    def prefill_fn(params, tokens, prefix=None, frames=None):
         return T.prefill(params, tokens, ms=ms, pc=pc, max_len=sv.max_len,
+                         prefix_embed=prefix, enc_frames=frames,
                          attn_impl=sv.attn_impl, cache_dtype=sv.cache_dtype)
     return prefill_fn
 
@@ -154,28 +161,34 @@ def _now(dev: torch.device) -> float:
 def generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
              pc: ParallelContext, sv: ServeConfig,
              generator: Optional[torch.Generator] = None,
-             timings: Optional[Dict[str, float]] = None):
+             timings: Optional[Dict[str, float]] = None,
+             prefix=None, frames=None):
     """Greedy/temperature generation: returns [B, n_new] new tokens.
 
-    ``prompts`` [B, S] must lie on the weights' device. Sampling
+    ``prefix`` [B, P, D] (a prefix-LM's patch embeddings) goes in front of
+    the prompts, so decode starts at position P + S; ``frames`` [B, T, D]
+    (an encoder-decoder's frame embeddings) feed the encoder.
+    ``prompts`` [B, S], ``prefix`` and ``frames`` must lie on the weights'
+    device. Sampling
     (``sv.temperature > 0``) draws from ``generator``, which must live on
     that device too. A ``timings`` dict receives ``prefill_s`` (prefill and
     the first token's choice) and ``decode_s`` (the ``n_new - 1`` decode
     steps) of this call, in seconds; each mark waits for the device."""
     params = as_tree(params)
     dev = params["embed"]["tok"].device
-    if prompts.device != dev:
-        raise ValueError(f"prompts on {prompts.device}, weights on {dev}")
-    t0 = prompts.shape[1]
+    for name, x in (("prompts", prompts), ("prefix", prefix), ("frames", frames)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} on {x.device}, weights on {dev}")
+    t0 = prompts.shape[1] + (ms.cfg.prefix_len if prefix is not None else 0)
     if t0 + n_new - 1 > sv.max_len:
-        raise ValueError(f"prompt {t0} + {n_new} new tokens overflow the "
-                         f"cache (max_len={sv.max_len})")
+        raise ValueError(f"prompt {t0} (prefix included) + {n_new} new tokens "
+                         f"overflow the cache (max_len={sv.max_len})")
     if sv.temperature > 0 and generator is None:
         raise ValueError("sampling needs a torch.Generator")
     prefill_fn = make_prefill(ms, pc, sv)
     step_fn = make_serve_step(ms, pc, sv)
     marks = [_now(dev)] if timings is not None else None
-    logits, caches = prefill_fn(params, prompts)
+    logits, caches = prefill_fn(params, prompts, prefix, frames)
     tok = _choose(logits, generator, sv, pc)
     if marks:
         marks.append(_now(dev))

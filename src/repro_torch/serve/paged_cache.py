@@ -57,13 +57,21 @@ def pages_needed(prompt_len: int, max_new: int, page_size: int) -> int:
 
 
 def validate_paged_support(ms: T.ModelStructure, max_len: int) -> None:
-    """The paged layout needs one cache slot per absolute position: ring
-    kinds whose cache is a reused window/chunk ring (``attn_local``,
-    ``attn_chunked``) are rejected. (Encoder and prefix-LM inputs are not
-    ported at all; ``build_structure`` refuses them.)"""
+    """The paged layout covers causal attention caches with one slot per
+    absolute position, and slot state. Rejected, as in the JAX package: an
+    encoder or cross-attention (whisper), a prefix-LM (paligemma), and
+    ring kinds whose cache is a reused window/chunk ring (``attn_local``,
+    ``attn_chunked``) shorter than ``max_len``."""
     cfg = ms.cfg
+    if ms.enc_segments or cfg.enc_layers:
+        raise ValueError(f"{cfg.name}: encoder/cross-attention caches are "
+                         "not pageable")
+    if cfg.prefix_len:
+        raise ValueError(f"{cfg.name}: prefix-LM serving is not paged yet")
     for seg in ms.segments:
         for spec in seg.group.specs:
+            if spec.cross_attn:
+                raise ValueError(f"{cfg.name}: cross-attention not pageable")
             m = spec.mixer
             if m.startswith("attn") and B.ring_len(cfg, m, max_len) != max_len:
                 raise ValueError(

@@ -179,8 +179,27 @@ for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "dbrx-132b",
     out = generate(params, torch.zeros((2, 5), dtype=torch.int64), 4, ms=ms,
                    pc=ParallelContext(), sv=ServeConfig(max_len=16))
     assert out.shape == (2, 4), (arch, out.shape)
+from repro_torch.core import interventions as IV
+for arch in ("paligemma-3b", "whisper-medium"):
+    cfg = reduced_config(get_config(arch), n_layers=4)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, 3))
+    params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
+    kw = ({"prefix": torch.zeros((2, cfg.prefix_len, cfg.d_model))} if cfg.prefix_len
+          else {"frames": torch.zeros((2, cfg.enc_seq, cfg.d_model))})
+    out = generate(params, torch.zeros((2, 5), dtype=torch.int64), 4, ms=ms,
+                   pc=ParallelContext(), sv=ServeConfig(max_len=24), **kw)
+    assert out.shape == (2, 4), (arch, out.shape)
+cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+ms = T.build_structure(cfg)
+from repro_torch.core.lp import extract_layers
+params = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
+layers = extract_layers(params.tree()["segments"], ms.segments)
+y = IV.apply_intervened(layers, IV.parallel2_plan(4, 0, 3), torch.zeros((1, 6, cfg.d_model)),
+                        cfg=cfg, positions=torch.arange(6)[None])
+assert y.shape == (1, 6, cfg.d_model)
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules
+assert "repro_torch.core.interventions" in sys.modules
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), \
     [m for m in sys.modules if m.startswith("repro.")]
 print("OK")
@@ -198,6 +217,8 @@ def test_port_sources_import_no_jax():
     assert len(files) > 10
     assert SRC / "repro_torch" / "model" / "rglru.py" in files
     assert SRC / "repro_torch" / "model" / "moe.py" in files
+    assert SRC / "repro_torch" / "core" / "interventions.py" in files
+    assert SRC / "repro_torch" / "configs" / "whisper_medium.py" in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f}: imports {hits}"

@@ -83,7 +83,8 @@ def knobs():
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "falcon-mamba-7b", "yi-6b",
                                   "minicpm-2b", "granite-34b", "recurrentgemma-9b",
-                                  "dbrx-132b", "llama4-scout-17b-a16e"])
+                                  "dbrx-132b", "llama4-scout-17b-a16e",
+                                  "paligemma-3b", "whisper-medium"])
 @pytest.mark.parametrize("n_layers", [None, 4])
 def test_config_copy_matches(n_layers, arch):
     j, t = jget_config(arch), TC.get_config(arch)

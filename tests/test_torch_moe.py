@@ -16,7 +16,10 @@ a chunk ring shorter than ``max_len`` nor a pair of mixed kinds). Both
 engines switch the prefix cache and the bucket ladder off for an MoE
 model (every admission prefills at its exact length). At a capacity
 factor of E/k nothing is dropped, and the port's engine equals its
-``generate`` bit for bit. Both refusals raise as JAX's do.
+``generate`` bit for bit. Reduced dbrx behind the speculative engine and
+the degraded cohort equals the JAX engine (streams and counters), and at
+E/k speculation equals the plain engine bit for bit. Both refusals raise
+as JAX's do.
 
 Tolerance: 2e-5 in fp32 (the layer, the caches, the logits); greedy tokens
 and engine streams are held exactly.
@@ -407,6 +410,50 @@ def test_engine_equals_generate_at_no_drops(arch):
     sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
     assert got == [generate(weights, torch.from_numpy(p)[None], n, ms=tms, pc=TPC(),
                             sv=sv)[0].tolist() for _, p, n in work]
+
+
+SPEC_KW = dict(spec_k=2)
+DEGRADED_KW = dict(degrade_delta=True, degrade_slots=1, degrade_queue_depth=1,
+                   degrade_eff_depth=2)
+
+
+@pytest.mark.parametrize("mode", ["spec", "degraded"])
+def test_dbrx_spec_and_degraded_engines_match_jax_engine(mode):
+    """Reduced dbrx at the published capacity behind the speculative engine
+    (k = 2 drafts at the aggressive plan) and behind the degraded cohort
+    (the top slot at effective depth 2, SLO pressure at queue depth 1):
+    every stream and counter equals the JAX engine's, and each mode did
+    its work (verify steps with drafts judged; a degraded admission)."""
+    jms, tms, params, weights = _engine_model(DBRX, seed=35)
+    work = _workload(jms.cfg.vocab_size, seed=36)
+    kw = dict(ENGINE_KW, **(SPEC_KW if mode == "spec" else DEGRADED_KW))
+    eng = PagedEngine(weights, tms, PagedServeConfig(cache_dtype=torch.float32, **kw))
+    got = _serve(eng, work)
+    jeng = JPagedEngine(params, jms, JPagedServeConfig(cache_dtype=jnp.float32, **kw))
+    assert got == _serve(jeng, work)
+    assert eng.counters == {k: jeng.counters[k] for k in eng.counters}
+    c = eng.counters
+    if mode == "spec":
+        assert c["verify_steps"] and c["spec_accepted"] + c["spec_rejected"]
+    else:
+        assert c["degraded_admissions"] >= 1
+
+
+def test_dbrx_spec_equals_plain_at_no_drops():
+    """At the capacity factor E/k a token's experts do not depend on its
+    batch, so the speculative engine's streams equal the plain engine's
+    (spec_k = 0) bit for bit."""
+    jcfg, _ = _cfgs(DBRX)
+    _, tms, _, weights = _engine_model(
+        DBRX, seed=43, moe_capacity_factor=_no_drops(jcfg).moe_capacity_factor)
+    work = _workload(tms.cfg.vocab_size, seed=44)
+    streams = []
+    for kw in ({}, SPEC_KW):
+        eng = PagedEngine(weights, tms, PagedServeConfig(
+            cache_dtype=torch.float32, **dict(ENGINE_KW, **kw)))
+        streams.append(_serve(eng, work))
+    assert eng.counters["verify_steps"]
+    assert streams[1] == streams[0]
 
 
 def test_short_chunk_ring_is_refused():
