@@ -178,10 +178,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      decoder group for self- and for cross-attention at prefill, and per
      group for cross-attention at every decode step) and the decode
      launches at steps 0 and 40 held against their plain versions.
+ 13. training (``repro_torch.train``, ``launch.train``): (a) tinyllama-1.1b
+     at its widths cut to 2 layers (one LP pair) in fp32: the train step's
+     loss, every gradient and one AdamW step on the card equal the CPU's,
+     and the card's state comes back bit for bit from a checkpoint; (b)
+     LP-only recovery fine-tuning (paper Table 2's recipe) of all 22 layers
+     under plan_for_depth(16) in bf16: 8 steps of 8 x 256 from the
+     synthetic source through ``train_loop`` (ms per step, tokens/s, peak
+     memory, loss per step, one step profiled), with no kernel launched by
+     the training forward and the frozen leaves bit-identical; the eval
+     step (kernels) against the differentiable loss, then the fine-tuned
+     weights through ``generate``, launches reconciled.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phases 9, 10, 11 and 12 after 7. The second-to-last line is the kernels JSON (with every
-path's metrics and each phase's seconds), the last line the device JSON.
+phases 9 to 13 after 7. The second-to-last line is the kernels JSON (with
+every path's metrics and each phase's seconds), the last line the device
+JSON.
 
     python3 chip_smoke.py --norm-times
 
@@ -198,6 +210,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -292,6 +305,18 @@ WHISPER_EFF_DEPTH, WHISPER_PROMPT, WHISPER_MAX_LEN, ENC_SEQ = 18, 32, 128, 1500
 # Their head shapes held in phase 3 (kv heads, GQA group, hd): paligemma's
 # 8 query heads over 1 kv head at hd 256, whisper's 16 heads at hd 64.
 PREFIX_ENCDEC_SHAPES = ((PALI, 1, 8, 256), (WHISPER, 16, 1, 64))
+# Train path (phase 13): (a) tinyllama-1.1b cut to 2 layers (one LP pair) in
+# fp32, B = 2 x S = 64, card against CPU: loss within 1e-4 (of ~10.4),
+# each leaf's gradients within 1e-3 of that leaf's largest |g|, one AdamW
+# step at lr 1e-3; (b) all 22 layers under plan_for_depth(16), LP-only
+# fine-tuning in bf16, 8 steps of 8 x 256, then the eval step's loss
+# (kernels) within 2e-3 of the differentiable forward's (bf16 activations,
+# two attention and norm paths, a mean over 2048 tokens; sound runs on the
+# H100 read 1.6e-4) and 16 new tokens through generate.
+TRAIN_CUT_B, TRAIN_CUT_S, TRAIN_CUT_LR = 2, 64, 1e-3
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_NEW = 8, 256, 8, 16
+TRAIN_EVAL_TOL = 2e-3
 
 
 def log(msg):
@@ -2924,6 +2949,208 @@ def encdec_path():
                       "max_memory_allocated_gib": peak, "generate": gen}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: LP-only recovery fine-tuning (launch.train) and its checks
+# ---------------------------------------------------------------------------
+
+def train_cut_parity():
+    """Phase 13a: tinyllama-1.1b at its published widths cut to 2 layers,
+    one LP pair (0, 1), fp32 (TF32 off), B = 2 x S = 64 from the seed. The
+    card's loss (within TRAIN_LOSS_TOL), every leaf's gradient (within
+    TRAIN_GRAD_TOL of that leaf's largest |g|) and one AdamW step (each
+    master weight within 2 lr of the CPU's, Adam's step being about
+    lr sign(g) where g is near 0; 99.9% within 1e-6) equal the CPU's; the
+    card's state saved as a checkpoint and restored comes back bit for
+    bit. Returns metrics."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_range
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import tree_items, tree_leaves, tree_map
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.train import OptConfig, TrainConfig, checkpoint as CK
+    from repro_torch.train.trainer import make_train_step, state_from_params
+
+    pc = ParallelContext()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    ms = T.build_structure(cfg, plan=plan_range(cfg, 0, 2))
+    if ms.plan.pairs != ((0, 1),):
+        raise AssertionError(f"pairs {ms.plan.pairs}")
+    p_cpu = T.init_params(ms, torch.Generator().manual_seed(SEED), torch.float32,
+                          device="cpu").tree()
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_CUT_B, TRAIN_CUT_S + 1),
+                         generator=torch.Generator().manual_seed(SEED + 9))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_CUT_LR, warmup_steps=0,
+                                   total_steps=10, weight_decay=0.01,
+                                   schedule="const"))
+    for dev in ("cpu", "cuda"):
+        w = tree_map(lambda x: x.to(dev, copy=True).requires_grad_(True), p_cpu)
+        b = {k: x.to(dev) for k, x in batch.items()}
+        loss, _ = T.loss_fn(w, b, ms=ms, pc=pc, differentiable=True)
+        grads = torch.autograd.grad(loss, tree_leaves(w))
+        state = state_from_params(w, ms, pc, tc)
+        state, m = make_train_step(ms, pc, tc)(state, b)
+        out[dev] = (loss.detach().cpu(), [g.cpu() for g in grads], state,
+                    float(m["grad_norm"]))
+    l_cpu, g_cpu, s_cpu, n_cpu = out["cpu"]
+    l_gpu, g_gpu, s_gpu, n_gpu = out["cuda"]
+    loss_err = abs(l_gpu.item() - l_cpu.item())
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(g_gpu, g_cpu))
+    d = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in
+                   zip(tree_leaves(s_gpu["master"]), tree_leaves(s_cpu["master"]))])
+    step_err, bulk = d.max().item(), (d <= 1e-6).float().mean().item()
+    log(f"[train cut] {cfg.name} 2 layers, pair (0, 1), fp32, B {TRAIN_CUT_B} x S "
+        f"{TRAIN_CUT_S}: loss card {l_gpu.item():.6f} cpu {l_cpu.item():.6f} "
+        f"(err {loss_err:.3e}, tol {TRAIN_LOSS_TOL:g}); grads max err / leaf max "
+        f"{grad_err:.3e} (tol {TRAIN_GRAD_TOL:g}); grad norm {n_gpu:.6f} / {n_cpu:.6f}; "
+        f"one AdamW step: master max err {step_err:.3e} (bound 2 lr = "
+        f"{2 * TRAIN_CUT_LR:g}), {bulk:.6f} of elements within 1e-6 (want >= 0.999)")
+    if (loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL
+            or step_err > 2 * TRAIN_CUT_LR or bulk < 0.999):
+        raise AssertionError("the train step on the card disagrees with the CPU's")
+    del out, s_cpu, g_cpu, g_gpu
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    CK.save(str(ckpt), s_gpu, s_gpu["step"])
+    back = CK.logical_to_state(CK.restore(str(ckpt), CK.logical_like(ms)), ms, pc,
+                               tc, device="cuda")
+    same = back["step"] == s_gpu["step"] and all(
+        torch.equal(a, b) for key in ("master", "m", "v")
+        for a, b in zip(tree_leaves(back[key]), tree_leaves(s_gpu[key]))) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back["params"].tree()),
+                                          tree_leaves(s_gpu["params"].tree())))
+    n_files = len(tree_items(CK.logical_like(ms)))
+    log(f"[train cut] checkpoint of the card's state ({n_files} leaves) restored "
+        f"on the card bit for bit: {same}")
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"loss_max_abs_err": loss_err, "grad_max_rel_err": grad_err,
+            "adamw_master_max_abs_err": step_err, "adamw_within_1e-6": bulk,
+            "checkpoint_bit_for_bit": same}
+
+
+def train_path():
+    """Phase 13b: LP-only recovery fine-tuning (paper Table 2's recipe:
+    AdamW, linear decay from 1e-4, wd 0.01, warmup 10) of tinyllama-1.1b at
+    its published widths, all 22 layers, plan_for_depth(16), bf16 params
+    with fp32 master weights and moments, random weights from the seed:
+    TRAIN_STEPS steps of B = TRAIN_B x S = TRAIN_S from the port's
+    synthetic source through ``launch.train.train_loop``. The training
+    forward launches no kernel; the frozen leaves stay bit-identical; the
+    eval step (kernels, no_grad) agrees with the differentiable loss
+    within TRAIN_EVAL_TOL; then the fine-tuned weights serve 4 prompts of
+    128 through ``generate``. Launches of the eval and of ``generate``
+    reconcile exactly. Returns (launches, metrics)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import RunConfig, build, train_loop
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import tree_items
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.train.trainer import init_state, make_eval_step, make_train_step
+
+    rc = RunConfig(arch="tinyllama-1.1b", reduced=False, eff_depth=16,
+                   steps=TRAIN_STEPS, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                   lr=1e-4, warmup=10, schedule="linear", weight_decay=0.01,
+                   finetune_lp_only=True, param_dtype="bfloat16", log_every=1,
+                   seed=SEED, device="cuda")
+    cfg, ms, tc, src = build(rc)
+    n_groups, n_pairs = model_counts(ms)
+    if (n_groups, n_pairs, cfg.n_layers) != (16, 6, 22):
+        raise AssertionError(f"groups, pairs, layers {n_groups, n_pairs, cfg.n_layers}")
+    pc = ParallelContext()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(ms, torch.Generator(device="cuda").manual_seed(SEED), pc, tc,
+                       device="cuda")
+    items = tree_items(state["params"].tree())
+    frozen = {path: p.detach().clone() for path, p in items if not p.requires_grad}
+    trainable = {path: p.detach().clone() for path, p in items if p.requires_grad}
+    n_train = sum(p.numel() for p in trainable.values())
+    n_all = sum(p.numel() for _, p in items)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, pairs {ms.plan.pairs}, "
+        f"{n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable, "
+        f"{len(trainable)} of {len(items)} leaves), bf16 params + fp32 master/m/v; "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}")
+    marks = []
+
+    def tick(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    out = train_loop(rc, state=state, hook=tick)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"the training forward launched kernels {ops.LAUNCHES}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    med = statistics.median(step_ms[1:])
+    losses = [h["loss"] for h in out["history"]]
+    log(f"[train] ms per step {['%.1f' % t for t in step_ms]}; median of steps 2-"
+        f"{TRAIN_STEPS} {med:.3f} ms, {TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s; "
+        f"max_memory_allocated {peak:.2f} GiB; loss per step "
+        f"{['%.4f' % x for x in losses]}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    items = dict(tree_items(state["params"].tree()))
+    moved = [p for p, x in trainable.items() if not torch.equal(items[p], x)]
+    still = [p for p, x in frozen.items() if not torch.equal(items[p], x)]
+    log(f"[train] frozen leaves bit-identical: {len(frozen) - len(still)}/{len(frozen)}; "
+        f"trainable leaves moved: {len(moved)}/{len(trainable)}")
+    if still or len(moved) < len(trainable) // 2:
+        raise AssertionError(f"frozen leaves moved {still}, trainable moved {len(moved)}")
+    del frozen, trainable
+
+    busy = profile_decode(lambda: make_train_step(ms, pc, tc)(
+        state, {k: x.cuda() for k, x in src.batch_at(TRAIN_STEPS).items()}),
+        f"{cfg.name} one LP-only train step")
+    ops.reset_launches()
+    batch = {k: x.cuda() for k, x in src.batch_at(TRAIN_STEPS + 1).items()}
+    ev = make_eval_step(ms, pc)(state["params"], batch)["loss"].item()
+    with torch.no_grad():
+        tl = T.loss_fn(state["params"], batch, ms=ms, pc=pc,
+                       differentiable=True)[0].item()
+    log(f"[train] eval step (kernels, no_grad) loss {ev:.6f}; differentiable "
+        f"forward loss {tl:.6f}; |diff| {abs(ev - tl):.3e} (tol {TRAIN_EVAL_TOL:g})")
+    if abs(ev - tl) > TRAIN_EVAL_TOL:
+        raise AssertionError("the eval step disagrees with the train forward")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    toks = generate(state["params"], prompts, TRAIN_NEW, ms=ms, pc=pc,
+                    sv=ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16))
+    launches = dict(ops.LAUNCHES)
+    if tuple(toks.shape) != (B, TRAIN_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(toks.shape)} out of range")
+    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    steps = TRAIN_NEW - 1
+    want = {"flash_attention": 2 * n_groups,
+            "dual_rmsnorm": norm_launches(cfg, n_pairs) * (2 + steps),
+            "decode_attention": steps * n_single,
+            "decode_attention_pair": steps * n_attn_pairs,
+            "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
+            "ssm_scan": 0}
+    log(f"[train] eval + generate({TRAIN_NEW} new) on the fine-tuned weights: "
+        f"launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches, {
+        "layers": cfg.n_layers, "pairs": list(ms.plan.pairs),
+        "params_b": n_all / 1e9, "trainable_b": n_train / 1e9,
+        "batch": TRAIN_B, "seq": TRAIN_S, "step_ms": step_ms,
+        "median_step_ms": med, "tokens_per_s": TRAIN_B * TRAIN_S / med * 1e3,
+        "max_memory_allocated_gib": peak, "loss": losses,
+        "eval_loss": ev, "train_forward_loss": tl, "busy_share": busy}
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -3053,6 +3280,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()              # the previous model's weights are gone
         by_path[f"{name}_generate"], prefix_encdec[name] = phase(f"12 {name}", fn)
+    gc.collect()
+    torch.cuda.empty_cache()                  # whisper's weights are gone
+    train = {"cut": phase("13 train cut", train_cut_parity)}
+    by_path["train"], train["finetune"] = phase("13 train", train_path)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -3069,6 +3300,10 @@ def main() -> int:
         for name in names + ("flash_attention", "ssm_scan", "dual_rmsnorm"):
             if not by_path[f"{HYBRID}_{path}"][name]:
                 raise AssertionError(f"{name} was not launched on {HYBRID} {path}")
+    for name in ("flash_attention", "dual_rmsnorm", "decode_attention",
+                 "decode_attention_pair"):
+        if not by_path["train"][name]:
+            raise AssertionError(f"{name} was not launched on train")
     for model, names in ((PALI, ("dual_rmsnorm",)), (WHISPER, ())):
         for name in names + ("flash_attention", "decode_attention", "decode_attention_pair"):
             if not by_path[f"{model}_generate"][name]:
@@ -3109,7 +3344,8 @@ def main() -> int:
                       "engine_degraded": degraded,
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
                       "dense": dense, "hybrid": hybrid, "moe": moe,
-                      "prefix_encdec": prefix_encdec, "phase_s": phase_s}))
+                      "prefix_encdec": prefix_encdec, "train": train,
+                      "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

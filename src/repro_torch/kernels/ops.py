@@ -11,6 +11,13 @@ There is no fallback and no switch that runs the plain version on a CUDA
 tensor. ``LAUNCHES`` counts kernel launches per wrapper; it moves only where
 a kernel is launched, so a run can show which kernels its path went
 through (``reset_launches`` before the run, read after).
+
+The kernels are called through ctypes, so autograd does not see them: their
+outputs carry no ``grad_fn``. Every wrapper therefore raises on an input off
+the CPU that requires grad while grad mode is on, so a backward pass can
+never lose the gradient of the weights below a kernel without a word. The
+train step's forward runs the kernels' torch versions instead
+(``transformer.loss_fn(differentiable=True)``).
 """
 from __future__ import annotations
 
@@ -30,13 +37,20 @@ def reset_launches() -> None:
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    """True for CUDA tensors, False for CPU tensors; raises otherwise, and
+    for a tensor off the CPU that requires grad under grad mode (the kernel
+    would cut the autograd graph)."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"inputs on different devices: "
                          f"{[str(t.device) for t in tensors]}")
     if dev.type == "cpu":
         return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a kernel has no backward: its output would carry no gradient. "
+            "Run it under torch.no_grad(), or take the differentiable "
+            "forward (transformer.loss_fn(differentiable=True))")
     if dev.type == "cuda":
         return True
     raise ValueError(f"no kernel for device {dev}")

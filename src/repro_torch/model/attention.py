@@ -185,7 +185,8 @@ _KERNEL_KIND = {"attn": "causal", "attn_global": "causal",
 
 
 def attention_core(q, k, v, *, kind, window=0, chunk=0, prefix_len=0,
-                   q0=0, k0=0, impl="auto", qb=512, kb=1024):
+                   q0=0, k0=0, impl="auto", qb=512, kb=1024,
+                   differentiable=False):
     """Grouped attention: q [B,S,Hk,g,hd]; k, v [B,T,Hk,hd] -> q's shape.
 
     impl: "auto" | "dense" | "chunked" | "chunked:<kb>" (pinned kv tile
@@ -194,12 +195,19 @@ def attention_core(q, k, v, *, kind, window=0, chunk=0, prefix_len=0,
     "flash" runs the kernel wrapper's plain version (the kernel's layout
     and fold, for tests) and the others run the plain cores.
 
+    ``differentiable`` (the train step's forward): the plain torch cores
+    on any device, chosen by ``impl`` as on the CPU, so autograd sees the
+    whole product (the flash kernel has no backward); "flash" raises.
+
     ``q0`` may be an int32 [B] tensor of per-row offsets; then the impl
     must pin its tile ("chunked:<kb>") or be the flash kernel."""
     B, S, Hk, g, hd = q.shape
     T = k.shape[1]
     pinned = impl.startswith("chunked:")
-    kernel = q.device.type != "cpu" or impl == "flash"
+    if differentiable and impl == "flash":
+        raise ValueError("impl='flash' is the kernel, which has no backward; "
+                         "the differentiable forward takes a torch core")
+    kernel = not differentiable and (q.device.type != "cpu" or impl == "flash")
     if torch.is_tensor(q0) and not (pinned or kernel):
         # The dense and unpinned chunked cores would build one shared mask.
         raise NotImplementedError(

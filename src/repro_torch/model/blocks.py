@@ -123,11 +123,12 @@ def layer_template(cfg: ArchConfig, spec: LayerSpec, tp: int):
 # Phase runners
 # ---------------------------------------------------------------------------
 
-def _norm_inputs(gp, key, x, cfg, group: Group):
+def _norm_inputs(gp, key, x, cfg, group: Group, differentiable=False):
     """Per-path normalised inputs: [B,S,D] (single) or [2,B,S,D] (pair)."""
     if group.pair:
         return dual_norm(x, tree_map(lambda v: v[0], gp[key]),
-                         tree_map(lambda v: v[1], gp[key]), cfg)
+                         tree_map(lambda v: v[1], gp[key]), cfg,
+                         differentiable=differentiable)
     return apply_norm(x, gp[key], cfg)
 
 
@@ -157,7 +158,7 @@ def _mixer(group: Group) -> str:
 
 def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
                          prefix_len=0, cross_kv=None, attn_impl="auto",
-                         ctx_kv=None, q0=0):
+                         ctx_kv=None, q0=0, differentiable=False):
     """Full-sequence attention (prefill). Returns (partial_out, kv_list)
     with one (k, v) in stored layout per layer in the group.
 
@@ -176,7 +177,10 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     fresh kv, so every suffix row reduces over exactly ``q0 + S`` keys: the
     reduction shape the full-prompt forward gives that row. ``q0`` is the
     absolute position of the first query row: an int, or a [B] tensor of
-    per-row context lengths (bucketed radix-hit rows)."""
+    per-row context lengths (bucketed radix-hit rows).
+
+    ``differentiable`` (the train step's forward) goes to the attention
+    core: a torch core on any device in place of the flash kernel."""
     kinds = _mixer_kinds(group)
     cross = cross_kv is not None
     p = gp["xattn"] if cross else gp["attn"]
@@ -186,7 +190,8 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     if len(set(kinds)) > 1 and not cross:
         return _mixed_attention_full(p, xn, cfg, dims, kinds=kinds,
                                      positions=positions, prefix_len=prefix_len,
-                                     attn_impl=attn_impl, ctx_kv=ctx_kv)
+                                     attn_impl=attn_impl, ctx_kv=ctx_kv,
+                                     differentiable=differentiable)
     kind = "attn_bidir" if cross else kinds[0]
     q = A.project_q(p, xn, cfg, dims, positions=positions, kind=kind,
                     pair=group.pair)
@@ -225,14 +230,14 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     qh = q.reshape(B, S, nP * dims.hkv, dims.group, dims.hd)
     o = A.attention_core(qh, ks, vs, kind=kind, window=cfg.window,
                          chunk=cfg.chunk, prefix_len=prefix_len, q0=q0,
-                         impl=attn_impl)
+                         impl=attn_impl, differentiable=differentiable)
     o = o.reshape(B, S, nP * dims.hq, dims.hd)
     out = A.output_proj(p, o, dims, pair=group.pair)
     return out, _split_kv(k, v, dims, pair=group.pair)
 
 
 def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
-                          attn_impl, ctx_kv):
+                          attn_impl, ctx_kv, differentiable):
     """A pair of mixed attention kinds (llama4 chunked + global): per-half
     projections and cores, still one merged output projection and one
     phase_out. Returns (partial_out, [(k, v)] per half)."""
@@ -250,7 +255,7 @@ def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
         oi = A.attention_core(qi.reshape(B, S, dims.hkv, dims.group, dims.hd),
                               ki, vi, kind=kind, window=cfg.window,
                               chunk=cfg.chunk, prefix_len=prefix_len,
-                              impl=attn_impl)
+                              impl=attn_impl, differentiable=differentiable)
         os.append(oi.reshape(B, S, dims.hq, dims.hd))
         kvs.append((ki, vi))
     o = torch.cat(os, dim=2)
@@ -381,7 +386,8 @@ def _recurrent_params(gp, group: Group, mixer: str):
 
 def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                      positions, prefix_len=0, enc_out=None, attn_impl="auto",
-                     emit_cache=False, max_len=0, ctx_kv=None, q0=0):
+                     emit_cache=False, max_len=0, ctx_kv=None, q0=0,
+                     differentiable=False):
     """One group over the full sequence. x: [B,S,D]. Returns (x, aux,
     cache_dict).
 
@@ -392,18 +398,24 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     ``ctx_kv``/``q0`` (suffix prefill): cached kv for positions [0, q0) in
     stored layout; the sequence starts at absolute position ``q0``. The
     emitted cache covers only the suffix (length ``max_len``, local 0 ==
-    absolute ``q0``); the caller places it after the context."""
+    absolute ``q0``); the caller places it after the context.
+
+    ``differentiable`` (set by the train step only): the four kernel sites
+    (the attention core, the pair's dual RMSNorm, the Mamba and RG-LRU
+    scans) run their torch versions on any device, so autograd sees the
+    whole forward; the kernels have no backward."""
     cache: Dict[str, Any] = {}
     mixer = _mixer(group)
+    diff = differentiable
 
     # ---- phase 1: the mixer ---------------------------------------------
-    xn = _norm_inputs(gp, "ln1", pc.phase_in(x), cfg, group)
+    xn = _norm_inputs(gp, "ln1", pc.phase_in(x), cfg, group, diff)
     if mixer == "attn":
         out, kvs = attention_phase_full(gp, xn, cfg, dims, group=group,
                                         positions=positions,
                                         prefix_len=prefix_len,
                                         attn_impl=attn_impl, ctx_kv=ctx_kv,
-                                        q0=q0)
+                                        q0=q0, differentiable=diff)
         if emit_cache:
             kinds = _mixer_kinds(group)
             fks = [fill_cache(k, max_len, mixer=m, cfg=cfg)
@@ -422,7 +434,7 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                 "cannot resume from cached kv)")
         out, (conv, h) = _RECURRENT[mixer](_recurrent_params(gp, group, mixer),
                                            xn if group.pair else xn[None],
-                                           cfg, pc)
+                                           cfg, pc, differentiable=diff)
         if emit_cache:
             if group.pair:  # already stacked [2, ...]
                 cache["conv"], cache["h"] = conv, h
@@ -434,14 +446,15 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
 
     # ---- cross-attention phase (whisper's decoder) ----------------------
     if group.specs[0].cross_attn and enc_out is not None:
-        xnx = _norm_inputs(gp, "lnx", pc.phase_in(x), cfg, group)
+        xnx = _norm_inputs(gp, "lnx", pc.phase_in(x), cfg, group, diff)
         enc_in = torch.stack([enc_out] * 2) if group.pair else enc_out
         xk, xv = A.project_kv(gp["xattn"], enc_in, cfg, dims, positions=None,
                               kind="attn_bidir", pair=group.pair)
         out, halves = attention_phase_full(gp, xnx, cfg, dims, group=group,
                                            positions=positions,
                                            cross_kv=(xk, xv),
-                                           attn_impl=attn_impl)
+                                           attn_impl=attn_impl,
+                                           differentiable=diff)
         if emit_cache:
             if pair_cache_stacked(group):
                 cache["xk"] = torch.stack([k for k, _ in halves])
@@ -454,7 +467,7 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
     # ---- phase 2: FFN ---------------------------------------------------
     aux = 0.0
     if group.specs[0].ffn is not None:
-        xn2 = _norm_inputs(gp, "ln2", pc.phase_in(x), cfg, group)
+        xn2 = _norm_inputs(gp, "ln2", pc.phase_in(x), cfg, group, diff)
         out, aux = ffn_phase(gp, xn2, cfg, pc, group=group)
         x = x + pc.phase_out(out).to(x.dtype)
     return x, aux, cache

@@ -1,4 +1,5 @@
-"""Vocab-parallel embedding, LM head and greedy/sampled token choice.
+"""Vocab-parallel embedding, LM head, cross-entropy and greedy/sampled
+token choice.
 
 Same functions and conventions as the JAX package (vocabulary padded to a
 multiple of tp, logits over the LOCAL vocabulary shard, pad columns masked);
@@ -56,6 +57,27 @@ def local_logits(p, x, cfg, pc: ParallelContext):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def vocab_parallel_xent(logits, labels, pc: ParallelContext, *, mask=None):
+    """Mean token cross-entropy from LOCAL logits [B,S,Vl] (fp32, pad
+    columns at -1e30) and global labels [B,S]; with ``mask`` [B,S] the mean
+    runs over the masked-in positions, ``sum(nll * mask) / max(sum(mask),
+    1)``."""
+    v_local = logits.shape[-1]
+    base = pc.tp_index() * v_local
+    # The max shift is for numerical stability only: the lse gradient does
+    # not depend on it, so it is detached (as JAX's stop_gradient).
+    m = pc.pmax_tp(logits.detach().amax(-1))
+    lse = m + torch.log(pc.psum_tp(torch.exp(logits - m[..., None]).sum(-1)))
+    lid = labels - base
+    ok = (lid >= 0) & (lid < v_local)
+    tgt = torch.gather(logits, -1, lid.clamp(0, v_local - 1)[..., None])[..., 0]
+    tgt = pc.psum_tp(torch.where(ok, tgt, 0.0))
+    nll = lse - tgt
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
 
 
 def vocab_parallel_argmax(logits, pc: ParallelContext):

@@ -4,7 +4,8 @@
 norms of the same input tensor. For RMSNorm it goes through the dual
 RMSNorm kernel wrapper (``repro_torch.kernels.ops.dual_rmsnorm``), which
 launches the kernel on a CUDA tensor and runs its plain version on a CPU
-one — the same math as the JAX package's XLA path.
+one — the same math as the JAX package's XLA path. The train step's
+differentiable forward runs ``rmsnorm`` per path instead.
 """
 from __future__ import annotations
 
@@ -39,9 +40,14 @@ def apply_norm(x, p, cfg):
     return rmsnorm(x, p["scale"], plus_one=cfg.norm_plus_one)
 
 
-def dual_norm(x, p_a, p_b, cfg):
+def dual_norm(x, p_a, p_b, cfg, *, differentiable=False):
     """Both LP-pair norms of the same input, stacked [2, ..., D] (unpacks as
-    ``ya, yb``); shares the fp32 statistics."""
+    ``ya, yb``); shares the fp32 statistics. ``differentiable`` (the train
+    step's forward) runs ``rmsnorm`` once per path, in torch ops on any
+    device, in place of the kernel, which has no backward."""
+    if cfg.norm_kind == "rmsnorm" and differentiable:
+        return torch.stack([rmsnorm(x, p["scale"], plus_one=cfg.norm_plus_one)
+                            for p in (p_a, p_b)])
     if cfg.norm_kind == "rmsnorm":
         return ops.dual_rmsnorm(x, p_a["scale"], p_b["scale"],
                                 plus_one=cfg.norm_plus_one)

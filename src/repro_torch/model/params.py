@@ -44,6 +44,19 @@ def tree_leaves(tree):
     return out
 
 
+def tree_items(tree, prefix=""):
+    """[(path, leaf)] in ``tree_map``'s order; a path joins the dict keys
+    and list indices from the root with "/" (``master/segments/0/attn/wq``),
+    as the JAX package's checkpoint names its leaves."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, x in enumerate(tree)
+                for item in tree_items(x, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
 def tree_structure(tree):
     """Nested key structure without the leaves (for template comparison)."""
     return tree_map(lambda _: None, tree)

@@ -12,9 +12,10 @@ The recurrence h_t = a_t * h_{t-1} + b_t is per channel: the N = 1 case of
 the selective scan. Full-sequence mode (prefill) runs it through the scan
 kernel wrapper ``kernels.ops.ssm_scan`` on ``[P*B, S, W, 1]`` fp32, as the
 JAX package's ``impl="pallas"`` branch does: the kernel on a CUDA tensor,
-its plain sequential version on a CPU one. State mode (decode) advances the
-state one token at a time with plain torch ops. The state ``h`` is computed
-and returned in fp32; the conv state in the input's type. The causal conv
+its plain sequential version on a CPU one. State mode (decode), and the
+train step's differentiable forward, advance the state one token at a time
+with plain torch ops. The state ``h`` is computed and returned in fp32;
+the conv state in the input's type. The causal conv
 is the Mamba mixer's (``model/ssm.py``).
 """
 from __future__ import annotations
@@ -46,12 +47,14 @@ def rglru_template(cfg, tp: int):
     }
 
 
-def rglru_mix(p, xn, cfg, pc, *, state=None):
+def rglru_mix(p, xn, cfg, pc, *, state=None, differentiable=False):
     """xn: [P,B,S,D] per-path normalised inputs. Returns (partial [B,S,D],
     new_state) where state = (conv_state [P,B,K-1,W], h [P,B,W,1] fp32).
     When ``state`` is given, runs in stateful (decode) mode. The block is
     rank-local (no reduction inside), so ``pc`` is unused, as in the JAX
-    package."""
+    package. ``differentiable`` (the train step's forward) runs the
+    full-sequence recurrence by ``_scan_seq`` on any device, in place of
+    the scan kernel, which has no backward."""
     Pp, B, S, D = xn.shape
     K = cfg.rec_conv
 
@@ -82,7 +85,7 @@ def rglru_mix(p, xn, cfg, pc, *, state=None):
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * x32)
 
-    if state is not None:
+    if state is not None or differentiable:
         y, hT = _scan_seq(a[..., None], b[..., None], h_prev.float())
     else:
         y2, h2 = ops.ssm_scan(a.reshape(Pp * B, S, W, 1),

@@ -12,8 +12,9 @@ kernel on a CUDA tensor, its plain sequential version on a CPU one (the JAX
 package's prefill takes its XLA chunked scan there; sums are grouped
 differently, so the two agree within a tolerance). State mode (decode)
 advances the state one token at a time with plain torch ops, as the JAX
-package does. The state ``h`` is computed and returned in fp32; the conv
-state in the input's type.
+package does; so does the train step's differentiable forward over the
+whole sequence (the kernel has no backward). The state ``h`` is computed
+and returned in fp32; the conv state in the input's type.
 """
 from __future__ import annotations
 
@@ -72,10 +73,14 @@ def _pmm(x, w):
     return torch.bmm(x.reshape(Pp, B * S, K), w).reshape(Pp, B, S, w.shape[-1])
 
 
-def ssm_mix(p, xn, cfg, pc: ParallelContext, *, state=None):
+def ssm_mix(p, xn, cfg, pc: ParallelContext, *, state=None,
+            differentiable=False):
     """xn: [P,B,S,D] per-path normalised inputs. Returns (partial [B,S,D],
     new_state) where state = (conv_state [P,B,K-1,di], h [P,B,di,N] fp32).
-    When ``state`` is given, runs in stateful (decode) mode."""
+    When ``state`` is given, runs in stateful (decode) mode.
+    ``differentiable`` (the train step's forward) runs the full-sequence
+    recurrence by the sequential ``_scan_seq`` on any device, in place of
+    the scan kernel, which has no backward."""
     Pp, B, S, D = xn.shape
     N, K = cfg.ssm_state, cfg.ssm_conv
     w_in = p["w_in"]
@@ -108,7 +113,7 @@ def ssm_mix(p, xn, cfg, pc: ParallelContext, *, state=None):
     a = torch.exp(dt[..., None] * A[:, None, None])                 # [P,B,S,di,N]
     b = (dt * xc.float())[..., None] * Bt[..., None, :]             # [P,B,S,di,N]
 
-    if state is not None:
+    if state is not None or differentiable:
         y, hT = _scan_seq(a, b, h_prev.float())
     else:
         y2, h2 = ops.ssm_scan(a.reshape(Pp * B, S, di, N),

@@ -11,10 +11,12 @@ JAX package gets the same from XLA aliasing the scan carry).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.model import blocks as B
@@ -100,7 +102,8 @@ def _group_params(sp, seg: Segment, c: int):
 
 def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
                      prefix_len=0, enc_out=None, attn_impl="auto",
-                     emit_cache=False, max_len=0, ctx=None, q0=0):
+                     emit_cache=False, max_len=0, ctx=None, q0=0,
+                     remat=False, differentiable=False):
     """Run all segments over the full sequence. Returns (x, aux, caches):
     caches is a list (one tree per segment, entries stacked to
     [count, ...]) when emit_cache, else None.
@@ -111,7 +114,13 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
     ``ctx``/``q0`` (suffix prefill): cached context kv for absolute
     positions [0, q0), one count-stacked tree per segment in the layout of
     the emitted caches, so every group attends over its own layer's
-    context."""
+    context.
+
+    ``differentiable`` (the train step's forward) goes to every group:
+    torch versions of the kernel sites, so autograd sees the whole stack.
+    ``remat`` checkpoints each group (``torch.utils.checkpoint``, not
+    reentrant): the backward pass recomputes a group's activations instead
+    of keeping them, as the JAX package's ``jax.checkpoint`` per group."""
     caches = [] if emit_cache else None
     aux = 0.0
     ctx = ctx if ctx is not None else [None] * len(segments)
@@ -120,11 +129,18 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
         for c in range(seg.count):
             ctx_g = (None if ctx_seg is None
                      else {name: e[c] for name, e in ctx_seg.items()})
-            x, a, cache = B.apply_group_full(
-                _group_params(sp, seg, c), x, cfg=cfg, group=seg.group,
+            body = functools.partial(
+                B.apply_group_full, cfg=cfg, group=seg.group,
                 dims=dims, pc=pc, positions=positions, prefix_len=prefix_len,
                 enc_out=enc_out, attn_impl=attn_impl, emit_cache=emit_cache,
-                max_len=max_len, ctx_kv=ctx_g, q0=q0)
+                max_len=max_len, ctx_kv=ctx_g, q0=q0,
+                differentiable=differentiable)
+            gp = _group_params(sp, seg, c)
+            if remat:
+                x, a, cache = torch.utils.checkpoint.checkpoint(
+                    body, gp, x, use_reentrant=False)
+            else:
+                x, a, cache = body(gp, x)
             aux = aux + a
             seg_caches.append(cache)
         if emit_cache:

@@ -8,6 +8,8 @@ degree, segments); the functional entry points mirror the JAX package:
   prefill        — forward_full + KV cache emission
   decode_step    — one new token against the ring cache or the paged pool
                    (updated in place)
+  loss_fn        — next-token cross-entropy (+ the MoE aux loss) of a
+                   batch, through the differentiable forward (training)
 
 Two families take more than tokens, as in the JAX package:
   encdec (whisper)  — the encoder (``enc_segments``: bidirectional
@@ -23,7 +25,11 @@ Two families take more than tokens, as in the JAX package:
 Weights live in a ``ModelParams`` module (``init_params`` or
 ``repro_torch.bridge.params_from_numpy``); the functions take it or its
 plain tree. They run where their tensors lie: on a CUDA device through the
-Hopper kernels, on the CPU through the kernels' plain versions.
+Hopper kernels, on the CPU through the kernels' plain versions. The one
+exception is the forward of ``loss_fn(differentiable=True)``, which only
+the train step asks for: the kernels have no backward, so it runs their
+torch versions on any device (the counterparts of the XLA code the JAX
+package's trainer runs).
 """
 from __future__ import annotations
 
@@ -124,7 +130,7 @@ def _head(params, x, cfg, pc: ParallelContext):
 
 
 def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
-             *, attn_impl="auto"):
+             *, attn_impl="auto", differentiable=False):
     """The encoder on frame embeddings [B,T,D] (stub frontend): the
     ``enc_segments`` stack (bidirectional attention), then ``enc_norm``.
     Runs without sequence parallelism, so the output is full-length (the
@@ -134,7 +140,8 @@ def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
     h, _, _ = ST.apply_stack_full(params["enc_segments"], frames,
                                   ms.enc_segments, cfg=ms.cfg, dims=ms.dims,
                                   pc=pc.with_sp(False), positions=pos,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl,
+                                  differentiable=differentiable)
     return apply_norm(h, params["enc_norm"], ms.cfg)
 
 
@@ -144,7 +151,8 @@ def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
 
 def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
                  prefix_embed=None, enc_frames=None, emit_cache=False,
-                 max_len=0, attn_impl="auto", ctx_kv=None, start=0):
+                 max_len=0, attn_impl="auto", ctx_kv=None, start=0,
+                 remat=False, differentiable=False):
     """tokens: [B, S_text] -> (local_logits [B, S_total, V/tp], aux, caches).
 
     prefix_embed (vlm): [B, P, D] patch embeddings, P = ``cfg.prefix_len``,
@@ -164,7 +172,11 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
     ``start`` may be an int32 [B] tensor of PER-ROW context lengths
     (bucketed radix-hit prefill; needs the pinned-tile impl or the flash
     kernel). The emitted cache covers only the suffix (length ``max_len``,
-    local 0 == absolute ``start``)."""
+    local 0 == absolute ``start``).
+
+    ``differentiable`` (the train step only): every kernel site runs its
+    torch version, on any device, so autograd sees the whole forward;
+    ``remat`` checkpoints each decoder group (``stack.apply_stack_full``)."""
     params = as_tree(params)
     cfg = ms.cfg
     prefix_len = cfg.prefix_len if prefix_embed is not None else 0
@@ -189,16 +201,42 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     enc_out = None
     if enc_frames is not None:
-        enc_out = _encoder(params, enc_frames, ms, pc, attn_impl=attn_impl)
+        enc_out = _encoder(params, enc_frames, ms, pc, attn_impl=attn_impl,
+                           differentiable=differentiable)
     x = pc.shard_seq(x)
     x, aux, caches = ST.apply_stack_full(
         params["segments"], x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
         positions=positions, prefix_len=prefix_len, enc_out=enc_out,
         attn_impl=attn_impl, emit_cache=emit_cache, max_len=max_len or S,
-        ctx=ctx_kv, q0=start)
+        ctx=ctx_kv, q0=start, remat=remat, differentiable=differentiable)
     x = pc.phase_in(x)
     logits = _head(params, x, cfg, pc)
     return logits, aux, caches
+
+
+def loss_fn(params, batch, *, ms: ModelStructure, pc: ParallelContext,
+            remat=False, attn_impl="auto", aux_weight=1e-2,
+            differentiable=False):
+    """Mean next-token cross-entropy (+ ``aux_weight`` x the MoE
+    load-balance aux). Returns (loss, {"xent", "aux"}).
+
+    batch: {"tokens": [B,S], "labels": [B,S]} plus optional "prefix"
+    (prefix-LM patch embeddings; their logits are dropped) and "frames"
+    (the encoder's input). labels < 0 are masked out. The train step sets
+    ``differentiable``; without it (the eval step) the kernels run on a
+    CUDA tensor, and they have no backward."""
+    prefix = batch.get("prefix")
+    logits, aux, _ = forward_full(
+        params, batch["tokens"], ms=ms, pc=pc, prefix_embed=prefix,
+        enc_frames=batch.get("frames"), attn_impl=attn_impl, remat=remat,
+        differentiable=differentiable)
+    labels = batch["labels"]
+    if prefix is not None and ms.cfg.prefix_len:
+        logits = logits[:, ms.cfg.prefix_len:]
+    mask = (labels >= 0).float()
+    xent = E.vocab_parallel_xent(logits, labels.clamp_min(0), pc, mask=mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=xent.device)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

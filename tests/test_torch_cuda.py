@@ -534,3 +534,56 @@ def test_moe_card_equals_cpu_on_gpu(cuda, arch):
         res = eng.drain()
         assert eng.prefix is None
         assert [res[r].tolist() for r in rids] == got.tolist()
+
+
+@pytest.mark.parametrize("arch,pairs", [("tinyllama-1.1b", ((1, 2),)),
+                                        ("recurrentgemma-9b", ((0, 1),))])
+def test_differentiable_forward_card_equals_cpu_on_gpu(cuda, arch, pairs):
+    """The train step's forward on the card (torch cores, no kernel) ==
+    the CPU's: loss and every leaf's gradient within 1e-4 (fp32, TF32 off;
+    the GEMMs sum in another order), and one AdamW step of the trainer
+    moves the weights alike: 99.9% of the master weights within 1e-6, every
+    one within 2·lr. The same weights through the kernels (eval,
+    no_grad) give the same loss; under grad mode the kernels refuse."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import tree_leaves, tree_map
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import (make_eval_step, make_train_step,
+                                           state_from_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc = ParallelContext()
+    cfg = reduced_config(get_config(arch), n_layers=4)
+    ms = T.build_structure(cfg, plan=LPPlan(pairs))
+    p_cpu = T.init_params(ms, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out = {}
+    for dev in ("cpu", cuda):
+        w = tree_map(lambda x: x.to(dev).requires_grad_(True), p_cpu.tree())
+        b = {k: x.to(dev) for k, x in batch.items()}
+        loss, _ = T.loss_fn(w, b, ms=ms, pc=pc, differentiable=True)
+        grads = torch.autograd.grad(loss, tree_leaves(w))
+        tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+        st = state_from_params(tree_map(lambda x: x.to(dev), p_cpu.tree()), ms, pc, tc)
+        st, _ = make_train_step(ms, pc, tc)(st, b)
+        ev = make_eval_step(ms, pc)(tree_map(lambda x: x.to(dev), p_cpu.tree()), b)
+        out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                         [x.cpu() for x in tree_leaves(st["master"])], ev["loss"].cpu())
+        if dev == cuda:
+            with pytest.raises(RuntimeError, match="no backward"):
+                T.loss_fn(w, b, ms=ms, pc=pc)
+    (lc, gc, mc, ec), (lg, gg, mg, eg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(eg, lc, atol=1e-4, rtol=1e-4)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    # Adam's first step is about lr·sign(g): an element whose gradient is
+    # near 0 may move the other way (2·lr), the bulk moves alike.
+    d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(mg, mc)])
+    assert d.max() <= 2e-3 + 1e-5
+    assert d.le(1e-6).float().mean() >= 0.999

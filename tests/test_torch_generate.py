@@ -197,6 +197,18 @@ layers = extract_layers(params.tree()["segments"], ms.segments)
 y = IV.apply_intervened(layers, IV.parallel2_plan(4, 0, 3), torch.zeros((1, 6, cfg.d_model)),
                         cfg=cfg, positions=torch.arange(6)[None])
 assert y.shape == (1, 6, cfg.d_model)
+from repro_torch.launch.elastic import supervise
+from repro_torch.launch.train import RunConfig
+from repro_torch.train import checkpoint as CK
+import contextlib, io, tempfile
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    rc = RunConfig(n_layers=4, eff_depth=3, steps=3, seq_len=16, global_batch=2,
+                   finetune_lp_only=True, log_every=100, ckpt_dir=d, device="cpu")
+    out = supervise(rc)
+    assert out["state"]["step"] == 3 and CK.latest_step(d) == 3
+for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
+             "train.checkpoint", "launch.train", "launch.elastic"):
+    assert "repro_torch." + name in sys.modules, name
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules
 assert "repro_torch.core.interventions" in sys.modules
@@ -219,6 +231,10 @@ def test_port_sources_import_no_jax():
     assert SRC / "repro_torch" / "model" / "moe.py" in files
     assert SRC / "repro_torch" / "core" / "interventions.py" in files
     assert SRC / "repro_torch" / "configs" / "whisper_medium.py" in files
+    for name in ("data/synthetic.py", "data/pipeline.py", "train/optimizer.py",
+                 "train/trainer.py", "train/checkpoint.py", "launch/train.py",
+                 "launch/elastic.py"):
+        assert SRC / "repro_torch" / name in files, name
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f}: imports {hits}"
