@@ -189,9 +189,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the training forward and the frozen leaves bit-identical; the eval
      step (kernels) against the differentiable loss, then the fine-tuned
      weights through ``generate``, launches reconciled.
+ 14. tools: ``launch.serve.main`` in this process at tinyllama-1.1b's
+     published widths under plan_for_depth(16) (``SERVE_ARGV``): one-shot,
+     whose tokens equal a direct ``generate`` on the same weights and
+     prompts bit for bit (launches reconciled, prefill and decode held to
+     the H100 roofline of ``analysis.roofline``), then ``--continuous``
+     three times: 16 requests of 32 tokens with the prefix cache and
+     buckets (streams held to ``generate`` under the near-tie rule, trace
+     validated, Prometheus metrics written), then 8 of 16 with ``--spec-k
+     4`` and with ``--degrade-delta``, each with every request finished and
+     every page freed; the dry run of the 40 cells with LP on and off and
+     its report, with its weights + page pool of the continuous engine
+     within 5% of ``torch.cuda.memory_allocated``;
+     ``examples/quickstart_torch.py``. Every run's decode launches at two
+     steps, and its first flash and dual RMSNorm launch at each shape, are
+     held against their plain versions on the same inputs.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phases 9 to 13 after 7. The second-to-last line is the kernels JSON (with
+phases 9 to 14 after 7. The second-to-last line is the kernels JSON (with
 every path's metrics and each phase's seconds), the last line the device
 JSON.
 
@@ -255,7 +270,7 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
 # Layers phase 9 keeps of each model (its first ones): minicpm-2b's 40 are
-# cut by half, granite-34b's 88 to a quarter, so that with phases 10 to 12
+# cut by half, granite-34b's 88 to a quarter, so that with phases 10 to 14
 # the script keeps room in its time limit on a slow host (PERF.md §4);
 # yi-6b keeps its 32.
 DENSE_LAYERS = {"minicpm-2b": 20, "granite-34b": 22}
@@ -317,6 +332,21 @@ TRAIN_CUT_B, TRAIN_CUT_S, TRAIN_CUT_LR = 2, 64, 1e-3
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_NEW = 8, 256, 8, 16
 TRAIN_EVAL_TOL = 2e-3
+# Tools (phase 14): ``launch.serve``'s command line in this process at
+# tinyllama-1.1b's published widths under plan_for_depth(16), one-shot and
+# continuous (plain with the prefix cache and buckets, then speculative,
+# then degraded), the one-card dry run of the 40 cells with its report, and
+# the quickstart example.
+SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--full-config", "--eff-depth", "16",
+              "--batch", "4", "--prompt-len", "128", "--new-tokens", "32"]
+SERVE_REQUESTS = 16
+# The speculative and degraded runs serve 8 requests of 16 new tokens
+# (phase 8 holds both modes at 16 x 32 on this model). Decode steps probed
+# per run: the continuous run takes 124 decode launches, the two shorter
+# runs 30 (fewer verifies if drafts are accepted).
+SERVE_MODE_REQUESTS, SERVE_MODE_NEW = 8, 16
+SERVE_STEPS = {"continuous": (0, 100), "spec": (0, 16), "degraded": (0, 24)}
+MEM_TOL = 0.05      # the dry run's weights + page pool against memory_allocated
 
 
 def log(msg):
@@ -1597,34 +1627,51 @@ def main_path():
 class DecodeProbe:
     """While on, keeps a copy of the inputs and output of the first layer's
     launch of each decode kernel of a path (ring for ``generate``, paged for
-    the engine) at the decode steps ``steps``: the path's own launches on
-    the model's own tensors, and no launch is added for the copy. ``check``
-    then holds each copy against the kernel's plain version on the same
-    inputs (BF16_TOL in bf16), so a wrong body at the model's head shape
-    fails the timed run itself."""
+    the engine) at the decode steps ``steps``, and of the first launch of
+    each wrapper in ``shapes`` at each shape it is given: the path's own
+    launches on the model's own tensors, and no launch is added for the
+    copy. ``check`` then holds each copy against the kernel's plain version
+    on the same inputs (BF16_TOL in bf16), so a wrong body at the model's
+    head shape fails the timed run itself."""
 
-    def __init__(self, ms, paged, steps=(0, 40)):
+    def __init__(self, ms, paged, steps=(0, 40), shapes=()):
         n_single, n_pair, _ = mixer_counts(ms)
         kind = "_paged" if paged else ""
-        self.per_step = {f"decode_attention_pair{kind}": n_pair,
-                         f"decode_attention{kind}": n_single}
-        self.steps, self.kept, self.seen, self.orig = steps, [], {}, {}
+        self.per_step = {name: per for name, per in (
+            (f"decode_attention_pair{kind}", n_pair),
+            (f"decode_attention{kind}", n_single)) if per}
+        self.steps, self.shapes = steps, shapes
+        self.kept, self.firsts, self.seen, self.orig = [], {}, {}, {}
 
     def __enter__(self):
         from repro_torch.kernels import ops
+
+        def copy(x):
+            return x.detach().clone() if hasattr(x, "clone") else x
+
         for name, per in self.per_step.items():
-            if not per:
-                continue
             fn = self.orig[name] = getattr(ops, name)
 
             def probe(*args, name=name, fn=fn, per=per, **kw):
                 out = fn(*args, **kw)
                 i = self.seen[name] = self.seen.get(name, -1) + 1
                 if i % per == 0 and i // per in self.steps:
-                    self.kept.append((name, i // per, [
-                        a.clone() if hasattr(a, "clone") else a for a in args], out.clone()))
+                    self.kept.append((name, i // per, [copy(a) for a in args],
+                                      out.clone()))
                 return out
             setattr(ops, name, probe)
+        for name in self.shapes:
+            fn = self.orig[name] = getattr(ops, name)
+
+            def first(*args, name=name, fn=fn, **kw):
+                out = fn(*args, **kw)
+                key = (name, kw.get("kind"), *(
+                    (tuple(a.shape), a.dtype) for a in args if hasattr(a, "shape")))
+                if key not in self.firsts:
+                    self.firsts[key] = ([copy(a) for a in args],
+                                        {k: copy(v) for k, v in kw.items()}, out.clone())
+                return out
+            setattr(ops, name, first)
         return self
 
     def __exit__(self, *exc):
@@ -1633,20 +1680,31 @@ class DecodeProbe:
             setattr(ops, name, fn)
 
     def check(self, what):
-        """Max abs error over the kept launches; raises if one disagrees or
-        a kernel was not launched at every probed step."""
+        """Max abs error over the kept launches; raises if one disagrees, a
+        decode kernel was not launched at every probed step or a wrapper of
+        ``shapes`` not at all."""
         import torch
         from repro_torch.kernels import ops
         got = sorted((name, step) for name, step, _, _ in self.kept)
-        want = sorted((name, step) for name in self.orig for step in self.steps)
+        want = sorted((name, step) for name in self.per_step for step in self.steps)
         if got != want:
             raise AssertionError(f"{what}: decode launches kept {got}, want {want}")
+        missing = set(self.shapes) - {key[0] for key in self.firsts}
+        if missing:
+            raise AssertionError(f"{what}: {sorted(missing)} not launched")
         errs = []
         for name, step, args, out in self.kept:
             tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
             errs.append(compare(f"[{what}] {name}, decode step {step}, on the model path",
                                 out, getattr(ops, f"{name}_plain")(*args), tol))
+        for (name, _, *shapes), (args, kw, out) in self.firsts.items():
+            tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
+            errs.append(compare(
+                f"[{what}] {name} {' '.join(str(list(s)) for s, _ in shapes)} "
+                f"{kw.get('kind', '')}, first launch at this shape, on the model path",
+                out, getattr(ops, f"{name}_plain")(*args, **kw), tol))
         self.kept.clear()
+        self.firsts.clear()
         return max(errs)
 
 
@@ -3152,6 +3210,264 @@ def train_path():
         "eval_loss": ev, "train_forward_loss": tl, "busy_share": busy}
 
 # ---------------------------------------------------------------------------
+# phase 14: the tools (launch.serve, the dry run and its report, examples)
+# ---------------------------------------------------------------------------
+
+def roofline_share(what, cfg, ms, shape, seconds, smi, *, cache_len):
+    """The least time one H100 could take for one step of ``shape``
+    (``analysis.roofline``: model + attention FLOPs at the bf16 peak, or
+    the bf16 weights and the cache of ``cache_len`` positions at the HBM
+    rate), over the measured ``seconds``."""
+    from repro_torch.analysis.roofline import (Roofline, attention_flops,
+                                               model_flops)
+    from repro_torch.launch.dryrun import meta_elements
+    from repro_torch.model import transformer as T
+    mf = model_flops(cfg, shape)
+    useful = 2.0 * T.param_count(ms) + 2.0 * meta_elements(
+        T.cache_meta(ms, batch=shape.global_batch, max_len=cache_len))
+    rl = Roofline(flops=mf + attention_flops(cfg, shape), bytes_accessed=useful,
+                  model_flops=mf, useful_bytes=useful)
+    share = rl.t_bound / seconds
+    log(f"[tools] {what}: {seconds * 1e3:.3f} ms against a bound of "
+        f"{rl.t_bound * 1e3:.4f} ms ({rl.bottleneck}): {share:.4f} of the "
+        f"H100's peak; {smi}")
+    return {"ms": seconds * 1e3, "bound_ms": rl.t_bound * 1e3,
+            "bound_by": "operations" if rl.bottleneck == "compute" else "bytes",
+            "share": share}
+
+
+def serve_structure(argv):
+    """The structure ``launch.serve.main(argv)`` builds, built here without
+    weights, so that a probe knows a decode step's launches before the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.launch import serve
+    from repro_torch.model import transformer as T
+    args = serve.build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    return T.build_structure(cfg, plan=plan_for_depth(cfg, args.eff_depth), tp=1)
+
+
+def batched_streams(params, ms, prompts, n_new, cache_dtype):
+    """``generate``'s greedy stream of each prompt (numpy arrays), one call
+    per prompt length, in a ring cache of ``cache_dtype``."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=cache_dtype)
+    by_len, out = {}, [None] * len(prompts)
+    for i, prompt in enumerate(prompts):
+        by_len.setdefault(len(prompt), []).append(i)
+    for rows in by_len.values():
+        x = torch.from_numpy(np.stack([prompts[i] for i in rows])).cuda()
+        toks = generate(params, x, n_new, ms=ms, pc=ParallelContext(), sv=sv)
+        for i, row in zip(rows, toks.cpu().numpy()):
+            out[i] = row
+    return out
+
+
+def serve_continuous(what, ms, requests, new, steps, argv=()):
+    """``launch.serve.main`` with ``--continuous``, ``requests`` requests of
+    ``new`` tokens, under a ``DecodeProbe`` of the paged decode launches at
+    ``steps`` and of flash and dual RMSNorm at each shape: every request
+    finishes with all its tokens, and once the radix tree lets go of its
+    pages the pool has freed every page it allocated. Returns (launches,
+    the run)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    with DecodeProbe(ms, paged=True, steps=steps,
+                     shapes=("flash_attention", "dual_rmsnorm")) as probe:
+        run = serve.main(SERVE_ARGV + ["--continuous", "--requests", str(requests),
+                                       "--new-tokens", str(new), *argv])
+    launches = dict(ops.LAUNCHES)
+    run["path_err"] = probe.check(f"serve {what}")   # and drops its copies
+    run["allocated"] = torch.cuda.memory_allocated() - base
+    eng, res = run["engine"], run["results"]
+    c = eng.counters
+    if (c["finished"] != requests or len(res) != requests
+            or any(len(v) != new for v in res.values())):
+        raise AssertionError(f"serve {what}: requests unfinished: {c}")
+    resident = eng.prefix.resident_pages if eng.prefix else 0
+    live = eng.pool.live
+    if eng.prefix:
+        eng.prefix.evict(resident, eng.pool)
+    eng.pool.check_balance()
+    log(f"[tools] serve {what}: {c['finished']}/{requests} finished in "
+        f"{eng.step_count} steps, {run['run_s']:.3f} s; pages alloc/freed "
+        f"{eng.pool.allocated_total}/{eng.pool.freed_total} after evicting the "
+        f"radix tree's {resident} (live before {live}); launches {launches}")
+    if live != resident or eng.pool.allocated_total != eng.pool.freed_total:
+        raise AssertionError(f"serve {what}: pages still held after drain")
+    for name in ("flash_attention", "dual_rmsnorm", "decode_attention_paged",
+                 "decode_attention_pair_paged"):
+        if not launches[name]:
+            raise AssertionError(f"serve {what}: {name} was not launched")
+    return launches, run
+
+
+def tools_path(smi):
+    """Phase 14: (a) ``launch.serve.main`` in this process at full width,
+    one-shot (tokens == a direct ``generate`` on the same weights and
+    prompts, bit for bit; launches reconciled; prefill and decode shares
+    of the H100 roofline), then continuous three times: the prefix cache
+    and buckets (streams held to ``generate`` under the near-tie rule,
+    trace validated, Prometheus metrics written), then ``--spec-k 4`` and
+    ``--degrade-delta`` on fewer, shorter requests; each run under a
+    ``DecodeProbe`` that holds its decode, flash and dual RMSNorm launches
+    against their plain versions at its own shapes; (b) the dry run of the
+    40 cells, LP on and off, the report, and the dry run's weights + page
+    pool of (a)'s continuous engine within MEM_TOL of ``memory_allocated``;
+    (c) the quickstart example on the card, probed in the same way.
+    Returns (launches by path, metrics)."""
+    import contextlib
+    import importlib.util
+    import io
+    import torch
+    from repro_torch.analysis import report
+    from repro_torch.analysis.roofline import HBM_BYTES
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate, validate_trace
+
+    by_path, out = {}, {}
+    shapes = ("flash_attention", "dual_rmsnorm")
+    ms = serve_structure(SERVE_ARGV)
+    new = int(SERVE_ARGV[SERVE_ARGV.index("--new-tokens") + 1])
+    steps = new - 1
+    # (a) one-shot: a warm and a timed generate, 2 x 31 decode steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    with DecodeProbe(ms, paged=False, steps=(0, 2 * steps - 1), shapes=shapes) as probe:
+        run = serve.main(SERVE_ARGV)
+    by_path["serve_oneshot"] = launches = dict(ops.LAUNCHES)
+    path_err = probe.check("serve one-shot")
+    cfg, params = run["cfg"], run["params"]
+    if run["ms"].plan != ms.plan:
+        raise AssertionError(f"serve built {run['ms'].plan}, the probe {ms.plan}")
+    ms = run["ms"]
+    batch, prompt_len = run["prompts"].shape
+    direct = generate(params, run["prompts"].cuda(), new, ms=ms, pc=ParallelContext(),
+                      sv=ServeConfig(max_len=prompt_len + new + 8,
+                                     cache_dtype=torch.bfloat16))
+    same = torch.equal(direct, run["tokens"])
+    n_groups, n_pairs = model_counts(ms)
+    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    want = {"flash_attention": 2 * n_groups,
+            "dual_rmsnorm": 2 * norm_launches(cfg, n_pairs) * (1 + steps),
+            "decode_attention": 2 * steps * n_single,
+            "decode_attention_pair": 2 * steps * n_attn_pairs,
+            "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
+            "ssm_scan": 0}
+    log(f"[tools] serve one-shot {cfg.name} ({n_groups} groups, {n_pairs} pairs), "
+        f"B {batch} x {prompt_len}, {new} new: compile {run['compile_s']:.3f} s, "
+        f"run {run['run_s']:.3f} s; tokens == a direct generate bit for bit: {same}; "
+        f"launches of both calls {launches} (want {want})")
+    if not same:
+        raise AssertionError("launch.serve's tokens differ from a direct generate")
+    if launches != want:
+        raise AssertionError(f"serve one-shot launches {launches} != {want}")
+    out["oneshot"] = {
+        "run_s": run["run_s"], "compile_s": run["compile_s"],
+        "path_max_abs_err": path_err,
+        "prefill": roofline_share(
+            "serve one-shot prefill", cfg, ms,
+            ShapeConfig("serve_prefill", prompt_len, batch, "prefill"),
+            run["prefill_s"], smi, cache_len=prompt_len),
+        "decode": roofline_share(
+            "serve one-shot decode step (mean context)", cfg, ms,
+            ShapeConfig("serve_decode", prompt_len + new // 2, batch, "decode"),
+            run["decode_s"] / steps, smi, cache_len=prompt_len + new // 2)}
+    del run, params, direct
+    # (a) continuous, its streams held to generate, and (b)'s memory model
+    # on its engine
+    trace = ROOT / "build" / "serve_trace.json"
+    prom = ROOT / "build" / "serve_metrics.prom"
+    by_path["serve_continuous"], run = serve_continuous(
+        "continuous", ms, SERVE_REQUESTS, new, SERVE_STEPS["continuous"],
+        ["--trace-out", str(trace), "--metrics-out", str(prom)])
+    validate_trace(json.loads(trace.read_text()))
+    if "finished" not in prom.read_text():
+        raise AssertionError("the Prometheus metrics were not written")
+    eng = run["engine"]
+    held = dryrun.engine_bytes(run["ms"], eng.psv)
+    model = held["weights"] + held["pool"]
+    err = abs(run["allocated"] - model) / model
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[tools] memory: the dry run counts {held['weights']} B of weights + "
+        f"{held['pool']} B of page pool = {model} B; memory_allocated {run['allocated']} B "
+        f"(rel err {err:.4f}, tol {MEM_TOL}); the card's total_memory {total} B "
+        f"beside HBM_BYTES {HBM_BYTES:.0f} B; {smi}")
+    if err > MEM_TOL:
+        raise AssertionError("the dry run's memory model misses the engine's")
+    prompts, res = run["prompts"], run["results"]
+    work = [(0, prompt, new) for prompt in prompts]
+    models = [(run["params"], run["ms"])] * len(work)
+    n_equal = held_to("tools continuous", models, work, [res[r] for r in sorted(res)],
+                      batched_streams(*models[0], prompts, new, torch.bfloat16))
+    log(f"[tools] serve continuous: {n_equal}/{len(work)} streams equal to generate "
+        f"(bf16 ring cache, as the pool) on the card")
+    out["continuous"] = {"run_s": run["run_s"], "steps": eng.step_count,
+                         "counters": eng.counters, "model_bytes": model,
+                         "allocated_bytes": run["allocated"],
+                         "total_memory": total, "path_max_abs_err": run["path_err"],
+                         "streams_equal_to_generate": n_equal}
+    del run, eng, models
+    for argv, name in ((["--spec-k", "4"], "spec"), (["--degrade-delta"], "degraded")):
+        by_path[f"serve_{name}"], run = serve_continuous(
+            name, ms, SERVE_MODE_REQUESTS, SERVE_MODE_NEW, SERVE_STEPS[name], argv)
+        c = run["engine"].counters
+        if not c["verify_steps" if name == "spec" else "degraded_admissions"]:
+            raise AssertionError(f"serve {name}: the mode did not engage: {c}")
+        out[name] = {"run_s": run["run_s"], "steps": run["engine"].step_count,
+                     "counters": c, "path_max_abs_err": run["path_err"]}
+        del run
+    # (b) the dry run and its report
+    t = time.perf_counter()
+    build = ROOT / "build"
+    with contextlib.redirect_stdout(io.StringIO()):     # a line per cell
+        dryrun.main(["--all", "--force", "--out", str(build / "dryrun_torch.json")])
+        dryrun.main(["--all", "--force", "--no-lp",
+                     "--out", str(build / "dryrun_torch_nolp.json")])
+    log(report.render(build))
+    recs = json.loads((build / "dryrun_torch.json").read_text())
+    if len(recs) != 40 or any("error" in r for r in recs.values()):
+        raise AssertionError("the dry run did not write 40 records")
+    out["dryrun"] = {"s": time.perf_counter() - t, "over_budget": sorted(
+        k for k, r in recs.items() if "memory" in r and r["memory"]["over_budget"])}
+    # (c) the quickstart example on the card: 16 new tokens from its
+    # 8-layer model at plan_for_depth(6)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    qcfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=8)
+    qms = T.build_structure(qcfg, plan=plan_for_depth(qcfg, 6), tp=1)
+    ops.reset_launches()
+    with DecodeProbe(qms, paged=False, steps=(0, 14), shapes=shapes) as probe:
+        toks = mod.main(["--device", "cuda", "--steps", "50"])
+    by_path["quickstart"] = dict(ops.LAUNCHES)
+    out["quickstart"] = {"path_max_abs_err": probe.check("quickstart")}
+    log(f"[tools] examples/quickstart_torch.py on the card: generated "
+        f"{tuple(toks.shape)}; launches {by_path['quickstart']}")
+    if toks.device.type != "cuda" or not by_path["quickstart"]["flash_attention"]:
+        raise AssertionError("the quickstart did not run on the card")
+    return by_path, out
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
@@ -3284,6 +3600,10 @@ def main() -> int:
     torch.cuda.empty_cache()                  # whisper's weights are gone
     train = {"cut": phase("13 train cut", train_cut_parity)}
     by_path["train"], train["finetune"] = phase("13 train", train_path)
+    gc.collect()
+    torch.cuda.empty_cache()                  # the training state is gone
+    tools_launches, tools = phase("14 tools", tools_path, smi.splitlines()[0])
+    by_path.update(tools_launches)
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -3304,6 +3624,10 @@ def main() -> int:
                  "decode_attention_pair"):
         if not by_path["train"][name]:
             raise AssertionError(f"{name} was not launched on train")
+    for path in ("serve_oneshot", "serve_continuous", "serve_spec", "serve_degraded"):
+        for name in ("flash_attention", "dual_rmsnorm"):
+            if not by_path[path][name]:
+                raise AssertionError(f"{name} was not launched on {path}")
     for model, names in ((PALI, ("dual_rmsnorm",)), (WHISPER, ())):
         for name in names + ("flash_attention", "decode_attention", "decode_attention_pair"):
             if not by_path[f"{model}_generate"][name]:
@@ -3345,7 +3669,7 @@ def main() -> int:
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
                       "dense": dense, "hybrid": hybrid, "moe": moe,
                       "prefix_encdec": prefix_encdec, "train": train,
-                      "phase_s": phase_s}))
+                      "tools": tools, "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,8 @@ positions), the prefix-LM paligemma-3b (a Gemma decoder behind 256 patch
 embeddings that attend bidirectionally) and the encoder-decoder
 whisper-medium (a bidirectional encoder over 1500 frame embeddings, a
 decoder with cross-attention). Each module is a copy of the JAX package's
-file of the same name."""
+file of the same name, and so is ``shapes.py``: the four input shapes of
+the dry run's 40 (architecture x shape) cells."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
@@ -18,6 +19,13 @@ from repro_torch.configs.base import (  # noqa: F401
     list_archs,
     reduced_config,
     register,
+)
+from repro_torch.configs.shapes import (  # noqa: F401
+    ALL_SHAPES,
+    SHAPES,
+    ShapeConfig,
+    applicable,
+    cells,
 )
 
 # Registration side effects — one module per architecture.
@@ -32,4 +40,17 @@ from repro_torch.configs import (  # noqa: F401
     tinyllama_1b,
     whisper_medium,
     yi_6b,
+)
+
+ASSIGNED_ARCHS = (
+    "yi-6b",
+    "minicpm-2b",
+    "granite-34b",
+    "tinyllama-1.1b",
+    "whisper-medium",
+    "recurrentgemma-9b",
+    "falcon-mamba-7b",
+    "llama4-scout-17b-a16e",
+    "dbrx-132b",
+    "paligemma-3b",
 )

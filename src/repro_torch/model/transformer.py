@@ -33,6 +33,7 @@ package's trainer runs).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -45,7 +46,8 @@ from repro_torch.model import blocks as B
 from repro_torch.model import embedding as E
 from repro_torch.model import stack as ST
 from repro_torch.model.norms import apply_norm
-from repro_torch.model.params import ModelParams, as_tree, init_tree
+from repro_torch.model.params import (ModelParams, as_tree, init_tree,
+                                      tree_leaves, tree_map)
 from repro_torch.parallel.context import ParallelContext
 
 
@@ -107,6 +109,22 @@ def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return ModelParams(init_tree(model_template(ms), generator, dtype, device))
+
+
+def abstract_params(ms: ModelStructure, dtype=torch.bfloat16):
+    """The weights' tree as tensors on the "meta" device: shapes and
+    dtypes, no storage (the counterpart of JAX's ``ShapeDtypeStruct``
+    tree)."""
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=pd.dtype or dtype,
+                                           device="meta"),
+                    model_template(ms))
+
+
+def param_count(ms: ModelStructure) -> int:
+    """Exact number of weights, a Python integer. (The JAX package's
+    ``param_count`` multiplies each shape in int32 and wraps for a leaf of
+    2^31 elements or more: granite-34b, dbrx-132b, falcon-mamba-7b.)"""
+    return sum(math.prod(pd.shape) for pd in tree_leaves(model_template(ms)))
 
 
 # ---------------------------------------------------------------------------

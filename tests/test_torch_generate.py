@@ -206,8 +206,17 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO(
                    finetune_lp_only=True, log_every=100, ckpt_dir=d, device="cpu")
     out = supervise(rc)
     assert out["state"]["step"] == 3 and CK.latest_step(d) == 3
+import contextlib, io
+from repro_torch.launch import dryrun, serve
+from repro_torch.analysis import report
+with contextlib.redirect_stdout(io.StringIO()):
+    assert serve.main(["--device", "cpu", "--new-tokens", "3"])["tokens"].shape == (4, 3)
+assert dryrun.lower_cell("yi-6b", "decode_32k")["memory"]["over_budget"]
+assert "H100" in report.TITLE
 for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
-             "train.checkpoint", "launch.train", "launch.elastic"):
+             "train.checkpoint", "launch.train", "launch.elastic", "launch.serve",
+             "launch.dryrun", "launch.specs", "analysis.roofline", "analysis.report",
+             "configs.shapes"):
     assert "repro_torch." + name in sys.modules, name
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules
@@ -226,6 +235,11 @@ def test_port_sources_import_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
+    examples = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == ["lp_depth_sweep_torch.py",
+                                          "quickstart_torch.py",
+                                          "train_100m_torch.py"]
+    files += examples
     assert len(files) > 10
     assert SRC / "repro_torch" / "model" / "rglru.py" in files
     assert SRC / "repro_torch" / "model" / "moe.py" in files
@@ -233,7 +247,9 @@ def test_port_sources_import_no_jax():
     assert SRC / "repro_torch" / "configs" / "whisper_medium.py" in files
     for name in ("data/synthetic.py", "data/pipeline.py", "train/optimizer.py",
                  "train/trainer.py", "train/checkpoint.py", "launch/train.py",
-                 "launch/elastic.py"):
+                 "launch/elastic.py", "launch/serve.py", "launch/dryrun.py",
+                 "launch/specs.py", "analysis/roofline.py", "analysis/report.py",
+                 "configs/shapes.py"):
         assert SRC / "repro_torch" / name in files, name
     for f in files:
         hits = pat.findall(f.read_text())
