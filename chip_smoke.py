@@ -16,7 +16,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launched alone, in the first 2 and 6 rows (the degraded engine's
      cohorts) and inside a 40-row launch (batch invariance); both are held
      against their plain versions and timed at the speculative verify's
-     shape (8 slots x 5 probe rows = 40 rows). The flash kernel with a
+     shape (8 slots x 5 probe rows = 40 rows). Both paged kernels with a
+     head map (``HEAD_MAP_SHAPES``: tinyllama's heads and its tp = 8
+     rank's, granite-34b's g = 48 at hd 128; the identity, a permutation
+     and repeated heads over a pool of more stored heads than q has) are
+     held against their plain versions and, bit for bit, against the
+     identity launch on a pool whose heads were gathered first, and timed
+     beside it. The flash kernel with a
      per-row q0 tensor of equal entries equals its scalar launch, its rows
      below Lq equal a
      launch cut to Lq (padding transparency, also with junk keys past Lq),
@@ -107,8 +113,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      cohort's plan, and a timed bf16-pool run whose launches reconcile per
      cohort with the engine's spans.
   7. Mamba path: LP falcon-mamba-7b at full width (d 4096, d_inner 8192,
-     N 16, vocab 65024) cut to its first 32 of 64 layers (plan_for_depth
-     24 -> 8 pairs + 16 single layers), random weights made on the card
+     N 16, vocab 65024) cut to its first 16 of 64 layers (plan_for_depth
+     12 -> 4 pairs + 8 single layers), random weights made on the card
      from a seed, after the tinyllama weights are freed. First in fp32
      (~8 GB): the engine
      with phase 6's geometry and traffic, fp32 pool, held stream by stream
@@ -123,9 +129,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths, minicpm cut to its first 20 of 40 layers and granite to its
-     first 22 of 88 (``DENSE_LAYERS``), each under plan_for_depth(3/4 of
-     its layers): 32 -> 24, 20 -> 15, 22 -> 16 groups, bf16 random weights
+     widths, minicpm cut to its first 10 of 40 layers and granite to its
+     first 11 of 88 (``DENSE_LAYERS``), each under plan_for_depth(3/4 of
+     its layers): 32 -> 24, 10 -> 7, 11 -> 8 groups, bf16 random weights
      made on the card from the seed (each model freed before the next):
      phase 5's ``generate`` and phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
@@ -204,9 +210,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``examples/quickstart_torch.py``. Every run's decode launches at two
      steps, and its first flash and dual RMSNorm launch at each shape, are
      held against their plain versions on the same inputs.
+ 15. tensor parallel: serving at tp > 1 with every rank a process of its
+     own on the one card, joined over gloo (NCCL refuses two ranks on one
+     device; the NCCL paths stay unrun and are printed). (a) tinyllama-1.1b
+     at its 22 layers under plan_for_depth(16) at tp = 2 (its 4 kv heads
+     split, 2 a rank), the ranks' shards of phase 6's seeded weights: each
+     rank first checks that gloo takes CUDA tensors for all_reduce SUM and
+     MAX (fp32, bf16, int64, int32), then ``sharded_generate`` (4 x 128,
+     32 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
+     compute, held to tp = 1 in this process (near-tie rule), and timed
+     bf16 runs whose launches reconcile and whose decode launches are held
+     to their plain versions (``DecodeProbe``); (b) cut to 4 layers (one
+     pair, two single layers) at tp = 8: 4 kv heads under 8 ranks are
+     replicated and rank r's q heads read stored head r // 2 through the
+     paged kernels' head map; its tokens (fp32 compute, 16 new) equal tp =
+     1's and every rank launched both paged kernels with its map. All
+     ranks' tokens agree. Times over gloo go through the host: correctness
+     runs, not speed.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
-phases 9 to 14 after 7. The second-to-last line is the kernels JSON (with
+phases 9 to 15 after 7. The second-to-last line is the kernels JSON (with
 every path's metrics and each phase's seconds), the last line the device
 JSON.
 
@@ -259,7 +282,7 @@ MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
 # 64 layers, 48 groups, the phase took 78.9-107.7 s; the cut pays for
 # phase 12, PERF.md §4).
 MAMBA = "falcon-mamba-7b"
-MAMBA_LAYERS, MAMBA_EFF_DEPTH, DI, NS = 32, 24, 8192, 16
+MAMBA_LAYERS, MAMBA_EFF_DEPTH, DI, NS = 16, 12, 8192, 16
 # Dual RMSNorm (D, M) on the paths: tinyllama decode (generate, engine) and
 # prefill (generate's 4 x 128 and the engine's 8 x 64 bucket); falcon-mamba
 # decode, an exact engine admission of 97 tokens, and generate's prefill.
@@ -270,10 +293,10 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
 # Layers phase 9 keeps of each model (its first ones): minicpm-2b's 40 are
-# cut by half, granite-34b's 88 to a quarter, so that with phases 10 to 14
-# the script keeps room in its time limit on a slow host (PERF.md §4);
-# yi-6b keeps its 32.
-DENSE_LAYERS = {"minicpm-2b": 20, "granite-34b": 22}
+# cut to a quarter, granite-34b's 88 to an eighth, so that with phases 10
+# to 15 the script keeps room in its time limit (PERF.md §4; 20 and 22
+# layers until phase 15 came); yi-6b keeps its 32.
+DENSE_LAYERS = {"minicpm-2b": 10, "granite-34b": 11}
 # Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
 # tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
 # recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
@@ -347,6 +370,34 @@ SERVE_REQUESTS = 16
 SERVE_MODE_REQUESTS, SERVE_MODE_NEW = 8, 16
 SERVE_STEPS = {"continuous": (0, 100), "spec": (0, 16), "degraded": (0, 24)}
 MEM_TOL = 0.05      # the dry run's weights + page pool against memory_allocated
+# Paged decode with a head map (phase 3): (model, q's kv heads H, g, hd,
+# stored heads of the pool, {map name: head map}). tinyllama's rank shape at
+# tp = 8 (4 q heads of one replicated kv head: g = 4, map [rank // 2]) and
+# its 4 x 8 heads over a pool of 6; granite-34b's MQA width (g = 48, hd
+# 128: the wide group and two-column-warp bodies) over a pool of 3.
+HEAD_MAP_SHAPES = (
+    ("tinyllama-1.1b", 1, 4, 64, 4, {"rank 5 of 8": [2]}),
+    ("tinyllama-1.1b", 4, 8, 64, 6, {"identity": [0, 1, 2, 3],
+                                     "permutation": [5, 3, 0, 1],
+                                     "repeated": [4, 4, 1, 1]}),
+    ("granite-34b", 2, 48, 128, 3, {"identity": [0, 1], "permutation": [2, 0],
+                                    "repeated": [1, 1]}))
+# Tensor-parallel serving (phase 15): every rank a process on the one card,
+# joined over gloo (NCCL refuses two ranks on one device). (a) tinyllama-1.1b
+# at its 22 layers under plan_for_depth(16) at tp = 2 (kv heads split):
+# sharded_generate (4 x 128, 32 new) and the engine on half of phase 6's
+# traffic (``tp_traffic``: 4 requests of each wave, 32 new); (b) cut to 4
+# layers under plan_for_depth(3) (one pair, two single layers) at tp = 8 (4
+# kv heads under 8 ranks: replicated, head map [rank // 2]), the same with 16
+# new tokens. A decode step costs 0.1-0.2 s over gloo (36 all-reduces
+# through the host at tp = 2), so the runs are short.
+TP_BACKEND, TP_TIMEOUT = "gloo", 300
+TP2, TP2_EFF_DEPTH, TP2_NEW = 2, 16, 32
+TP8, TP8_LAYERS, TP8_EFF_DEPTH, TP8_NEW = 8, 4, 3, 16
+TP_NCCL_NOT_RUN = [
+    "init_context(backend='nccl'): one card per rank, every all_reduce of the "
+    "tp = 2 and tp = 8 paths over NCCL (one card here, and NCCL refuses two "
+    "ranks on one device)"]
 
 
 def log(msg):
@@ -635,6 +686,10 @@ def check_kernels():
             rows[("verify", name, dtype)] = e
             record(name, dtype, e["max_abs_err"], None, None, 0, 0)
         del kr, vr, qp, kp, vp
+        log(f"[kernels] paged decode attention with a head map {dtype}")
+        for (name, key), e in check_head_map(ops, rand, gen, dtype, tol).items():
+            rows[("head_map", name, key, dtype)] = e
+            record(name, dtype, e["max_abs_err"], None, None, 0, 0)
 
         for model, hkv, g, hd in DENSE_SHAPES + MOE_SHAPES + PREFIX_ENCDEC_SHAPES:
             log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
@@ -1158,6 +1213,54 @@ def check_decode_batch_invariance(ops, qp, kp, vp, bt, tv):
         log(f"  decode batch invariance {name} {qp.dtype}: each of {n} rows == "
             f"alone (B = 1) == in the first {DEG_SLOTS} and {N_SLOTS - DEG_SLOTS} "
             f"rows == inside a {5 * n}-row launch, bit for bit")
+
+
+def check_head_map(ops, rand, gen, dtype, tol):
+    """Both paged decode kernels with a head map (``HEAD_MAP_SHAPES``: q's
+    kv heads read stored heads of a pool that holds more than q has), at
+    the engine's 8 slots (ragged t, slot 1 idle), for each map of the shape:
+    held against the plain version, and bit for bit against the identity
+    launch on a pool whose heads were gathered first
+    (``index_select``); timed beside that identity launch, the plain
+    version and the bound (the mapped stored heads' keys read once).
+    Returns {(kernel name, key): entry}."""
+    import torch
+    dt = str(dtype).split(".")[1]
+    out = {}
+    for model, H, g, hd, Hs, maps in HEAD_MAP_SHAPES:
+        qp, _, _, kp, vp, bt, tv = engine_decode_inputs(rand, gen, dtype, Hs, g, hd)
+        qp = qp[:, :, :H]                   # q's H kv heads (strided, as on the path)
+        keys = int((tv + 1).sum())
+        for what, hm_list in maps.items():
+            hm = torch.tensor(hm_list, dtype=torch.int32, device="cuda")
+            kg, vg = (x.index_select(3, hm.long()) for x in (kp, vp))   # gathered pool
+            kv_bytes = 2 * keys * len(set(hm_list)) * hd * kp.element_size()
+            for name, n_kv, q, k, v, k1, v1 in (
+                    ("decode_attention_pair_paged", 2, qp, kp, vp, kg, vg),
+                    ("decode_attention_paged", 1, qp[0], kp[0], vp[0], kg[0], vg[0])):
+                fn, plain_fn = getattr(ops, name), getattr(ops, name + "_plain")
+                run = lambda: fn(q, k, v, bt, tv, hm)   # noqa: E731
+                plain = lambda: plain_fn(q, k, v, bt, tv, hm)   # noqa: E731
+                ident = lambda: fn(q, k1, v1, bt, tv)   # noqa: E731
+                got = run()
+                err = compare(f"{name} head_map {what} {hm_list} ({model}: H={H}, "
+                              f"g={g}, hd={hd}, {Hs} stored heads)", got, plain(), tol)
+                if not torch.equal(got, ident()):
+                    raise AssertionError(f"{name} with head_map {hm_list} differs from "
+                                         "the identity launch on the gathered pool")
+                b_ms, b_by = bound(2 * nbytes(q) + n_kv * kv_bytes + nbytes(bt, tv, hm),
+                                   n_kv * 4 * keys * H * g * hd, dt)
+                out[(name, f"{model} {what}")] = e = {
+                    "shape": f"{N_SLOTS} slots, ragged t, q: {H} kv heads x g={g}, "
+                             f"hd={hd}; pool: {Hs} stored heads; head_map {hm_list}",
+                    "max_abs_err": err, "ms": time_ms(run), "identity_ms": time_ms(ident),
+                    "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by}
+                log(f"  {name} head_map {what} {dt}: == identity launch on the gathered "
+                    f"pool, bit for bit; ms={e['ms']:.5f} identity_ms="
+                    f"{e['identity_ms']:.5f} plain_ms={e['plain_ms']:.5f} "
+                    f"bound_ms={b_ms:.6f} ({b_by})")
+        del qp, kp, vp
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3468,6 +3571,367 @@ def tools_path(smi):
     return by_path, out
 
 # ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving, the ranks as processes on one card
+# ---------------------------------------------------------------------------
+
+def tp_spawn(case, world, timeout=TP_TIMEOUT):
+    """Run ``case`` (a function of ``TP_CASES``) in ``world`` rank processes
+    (``python3 chip_smoke.py --tp-rank <spec>``) joined over ``TP_BACKEND``
+    through a file store under build/tp, all on the one card. Waits for
+    every rank; a rank that fails, or outlives ``timeout``, fails the phase
+    (the others are killed). Prints rank 0's log (every rank's on a
+    failure) and returns the ranks' results in rank order."""
+    import shutil
+    d = ROOT / "build" / "tp" / case
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    procs = []
+    for rank in range(world):
+        spec = {"case": case, "world": world, "rank": rank,
+                "init": f"file://{d / 'store'}", "out": str(d / f"rank{rank}.json")}
+        with open(d / f"rank{rank}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                 json.dumps(spec)], stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + timeout
+    failed = None
+    try:
+        for rank, proc in enumerate(procs):
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if rc != 0 and failed is None:
+                failed = f"rank {rank} of {world} exited with {rc}"
+                break
+    except subprocess.TimeoutExpired:
+        failed = f"a rank of {world} ran past {timeout} s"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank in range(world) if failed else (0,):
+        text = (d / f"rank{rank}.log").read_text()
+        log(f"[tp {case}] rank {rank} of {world}:\n" + "\n".join(
+            f"  | {line}" for line in text.splitlines()[-(400 if rank == 0 else 60):]))
+    if failed:
+        raise AssertionError(f"tensor-parallel {case}: {failed}")
+    return [json.loads((d / f"rank{rank}.json").read_text()) for rank in range(world)]
+
+
+def tp_child(spec):
+    """One rank of ``tp_spawn``: joins the group, runs its case, writes its
+    result. Any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.context import init_context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc = init_context(backend=TP_BACKEND, init_method=spec["init"],
+                      world_size=spec["world"], rank=spec["rank"])
+    out = TP_CASES[spec["case"]](pc)
+    torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def tp_case_probe(pc):
+    """gloo's all-reduce on CUDA tensors, SUM and MAX, in each type the
+    paths reduce (activations in fp32 and bf16, tokens and flags in int64
+    and int32)."""
+    import torch
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int64, torch.int32):
+        x = torch.tensor([pc.rank + 1, -(pc.rank + 1)], device="cuda").to(dt)
+        out[str(dt).split(".")[1]] = {"sum": pc.psum_tp(x).tolist(),
+                                      "max": pc.pmax_tp(x).tolist(),
+                                      "input_kept": x.tolist() == [pc.rank + 1, -(pc.rank + 1)]}
+    return out
+
+
+def tp_probe(got):
+    """The ranks' ``tp_case_probe`` results, right on every rank: the
+    backend takes CUDA tensors for all_reduce SUM and MAX on this card's
+    PyTorch."""
+    w = len(got)
+    want = {"sum": [w * (w + 1) // 2, -(w * (w + 1) // 2)], "max": [w, -1],
+            "input_kept": True}
+    for rank, r in enumerate(got):
+        for dt, res in r["probe"].items():
+            if res != want:
+                raise AssertionError(f"{TP_BACKEND} all_reduce on CUDA {dt}, rank "
+                                     f"{rank}: {res}, want {want}")
+    log(f"[tp] {TP_BACKEND} all_reduce SUM and MAX on CUDA "
+        f"{', '.join(sorted(got[0]['probe']))} tensors: right on {w} ranks")
+    return sorted(got[0]["probe"])
+
+
+def tp_model(pc, n_layers=None, eff_depth=TP2_EFF_DEPTH):
+    """tinyllama-1.1b at its published widths (the first ``n_layers``
+    layers where given) under plan_for_depth(``eff_depth``) at the
+    context's tp, bf16 random weights from the seed made on the card: the
+    rank's shard of the weights tp = 1 makes (``init_params(rank=)``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import plan_for_depth
+    from repro_torch.model import transformer as T
+    cfg = get_config("tinyllama-1.1b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, eff_depth), tp=pc.tp_size)
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda",
+                           rank=pc.rank if pc.tp_size > 1 else None)
+    return cfg, ms, params
+
+
+def tp_traffic(vocab, n_new):
+    """Half of phase 6's traffic: the first 4 requests of each wave (two
+    family members and two cold prompts each; the second wave's family
+    members hit the first's pages), ``n_new`` new tokens each."""
+    work = engine_traffic(vocab, n_new)
+    return work[:4] + work[N_SLOTS:N_SLOTS + 4]
+
+
+def tp_prompts(cfg):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 7),
+                         device="cuda")
+
+
+def tp_streams(pc, cfg, ms, params, work, n_new):
+    """fp32 compute on the bf16 weights: ``sharded_generate``'s tokens
+    (B = 4 x 128, ``n_new`` new) and the engine's streams on ``work`` (fp32
+    ring cache and pool), as lists."""
+    import torch
+    from repro_torch.serve import PagedEngine, ServeConfig, sharded_generate
+    set_compute_dtype(params, torch.float32)
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    gen = sharded_generate(params, tp_prompts(cfg), n_new, ms=ms, pc=pc, sv=sv)
+    eng = PagedEngine(params, ms, engine_config(torch.float32), pc=pc)
+    streams = serve(eng, work)
+    set_compute_dtype(params, torch.bfloat16)
+    return gen.cpu().tolist(), [s.tolist() for s in streams]
+
+
+def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too):
+    """bf16 runs whose launches are counted and reconciled, and whose
+    decode launches at steps 0 and 8 are held against their plain versions
+    (``DecodeProbe``): ``sharded_generate`` (4 x 128, ``n_new`` new; with
+    ``generate_too``) and the engine on ``work``. Returns {path: {launches,
+    head_map_launches, seconds, decode_path_max_abs_err, ...}}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.model import attention as A
+    from repro_torch.serve import PagedEngine, ServeConfig, sharded_generate
+    _, n_pairs = model_counts(ms)
+    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    out = {}
+    if generate_too:
+        sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+        prompts = tp_prompts(cfg)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        timings = {}
+        with DecodeProbe(ms, paged=False, steps=(0, 8)) as probe:
+            sharded_generate(params, prompts, n_new, ms=ms, pc=pc, sv=sv,
+                             timings=timings)
+        steps = n_new - 1
+        reconcile(f"tp={pc.tp_size} rank {pc.rank} sharded_generate",
+                  dict(ops.LAUNCHES),
+                  {"flash_attention": n_single + n_attn_pairs,
+                   "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
+                   "decode_attention": steps * n_single,
+                   "decode_attention_pair": steps * n_attn_pairs,
+                   "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
+                   "ssm_scan": 0})
+        out["generate"] = {"launches": dict(ops.LAUNCHES),
+                           "head_map_launches": dict(ops.HEAD_MAP_LAUNCHES),
+                           "prefill_ms": timings["prefill_s"] * 1e3,
+                           "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
+                           "decode_path_max_abs_err": probe.check(
+                               f"tp={pc.tp_size} rank {pc.rank} sharded_generate")}
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16), pc=pc)
+    steps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with DecodeProbe(ms, paged=True, steps=(0, 8)) as probe:
+        serve(eng, work, steps)
+    wall_s = time.perf_counter() - t0
+    launches, hm = dict(ops.LAUNCHES), dict(ops.HEAD_MAP_LAUNCHES)
+    err = probe.check(f"tp={pc.tp_size} rank {pc.rank} engine")
+    c = eng.counters
+    prefill_launches = c["bucket_groups"] + (c["full_prefills"] + c["suffix_prefills"]
+                                             - c["bucket_prefills"])
+    decode_launches = sum(1 for _, st in steps if st["decoded"])
+    reconcile(f"tp={pc.tp_size} rank {pc.rank} engine", launches, {
+        "dual_rmsnorm": norm_launches(cfg, n_pairs) * (prefill_launches + decode_launches),
+        "decode_attention": 0, "decode_attention_pair": 0,
+        "decode_attention_paged": n_single * decode_launches,
+        "decode_attention_pair_paged": n_attn_pairs * decode_launches,
+        "flash_attention": (n_single + n_attn_pairs) * prefill_launches,
+        "ssm_scan": 0})
+    want_hm = ({"decode_attention_paged": launches["decode_attention_paged"],
+                "decode_attention_pair_paged": launches["decode_attention_pair_paged"]}
+               if A.paged_head_map(ms.dims, pc) is not None else
+               {"decode_attention_paged": 0, "decode_attention_pair_paged": 0})
+    if hm != want_hm:
+        raise AssertionError(f"rank {pc.rank}: head-mapped launches {hm} != {want_hm}")
+    resident = eng.prefix.resident_pages if eng.prefix else 0
+    live = eng.pool.live
+    if eng.prefix:
+        eng.prefix.evict(resident, eng.pool)
+    eng.pool.check_balance()
+    if live != resident or eng.pool.live != 0:
+        raise AssertionError(f"rank {pc.rank}: pages still held after drain")
+    out["engine"] = {"launches": launches, "head_map_launches": hm,
+                     **decode_metrics(wall_s, steps), "decoded": c["decoded"],
+                     "prefix_hits": c["prefix_hits"],
+                     "bucket_groups": c["bucket_groups"],
+                     "decode_path_max_abs_err": err}
+    return out
+
+
+def tp_case_tp2(pc):
+    """Rank of (a): first the probe (``tp_case_probe``), then tinyllama-1.1b,
+    22 layers, plan_for_depth(16), at tp = 2 (kv heads split: 2 of the 4 a
+    rank)."""
+    probe = tp_case_probe(pc)
+    cfg, ms, params = tp_model(pc)
+    work = tp_traffic(cfg.vocab_size, TP2_NEW)
+    log(f"[tp2] rank {pc.rank}: {ms.dims}")
+    gen, streams = tp_streams(pc, cfg, ms, params, work, TP2_NEW)
+    return {"probe": probe, "generate": gen, "engine": streams,
+            "timed": tp_timed(pc, cfg, ms, params, work, TP2_NEW, generate_too=True),
+            "weights_bytes": sum(p.numel() * p.element_size() for p in params.parameters())}
+
+
+def tp_case_tp8(pc):
+    """Rank of (b): tinyllama-1.1b cut to ``TP8_LAYERS`` layers under
+    plan_for_depth(``TP8_EFF_DEPTH``) at tp = 8: 4 kv heads under 8 ranks,
+    replicated, each rank's 4 q heads reading stored head rank // 2 through
+    the paged kernels' head map."""
+    from repro_torch.model import attention as A
+    cfg, ms, params = tp_model(pc, TP8_LAYERS, TP8_EFF_DEPTH)
+    work = tp_traffic(cfg.vocab_size, TP8_NEW)
+    hm = A.paged_head_map(ms.dims, pc)
+    log(f"[tp8] rank {pc.rank}: {ms.dims}, paged head map {hm}")
+    gen, streams = tp_streams(pc, cfg, ms, params, work, TP8_NEW)
+    timed = tp_timed(pc, cfg, ms, params, work, TP8_NEW, generate_too=False)
+    return {"generate": gen, "engine": streams, "timed": timed, "head_map": list(hm)}
+
+
+TP_CASES = {"tp2": tp_case_tp2, "tp8": tp_case_tp8}
+
+
+def tp_reference(n_new, n_layers=None, eff_depth=TP2_EFF_DEPTH):
+    """tp = 1 in this process on the same weights: the fp32-compute streams
+    the ranks are held to, and the model (for ``held_to``'s near-tie
+    check)."""
+    from repro_torch.parallel.context import ParallelContext
+    pc = ParallelContext()
+    cfg, ms, params = tp_model(pc, n_layers, eff_depth)
+    work = tp_traffic(cfg.vocab_size, n_new)
+    gen, streams = tp_streams(pc, cfg, ms, params, work, n_new)
+    return cfg, ms, params, work, gen, streams
+
+
+def tp_check_ranks(what, got):
+    """Every rank returned the same tokens (host decisions agree)."""
+    for rank, r in enumerate(got[1:], 1):
+        if r["generate"] != got[0]["generate"] or r["engine"] != got[0]["engine"]:
+            raise AssertionError(f"{what}: rank {rank}'s tokens differ from rank 0's")
+
+
+def tp_launches(got):
+    """Launches summed over the ranks, per path, and the head-mapped ones."""
+    paths = {}
+    for path in got[0]["timed"]:
+        paths[path] = {k: sum(r["timed"][path]["launches"][k] for r in got)
+                       for k in got[0]["timed"][path]["launches"]}
+        paths[path + ":head_map"] = {
+            k: sum(r["timed"][path]["head_map_launches"][k] for r in got)
+            for k in got[0]["timed"][path]["head_map_launches"]}
+    return paths
+
+
+def tp_path():
+    """Phase 15: tensor-parallel serving over ``TP_BACKEND``, every rank a
+    process on the one card. (a) tp = 2, tinyllama at 22 layers: streams in
+    fp32 compute held to tp = 1 (near-tie rule), timed bf16 runs probed;
+    (b) tp = 8 at ``TP8_LAYERS`` layers: the head-mapped paged kernels on
+    every rank, tokens == tp = 1. Returns ({path: launches}, metrics)."""
+    import numpy as np
+    import torch
+    by_path = {}
+
+    # (a) tp = 2 at 22 layers, after the probe
+    t = time.perf_counter()
+    cfg, ms, params, work, gen1, eng1 = tp_reference(TP2_NEW)
+    ref_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = tp_spawn("tp2", TP2)
+    tp2_s = time.perf_counter() - t
+    metrics = {"backend": TP_BACKEND, "probe_dtypes": tp_probe(got),
+               "nccl_not_run": TP_NCCL_NOT_RUN}
+    tp_check_ranks("tp=2", got)
+    gen_work = [(0, p, TP2_NEW) for p in tp_prompts(cfg).cpu().numpy()]
+    models = [(params, ms)] * len(work)
+    set_compute_dtype(params, torch.float32)
+    n_gen = held_to("tp2 sharded_generate", models[:B], gen_work,
+                    [np.array(x) for x in got[0]["generate"]], [np.array(x) for x in gen1])
+    n_eng = held_to("tp2 engine", models, work, [np.array(x) for x in got[0]["engine"]],
+                    [np.array(x) for x in eng1])
+    set_compute_dtype(params, torch.bfloat16)
+    del params
+    for path, launches in tp_launches(got).items():
+        by_path[f"tp2_{path}"] = launches
+    metrics["tp2"] = {"world": TP2, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
+                      "tp1_reference_s": ref_s, "run_s": tp2_s,
+                      "generate_equal": n_gen, "generate_streams": B,
+                      "engine_equal": n_eng, "engine_streams": len(work),
+                      "rank0": got[0]["timed"], "rank_weights_bytes": got[0]["weights_bytes"]}
+    log(f"[tp2] {TP_BACKEND}, world {TP2}: sharded_generate {n_gen}/{B} and engine "
+        f"{n_eng}/{len(work)} streams equal to tp = 1 (fp32 compute; the rest at "
+        f"near-ties); tp = 1 reference {ref_s:.1f} s, ranks {tp2_s:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) tp = 8 at TP8_LAYERS layers: replicated kv, head-mapped paged decode
+    t = time.perf_counter()
+    cfg, ms, params, work, gen1, eng1 = tp_reference(TP8_NEW, TP8_LAYERS, TP8_EFF_DEPTH)
+    ref_s = time.perf_counter() - t
+    del params
+    t = time.perf_counter()
+    got = tp_spawn("tp8", TP8)
+    tp8_s = time.perf_counter() - t
+    tp_check_ranks("tp=8", got)
+    if got[0]["generate"] != gen1 or got[0]["engine"] != eng1:
+        raise AssertionError("tp = 8 tokens differ from tp = 1")
+    for rank, r in enumerate(got):
+        hm = r["timed"]["engine"]["head_map_launches"]
+        if r["head_map"] != [rank // 2] or not all(hm.values()):
+            raise AssertionError(f"tp = 8 rank {rank}: head map {r['head_map']}, "
+                                 f"head-mapped launches {hm}")
+    for path, launches in tp_launches(got).items():
+        by_path[f"tp8_{path}"] = launches
+    metrics["tp8"] = {"world": TP8, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
+                      "tp1_reference_s": ref_s, "run_s": tp8_s,
+                      "tokens_equal_tp1": True, "rank0": got[0]["timed"],
+                      "head_maps": [r["head_map"] for r in got]}
+    log(f"[tp8] {TP_BACKEND}, world {TP8}: tokens == tp = 1 (sharded_generate "
+        f"{B} x {TP8_NEW}, engine {len(work)} streams); every rank launched both "
+        f"paged kernels with its head map [rank // 2]; tp = 1 reference {ref_s:.1f} s, "
+        f"ranks {tp8_s:.1f} s")
+    log(f"[tp] backend {TP_BACKEND} over the host, not NCCL: correctness runs, not "
+        f"speed. Paths no card ran: {'; '.join(TP_NCCL_NOT_RUN)}")
+    return by_path, metrics
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "dual_rmsnorm": ("cuda", "src/repro_torch/csrc/dual_rmsnorm.cu",
@@ -3520,6 +3984,8 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     from repro_torch.kernels import build   # fails outside a checkout of the repo
+    if sys.argv[1:2] == ["--tp-rank"]:          # one rank of phase 15
+        return tp_child(json.loads(sys.argv[2]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -3604,6 +4070,13 @@ def main() -> int:
     torch.cuda.empty_cache()                  # the training state is gone
     tools_launches, tools = phase("14 tools", tools_path, smi.splitlines()[0])
     by_path.update(tools_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches_by_path, tp = phase("15 tensor parallel", tp_path)
+    head_map_by_path = {k.split(":")[0]: v for k, v in tp_launches_by_path.items()
+                        if k.endswith(":head_map")}
+    by_path.update({k: v for k, v in tp_launches_by_path.items()
+                    if not k.endswith(":head_map")})
     for name in KERNELS:
         if not sum(p[name] for p in by_path.values()):
             raise AssertionError(f"{name} was launched on no main path")
@@ -3624,6 +4097,17 @@ def main() -> int:
                  "decode_attention_pair"):
         if not by_path["train"][name]:
             raise AssertionError(f"{name} was not launched on train")
+    for path, names in (("tp2_generate", ("decode_attention", "decode_attention_pair")),
+                        ("tp2_engine", ("decode_attention_paged",
+                                        "decode_attention_pair_paged")),
+                        ("tp8_engine", ("decode_attention_paged",
+                                        "decode_attention_pair_paged"))):
+        for name in names + ("flash_attention", "dual_rmsnorm"):
+            if not by_path[path][name]:
+                raise AssertionError(f"{name} was not launched on {path}")
+    for name in ("decode_attention_paged", "decode_attention_pair_paged"):
+        if not head_map_by_path["tp8_engine"][name]:
+            raise AssertionError(f"{name} took no head map on tp8_engine")
     for path in ("serve_oneshot", "serve_continuous", "serve_spec", "serve_degraded"):
         for name in ("flash_attention", "dual_rmsnorm"):
             if not by_path[path][name]:
@@ -3653,6 +4137,11 @@ def main() -> int:
         if name in ("decode_attention_paged", "decode_attention_pair_paged"):
             kernels[-1]["verify"] = {str(d).split(".")[1]: rows[("verify", name, d)]
                                      for d in (torch.bfloat16, torch.float32)}
+            kernels[-1]["head_map_launches_by_path"] = {
+                k: p[name] for k, p in head_map_by_path.items()}
+            kernels[-1]["head_map"] = {
+                f"{k[2]} {str(k[3]).split('.')[1]}": e for k, e in rows.items()
+                if k[0] == "head_map" and k[1] == name}
         at_dense = {f"{k[3]} {k[2]}": {**e, "fp32_max_abs_err": rows[(*k[:4], torch.float32)]
                                        ["max_abs_err"]}
                     for k, e in rows.items()
@@ -3669,7 +4158,7 @@ def main() -> int:
                       "mamba": {"generate": mamba_gen, "engine": mamba_eng},
                       "dense": dense, "hybrid": hybrid, "moe": moe,
                       "prefix_encdec": prefix_encdec, "train": train,
-                      "tools": tools, "phase_s": phase_s}))
+                      "tools": tools, "tensor_parallel": tp, "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,12 @@ cross-attention layers sit in the decoder's segments), with segment leaves
 stacked ``[count, (2,) ...]`` as ``transformer.model_template`` builds
 them — which is the port's structure too, so both packages then compute
 the same function.
+
+At tp > 1 (``shard_from_numpy``) the tree is the GLOBAL one the JAX
+package builds for a tp-structured model, and each rank keeps its shard:
+every leaf is cut on the host along its split axis
+(``transformer.param_pspecs``) before anything is copied, so no process
+puts another rank's shard on the card.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.model.params import ModelParams, tree_map
+from repro_torch.model.params import ModelParams, shard_tree, tree_map
 
 
 def _tensor(a, device, dtype):
@@ -33,3 +39,13 @@ def params_from_numpy(tree, *, device="cuda",
     """numpy param tree -> ``ModelParams`` on ``device`` (the card unless
     the caller asks for "cpu"), cast to ``dtype`` when given."""
     return ModelParams(tree_map(lambda a: _tensor(a, device, dtype), tree))
+
+
+def shard_from_numpy(tree, ms, rank: int, *, device="cuda",
+                     dtype: Optional[torch.dtype] = None) -> ModelParams:
+    """Rank ``rank``'s shard of a GLOBAL numpy param tree of the structure
+    ``ms`` (built at its tp, as the JAX package's ``init_params`` makes
+    it), as ``ModelParams`` on ``device``."""
+    from repro_torch.model.transformer import param_pspecs
+    return params_from_numpy(shard_tree(tree, param_pspecs(ms), ms.tp, rank),
+                             device=device, dtype=dtype)

@@ -132,6 +132,9 @@ def apply_intervened(layer_params: Sequence[PyTree], plan: Sequence[LayerGroup],
     the model's own stack; parallel groups implement the k-way PAR / TP
     forms."""
     pc = pc or ParallelContext()
+    if pc.tp_size != 1:
+        raise NotImplementedError("interventions under tensor parallelism are "
+                                  "not ported yet: ROADMAP item 10")
     dims = A.attn_dims(cfg, pc.tp_size)
     specs = cfg.layer_specs()
     for g in plan:

@@ -12,7 +12,12 @@
 //                                        (pool [P, n_pages, ps, Hkv, hd])
 // The paged form reads each row's horizon t[b] and its block table from
 // device memory (no host scalar), and both halves of a pair use the same
-// block table at their own half of the pool.
+// block table at their own half of the pool. It may also take a head map
+// hm [Hkv] in device memory (the JAX kernel's third scalar-prefetch
+// operand): q's kv head h then reads the pool's stored head hm[h], and the
+// pool may hold more stored heads than q has kv heads. A tensor-parallel
+// rank over replicated kv heads selects its head(s) this way, with no
+// per-rank copy of the pool; both halves of a pair share the map.
 //
 // What bounds it on the card: bytes in principle. Each row reads its cache
 // keys and values once (positions 0..t) and does 4*g*hd flops per key,
@@ -154,6 +159,7 @@ struct DecodeArgs {
   int t;            // ring: the horizon shared by every row
   const int* bt;    // paged: block tables [B, n_pg], device memory
   const int* tv;    // paged: per-row horizons [B], device memory
+  const int* hm;    // paged: q's kv head h reads stored head hm[h] [H]; nullptr: h
   int n_pg, ps;
   float scale;
   int stages;       // chunk buffers (1 or 2)
@@ -258,10 +264,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2] +
                r.h0 * a.qs[3];
   // Ring: the row's cache starts at its batch index; paged: the block
-  // table picks a page per position.
-  const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + h * a.ks[3] +
+  // table picks a page per position, and the head map (where one is given)
+  // the pool's stored head.
+  const int hs = kPaged && a.hm != nullptr ? a.hm[h] : h;
+  const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + hs * a.ks[3] +
                (kPaged ? 0 : b * a.ks[1]);
-  const T* v = static_cast<const T*>(a.v) + p * a.vs[0] + h * a.vs[3] +
+  const T* v = static_cast<const T*>(a.v) + p * a.vs[0] + hs * a.vs[3] +
                (kPaged ? 0 : b * a.vs[1]);
   const int* bt = kPaged ? a.bt + static_cast<long long>(b) * a.n_pg : nullptr;
   const int t = kPaged ? a.tv[b] : a.t;
@@ -507,9 +515,11 @@ __global__ void __launch_bounds__(kWide ? 32 * kMaxMmaWarps : 32 * col_warps(HD)
   const int p = r.p, b = r.b, h = r.h;
   const T* q = static_cast<const T*>(a.q) + p * a.qs[0] + b * a.qs[1] + h * a.qs[2] +
                r.h0 * a.qs[3];
-  const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + h * a.ks[3] +
+  // The pool's stored head: through the head map where one is given.
+  const int hs = kPaged && a.hm != nullptr ? a.hm[h] : h;
+  const T* k = static_cast<const T*>(a.k) + p * a.ks[0] + hs * a.ks[3] +
                (kPaged ? 0 : b * a.ks[1]);
-  const T* v = static_cast<const T*>(a.v) + p * a.vs[0] + h * a.vs[3] +
+  const T* v = static_cast<const T*>(a.v) + p * a.vs[0] + hs * a.vs[3] +
                (kPaged ? 0 : b * a.vs[1]);
   const int* bt = kPaged ? a.bt + static_cast<long long>(b) * a.n_pg : nullptr;
   const int t = kPaged ? a.tv[b] : a.t;
@@ -918,21 +928,24 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       float scale, void* stream) {
   if (G <= 0 || L <= 0 || t < 0) return -1;
   DecodeArgs a{q, k, v, o, P, B, H, G, L, {}, {}, {}, {},
-               t, nullptr, nullptr, 0, 0, scale, 1, G, 1};
+               t, nullptr, nullptr, nullptr, 0, 0, scale, 1, G, 1};
   return dispatch<false>(a, dtype, hd, strides, stream);
 }
 
-// Paged form: k/v are the pool [P, n_pages, ps, H, hd] through strides;
-// bt [B, n_pg] and tv [B] are int32 in device memory. Same return codes.
+// Paged form: k/v are the pool [P, n_pages, ps, Hs, hd] through strides;
+// bt [B, n_pg] and tv [B] are int32 in device memory, and so is the head
+// map hm [H] (q's kv head h reads stored head hm[h] < Hs), or nullptr for
+// the identity (Hs == H). Same return codes.
 extern "C" int repro_decode_attention_paged(const void* q, const void* k,
                                             const void* v, void* o,
                                             const int* bt, const int* tv,
-                                            int dtype, int P, int B, int H,
-                                            int G, int n_pg, int ps, int hd,
+                                            const int* hm, int dtype, int P,
+                                            int B, int H, int G, int n_pg,
+                                            int ps, int hd,
                                             const long long* strides,
                                             float scale, void* stream) {
   if (G <= 0 || n_pg <= 0 || ps <= 0) return -1;
   DecodeArgs a{q, k, v, o, P, B, H, G, n_pg * ps, {}, {}, {}, {},
-               0, bt, tv, n_pg, ps, scale, 1, G, 1};
+               0, bt, tv, hm, n_pg, ps, scale, 1, G, 1};
   return dispatch<true>(a, dtype, hd, strides, stream);
 }

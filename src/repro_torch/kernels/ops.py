@@ -11,6 +11,8 @@ There is no fallback and no switch that runs the plain version on a CUDA
 tensor. ``LAUNCHES`` counts kernel launches per wrapper; it moves only where
 a kernel is launched, so a run can show which kernels its path went
 through (``reset_launches`` before the run, read after).
+``HEAD_MAP_LAUNCHES`` counts, beside it, the paged decode launches that
+took a head map (a tensor-parallel rank over replicated kv heads).
 
 The kernels are called through ctypes, so autograd does not see them: their
 outputs carry no ``grad_fn``. Every wrapper therefore raises on an input off
@@ -29,11 +31,14 @@ LAUNCHES = {"dual_rmsnorm": 0, "decode_attention": 0,
             "decode_attention_pair": 0, "decode_attention_paged": 0,
             "decode_attention_pair_paged": 0, "flash_attention": 0,
             "ssm_scan": 0}
+HEAD_MAP_LAUNCHES = {"decode_attention_paged": 0,
+                     "decode_attention_pair_paged": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, HEAD_MAP_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -157,44 +162,47 @@ decode_attention_paged_plain = ref.decode_attention_paged_ref
 decode_attention_pair_paged_plain = ref.decode_attention_pair_paged_ref
 
 
-def _no_head_map(head_map):
+def _paged(name, q, k_pages, v_pages, block_tables, t_valid, head_map):
+    """Dispatch one paged decode entry (``name``): q [P, B, Hkv, g, hd] and
+    the pool [P, n_pages, ps, Hs, hd] with the pair axis P; ``head_map``
+    (int32 [Hkv] on the inputs' device, or None) is checked on every
+    device before it is used."""
+    from repro_torch.kernels import decode_attention as K
     if head_map is not None:
-        raise NotImplementedError("head_map selects replicated kv heads under "
-                                  "tensor parallelism, which is not ported")
+        K.check_head_map(head_map, q.shape[2], k_pages.shape[3], q.device)
+    if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
+        return torch.stack([ref.decode_attention_paged_ref(
+            q[i], k_pages[i], v_pages[i], block_tables, t_valid, head_map)
+            for i in range(q.shape[0])])
+    o = K.launch_paged(q, k_pages, v_pages, block_tables, t_valid, head_map)
+    LAUNCHES[name] += 1
+    if head_map is not None:
+        HEAD_MAP_LAUNCHES[name] += 1
+    return o
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_tables, t_valid,
                            head_map=None):
-    """q: [B, Hkv, g, hd]; k/v_pages: [n_pages, ps, Hkv, hd]; block_tables
+    """q: [B, Hkv, g, hd]; k/v_pages: [n_pages, ps, Hs, hd]; block_tables
     [B, n_pg] and t_valid [B], int32, on the same device -> [B, Hkv, g, hd].
-    Each row attends to its positions 0..t_valid[b]."""
-    _no_head_map(head_map)
-    if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
-        return decode_attention_paged_plain(q, k_pages, v_pages, block_tables,
-                                            t_valid)
-    from repro_torch.kernels import decode_attention as K
-    o = K.launch_paged(q[None], k_pages[None], v_pages[None], block_tables,
-                       t_valid)[0]
-    LAUNCHES["decode_attention_paged"] += 1
-    return o
+    Each row attends to its positions 0..t_valid[b]. ``head_map``: an
+    optional int32 [Hkv] tensor on the same device; q's kv head h then reads
+    the pool's stored head ``head_map[h]`` (without one, Hs == Hkv)."""
+    return _paged("decode_attention_paged", q[None], k_pages[None],
+                  v_pages[None], block_tables, t_valid, head_map)[0]
 
 
 def decode_attention_pair_paged(q, k_pages, v_pages, block_tables, t_valid,
                                 head_map=None):
     """Fused paged LP-pair decode: q [2, B, Hkv, g, hd]; k/v_pages
-    [2, n_pages, ps, Hkv, hd] (the stacked pair pool, one block table for
-    both halves) -> [2, B, Hkv, g, hd] in one kernel launch."""
-    _no_head_map(head_map)
+    [2, n_pages, ps, Hs, hd] (the stacked pair pool, one block table and
+    one optional head map for both halves) -> [2, B, Hkv, g, hd] in one
+    kernel launch."""
     if q.shape[0] != 2 or k_pages.shape[0] != 2:
         raise ValueError(f"pair decode shapes {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}")
-    if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
-        return decode_attention_pair_paged_plain(q, k_pages, v_pages,
-                                                 block_tables, t_valid)
-    from repro_torch.kernels import decode_attention as K
-    o = K.launch_paged(q, k_pages, v_pages, block_tables, t_valid)
-    LAUNCHES["decode_attention_pair_paged"] += 1
-    return o
+    return _paged("decode_attention_pair_paged", q, k_pages, v_pages,
+                  block_tables, t_valid, head_map)
 
 
 # ---------------------------------------------------------------------------

@@ -92,20 +92,27 @@ def gather_pages(pages, block_tables):
     return g.reshape(g.shape[0], -1, *g.shape[3:])
 
 
-def decode_attention_paged_ref(q, k_pages, v_pages, block_tables, t_valid):
-    """Paged form: q [B, Hkv, g, hd]; k/v_pages [n_pages, ps, Hkv, hd];
-    block_tables [B, n_pg]; t_valid [B] per-row horizons. Gathers each
-    row's pages into [B, L] and applies the ring math."""
+def decode_attention_paged_ref(q, k_pages, v_pages, block_tables, t_valid,
+                               head_map=None):
+    """Paged form: q [B, Hkv, g, hd]; k/v_pages [n_pages, ps, Hs, hd];
+    block_tables [B, n_pg]; t_valid [B] per-row horizons; head_map: an
+    optional [Hkv] int map from q's kv head h to the pool's stored head
+    ``head_map[h]`` (without one, Hs == Hkv). Gathers each row's pages (and
+    the mapped heads) into [B, L, Hkv, hd] and applies the ring math."""
+    if head_map is not None:
+        k_pages = k_pages.index_select(2, head_map.long())
+        v_pages = v_pages.index_select(2, head_map.long())
     return decode_attention_ref(q, gather_pages(k_pages, block_tables),
                                 gather_pages(v_pages, block_tables), t_valid)
 
 
 def decode_attention_pair_paged_ref(q, k_pages, v_pages, block_tables,
-                                    t_valid):
-    """Pair form over the stacked pool [2, n_pages, ps, Hkv, hd], one block
-    table shared by both halves: q [2, B, Hkv, g, hd] -> [2, B, Hkv, g, hd]."""
+                                    t_valid, head_map=None):
+    """Pair form over the stacked pool [2, n_pages, ps, Hs, hd], one block
+    table and one head map shared by both halves: q [2, B, Hkv, g, hd] ->
+    [2, B, Hkv, g, hd]."""
     return torch.stack([decode_attention_paged_ref(
-        q[i], k_pages[i], v_pages[i], block_tables, t_valid)
+        q[i], k_pages[i], v_pages[i], block_tables, t_valid, head_map)
         for i in range(2)])
 
 

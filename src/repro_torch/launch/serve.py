@@ -17,7 +17,8 @@ versions, on the reduced config unless ``--full-config``. The weights are
 random bf16 from a generator seeded with 0, the synthetic prompts come from
 a CPU generator seeded with 1 (the JAX package draws both from threefry,
 which torch cannot replay), and the cache takes the weights' type. Only
-``--mesh 1x1`` runs: tensor-parallel serving is ROADMAP item 10.
+``--mesh 1x1`` runs: the command line does not start the rank processes
+of tensor-parallel serving (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -72,8 +73,10 @@ def check_mesh(spec: str) -> None:
             "(data-parallel serving means running engine replicas)")
     if m > 1:
         raise NotImplementedError(
-            f"mesh {spec!r}: tensor-parallel serving is not ported yet: "
-            "ROADMAP item 10")
+            f"mesh {spec!r}: the command line does not launch the {m} rank "
+            "processes of tensor-parallel serving yet (ROADMAP item 10); "
+            "serve.sharded_generate and PagedEngine(pc=) run at tp > 1 in "
+            "processes the caller starts")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-size", type=int, default=16,
                     help="(--continuous) tokens per cache page")
     ap.add_argument("--mesh", default="1x1",
-                    help="1xM device mesh; only 1x1 runs (tensor-parallel "
-                         "serving is ROADMAP item 10)")
+                    help="1xM device mesh; only 1x1 runs (launching the "
+                         "tensor-parallel ranks is ROADMAP item 10)")
     ap.add_argument("--preempt-after", type=int, default=0,
                     help="(--continuous) blocked-head steps before the "
                          "youngest running request is preempted (0 = off)")

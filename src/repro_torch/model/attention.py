@@ -5,6 +5,18 @@ layout [B,S,Hk,g,hd] (g query heads per kv head), LP pairs as a leading pair
 axis on the weights with the pair folded pair-major into the head axis, and
 the pair's output projection as per-path gemms plus one add.
 
+Tensor parallelism (JAX's conventions, per rank):
+  * q heads are padded to a multiple of tp (zero ``wo`` rows make the
+    padded heads inert) and split over the ranks: hq = hq_global // tp;
+  * kv heads are split when n_kv >= tp (padded likewise), and replicated
+    otherwise: every rank projects and stores all n_kv heads and selects
+    the one its q heads read (``select_local_kv``: a view of one head),
+    or, where the rank's q heads span kv groups, one kv head per q head
+    (``per_head``: a gather). The paged decode kernel takes that selection
+    as its head map (``paged_head_map``), so the pool is never copied;
+  * ``wo`` splits its rows, so each rank returns a partial sum (with
+    ``bo / tp``) that the caller's phase_out adds up.
+
 Kernels: on a CUDA tensor ``attention_core`` runs the flash kernel for every
 impl (a pinned ``"chunked:<kb>"`` becomes its fixed kv tile width),
 ``decode_attn_standard`` runs the ring decode kernel and
@@ -15,7 +27,9 @@ token's k/v are index-assigned into the stored ring cache or page pool.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.model.params import PD
 from repro_torch.model.rope import apply_rope
+from repro_torch.parallel.context import ParallelContext
 
 NEG_INF = -1e30
 
@@ -36,38 +51,124 @@ FLASH_BLOCK_N = 64
 
 @dataclass(frozen=True)
 class AttnDims:
-    hq: int             # q heads
-    hkv: int            # kv heads
-    group: int          # q heads per kv head (GQA group)
+    tp: int
+    hq_global: int      # padded global q heads
+    hq: int             # local q heads
+    kv_sharded: bool
+    hkv_global: int     # stored global kv heads (padded when split)
+    hkv: int            # kv heads each rank stores (all n_kv when replicated)
+    group: int          # ORIGINAL q heads per kv head (GQA group)
     hd: int
+    per_head: bool = False  # rank q heads span kv groups: one kv head each
 
 
 def attn_dims(cfg, tp: int) -> AttnDims:
-    """Head counts at world size 1 (tensor parallelism is not ported)."""
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported")
+    """Head counts per rank under ``tp``-way tensor parallelism, as the
+    JAX package's ``attn_dims``."""
     if cfg.n_heads == 0:  # attention-free arch (falcon-mamba)
-        return AttnDims(0, 0, 1, cfg.head_dim or 1)
-    assert cfg.n_heads % cfg.n_kv_heads == 0, (cfg.n_heads, cfg.n_kv_heads)
-    return AttnDims(cfg.n_heads, cfg.n_kv_heads,
-                    cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+        return AttnDims(tp, 0, 0, False, 0, 0, 1, cfg.head_dim or 1)
+    hq_global = -(-cfg.n_heads // tp) * tp
+    hq = hq_global // tp
+    kv_sharded = cfg.n_kv_heads >= tp
+    per_head = False
+    if kv_sharded:
+        hkv_global = -(-cfg.n_kv_heads // tp) * tp
+        hkv = hkv_global // tp
+        assert hq % hkv == 0, (hq, hkv)
+    else:
+        hkv_global = hkv = cfg.n_kv_heads
+    group = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    if not kv_sharded and tp > 1 and group % hq != 0:
+        # The rank's q heads span GQA groups: it reads one kv head per q
+        # head (g = 1).
+        per_head = True
+    return AttnDims(tp, hq_global, hq, kv_sharded, hkv_global, hkv, group,
+                    cfg.head_dim, per_head)
 
 
 def attn_template(cfg, tp: int):
     d = attn_dims(cfg, tp)
     D = cfg.d_model
+    kv = 1 if d.kv_sharded else None   # kv columns split, or replicated
     t = {
-        "wq": PD((D, d.hq * d.hd)),
-        "wk": PD((D, d.hkv * d.hd)),
-        "wv": PD((D, d.hkv * d.hd)),
-        "wo": PD((d.hq * d.hd, D)),
+        "wq": PD((D, d.hq_global * d.hd), split=1),
+        "wk": PD((D, d.hkv_global * d.hd), split=kv),
+        "wv": PD((D, d.hkv_global * d.hd), split=kv),
+        "wo": PD((d.hq_global * d.hd, D), split=0),
     }
     if getattr(cfg, "attn_bias", False):
-        t["bq"] = PD((d.hq * d.hd,), init="zeros")
-        t["bk"] = PD((d.hkv * d.hd,), init="zeros")
-        t["bv"] = PD((d.hkv * d.hd,), init="zeros")
+        kvb = 0 if d.kv_sharded else None
+        t["bq"] = PD((d.hq_global * d.hd,), init="zeros", split=0)
+        t["bk"] = PD((d.hkv_global * d.hd,), init="zeros", split=kvb)
+        t["bv"] = PD((d.hkv_global * d.hd,), init="zeros", split=kvb)
         t["bo"] = PD((D,), init="zeros")
     return t
+
+
+# ---------------------------------------------------------------------------
+# The rank's kv heads
+# ---------------------------------------------------------------------------
+
+def rank_head_kv_map(dims: AttnDims, pc: ParallelContext) -> Tuple[int, ...]:
+    """The kv head each of this rank's q heads reads (per-head mode).
+    Padded q heads clip to the last kv head (their wo rows are zero)."""
+    base = pc.tp_index() * dims.hq
+    return tuple(min((base + i) // dims.group, dims.hkv - 1)
+                 for i in range(dims.hq))
+
+
+def _rank_kv_head(dims: AttnDims, pc: ParallelContext) -> int:
+    """The one kv head of a rank whose q heads lie in one GQA group."""
+    return min(pc.tp_index() * dims.hq // dims.group, dims.hkv - 1)
+
+
+def select_local_kv(kv, dims: AttnDims, pc: ParallelContext, *,
+                    head_axis: int = 2):
+    """kv as stored (head axis ``head_axis``) -> the rank's kv heads for
+    the grouped core: all of them when kv is split (or tp 1); the rank's
+    one kv head when replicated (a view); one per q head in per-head mode
+    (a gather)."""
+    if dims.kv_sharded or dims.tp == 1:
+        return kv
+    if dims.per_head:
+        idx = torch.tensor(rank_head_kv_map(dims, pc), device=kv.device)
+        return kv.index_select(head_axis, idx)
+    return kv.narrow(head_axis, _rank_kv_head(dims, pc), 1)
+
+
+def select_local_kv_pair(kv, dims: AttnDims, pc: ParallelContext):
+    """Stacked-pair form: kv [2,B,T,hkv,hd] -> [2,B,T,Hk,hd], the same
+    selection on head axis 3, so the pair stays one tensor."""
+    return select_local_kv(kv, dims, pc, head_axis=3)
+
+
+def paged_head_map(dims: AttnDims, pc: ParallelContext) -> Optional[Tuple[int, ...]]:
+    """The paged decode kernel's head map (q's local kv head -> the pool's
+    stored head), or None for the identity (tp 1, or kv split: the rank's
+    pool holds exactly its heads). ``select_local_kv`` as an index map:
+    [hq] in per-head mode (g = 1), else [1] (g = hq)."""
+    if dims.tp == 1 or dims.kv_sharded:
+        return None
+    if dims.per_head:
+        return rank_head_kv_map(dims, pc)
+    return (_rank_kv_head(dims, pc),)
+
+
+@functools.lru_cache(maxsize=None)
+def _head_map_tensor(hm: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """One int32 tensor per (map, device), so a decode step uploads no map
+    and the kernel wrapper checks each map's entries once."""
+    return torch.tensor(hm, dtype=torch.int32, device=device)
+
+
+def core_layout(dims: AttnDims) -> Tuple[int, int]:
+    """(Hk, g) of the grouped core for one layer's local heads."""
+    if dims.tp == 1 or dims.kv_sharded:
+        assert dims.hq % dims.hkv == 0, (dims.hq, dims.hkv)
+        return dims.hkv, dims.hq // dims.hkv
+    if dims.per_head:
+        return dims.hq, 1   # one gathered kv head per q head
+    return 1, dims.hq       # replicated kv: the rank's one kv head, g = hq
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +421,8 @@ def cache_slot(kind: str, t: int, *, window=0, chunk=0):
 
 
 def decode_attn_standard(p, xn, cache_k, cache_v, t: int, cfg, dims: AttnDims,
-                         *, kind, pair: bool, window=0, chunk=0):
+                         *, kind, pair: bool, window=0, chunk=0,
+                         pc: Optional[ParallelContext] = None):
     """Decode with head-local ring caches. Returns (partial_out, cache_k,
     cache_v); the caches are the SAME tensors, updated in place.
 
@@ -329,37 +431,47 @@ def decode_attn_standard(p, xn, cache_k, cache_v, t: int, cfg, dims: AttnDims,
     stacked-contiguous. Both layers run as one wide unit: one stacked QKV
     projection, one slot write per cache tensor, one decode attention launch
     over both halves, one merged output projection.
+
+    ``pc`` (tp > 1): the cache holds the rank's stored kv heads, and the
+    kernel reads the rank's selection of them (``select_local_kv``: a view
+    of one head, or a gather in per-head mode).
     """
+    pc = _context(pc, dims)
     B = xn.shape[1] if pair else xn.shape[0]
     pos = torch.full((1,), t, dtype=torch.int64, device=xn.device)
     q = project_q(p, xn, cfg, dims, positions=pos, kind=kind, pair=pair)
     k, v = project_kv(p, xn, cfg, dims, positions=pos, kind=kind, pair=pair)
     slot, t_local = cache_slot(kind, t, window=window, chunk=chunk)
-    Hk, g = dims.hkv, dims.group
+    Hk, g = core_layout(dims)
 
     if pair:
         # New-token kv arrives pair-folded [B,1,2*hkv,hd]; unfold to the
         # stacked layout and write both layers' slots in one assignment.
-        k2 = k.reshape(B, 1, 2, Hk, dims.hd).permute(2, 0, 1, 3, 4)
-        v2 = v.reshape(B, 1, 2, Hk, dims.hd).permute(2, 0, 1, 3, 4)
+        k2 = k.reshape(B, 1, 2, dims.hkv, dims.hd).permute(2, 0, 1, 3, 4)
+        v2 = v.reshape(B, 1, 2, dims.hkv, dims.hd).permute(2, 0, 1, 3, 4)
         cache_k[:, :, slot:slot + 1] = k2.to(cache_k.dtype)
         cache_v[:, :, slot:slot + 1] = v2.to(cache_v.dtype)
+        ks = select_local_kv_pair(cache_k, dims, pc)          # [2,B,L,Hk,hd]
+        vs = select_local_kv_pair(cache_v, dims, pc)
         qh = q.reshape(B, 2, Hk, g, dims.hd).transpose(0, 1)  # [2,B,Hk,g,hd]
-        o = ops.decode_attention_pair(_widen(qh, cache_k), cache_k, cache_v,
+        o = ops.decode_attention_pair(_widen(qh, cache_k), ks, vs,
                                       t_local).to(xn.dtype)
         o = o.transpose(0, 1).reshape(B, 1, 2 * dims.hq, dims.hd)
         return output_proj(p, o, dims, pair=True), cache_k, cache_v
 
     cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
     cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
+    ks = select_local_kv(cache_k, dims, pc)
+    vs = select_local_kv(cache_v, dims, pc)
     qh = _widen(q.reshape(B, Hk, g, dims.hd), cache_k)
-    o = ops.decode_attention(qh, cache_k, cache_v, t_local).to(xn.dtype)
+    o = ops.decode_attention(qh, ks, vs, t_local).to(xn.dtype)
     o = o.reshape(B, 1, dims.hq, dims.hd)
     return output_proj(p, o, dims, pair=False), cache_k, cache_v
 
 
 def decode_attn_paged(p, xn, k_pages, v_pages, t, block_tables, cfg,
-                      dims: AttnDims, *, kind, pair: bool):
+                      dims: AttnDims, *, kind, pair: bool,
+                      pc: Optional[ParallelContext] = None):
     """Decode against the PAGED pool (continuous batching). Returns
     (partial_out, k_pages, v_pages); the pools are the SAME tensors,
     updated in place.
@@ -376,7 +488,12 @@ def decode_attn_paged(p, xn, k_pages, v_pages, t, block_tables, cfg,
     0. Idle slots all write (page 0, offset 0); with duplicate indices the
     write that lands there is unspecified, and nothing reads page 0
     unmasked. Only plain causal kinds page (slot == t).
+
+    ``pc`` (tp > 1): a split-kv pool holds the rank's heads (no map); a
+    replicated pool holds every stored head, and the kernel reads the
+    rank's through its head map (``paged_head_map``), with no copy.
     """
+    pc = _context(pc, dims)
     B = xn.shape[1] if pair else xn.shape[0]
     q = project_q(p, xn, cfg, dims, positions=t[:, None], kind=kind, pair=pair)
     k, v = project_kv(p, xn, cfg, dims, positions=t[:, None], kind=kind,
@@ -386,29 +503,43 @@ def decode_attn_paged(p, xn, k_pages, v_pages, t, block_tables, cfg,
     # Indirection: position t lives at (bt[b, t // ps], t % ps).
     page_of = block_tables.long().gather(1, (tl // ps)[:, None])[:, 0]
     off = tl % ps
-    Hk, g = dims.hkv, dims.group
+    Hk, g = core_layout(dims)
+    hm = paged_head_map(dims, pc)
+    if hm is not None:
+        hm = _head_map_tensor(hm, k_pages.device)
 
     if pair:
         # New-token kv arrives pair-folded [B,1,2*hkv,hd]; unfold and write
         # both halves' (page, offset) in one scatter per pool tensor.
-        k2 = k.reshape(B, 2, Hk, dims.hd).transpose(0, 1)
-        v2 = v.reshape(B, 2, Hk, dims.hd).transpose(0, 1)
+        k2 = k.reshape(B, 2, dims.hkv, dims.hd).transpose(0, 1)
+        v2 = v.reshape(B, 2, dims.hkv, dims.hd).transpose(0, 1)
         k_pages[:, page_of, off] = k2.to(k_pages.dtype)
         v_pages[:, page_of, off] = v2.to(v_pages.dtype)
         qh = q.reshape(B, 2, Hk, g, dims.hd).transpose(0, 1)  # [2,B,Hk,g,hd]
         o = ops.decode_attention_pair_paged(_widen(qh, k_pages), k_pages,
-                                            v_pages, block_tables,
-                                            t).to(xn.dtype)
+                                            v_pages, block_tables, t,
+                                            hm).to(xn.dtype)
         o = o.transpose(0, 1).reshape(B, 1, 2 * dims.hq, dims.hd)
         return output_proj(p, o, dims, pair=True), k_pages, v_pages
 
     k_pages[page_of, off] = k[:, 0].to(k_pages.dtype)
     v_pages[page_of, off] = v[:, 0].to(v_pages.dtype)
     qh = _widen(q.reshape(B, Hk, g, dims.hd), k_pages)
-    o = ops.decode_attention_paged(qh, k_pages, v_pages, block_tables,
-                                   t).to(xn.dtype)
+    o = ops.decode_attention_paged(qh, k_pages, v_pages, block_tables, t,
+                                   hm).to(xn.dtype)
     o = o.reshape(B, 1, dims.hq, dims.hd)
     return output_proj(p, o, dims, pair=False), k_pages, v_pages
+
+
+def _context(pc: Optional[ParallelContext], dims: AttnDims) -> ParallelContext:
+    """The caller's context; None only at tp 1."""
+    if pc is None:
+        if dims.tp != 1:
+            raise ValueError(f"tp={dims.tp} heads need the rank's ParallelContext")
+        return ParallelContext()
+    if pc.tp_size != dims.tp:
+        raise ValueError(f"a tp_size={pc.tp_size} context for tp={dims.tp} heads")
+    return pc
 
 
 def output_proj(p, o, dims: AttnDims, *, pair: bool):
@@ -425,5 +556,5 @@ def output_proj(p, o, dims: AttnDims, *, pair: bool):
         bo = p["bo"].float()
         if pair:
             bo = bo.sum(dim=0)  # both paths' biases enter the one reduction
-        y = y + bo.to(y.dtype)
+        y = y + (bo / dims.tp).to(y.dtype)   # each rank's share of the sum
     return y

@@ -44,6 +44,12 @@ Ported: attention mixers (pairs of mixed attention kinds too, a
 prefix-LM mask, cross-attention), Mamba mixers and RG-LRU mixers, with an
 MLP, a mixture of experts (``moe.moe_forward``) or no FFN. Recurrent pairs
 of mixed kinds raise ``NotImplementedError``.
+
+At tp > 1 (causal attention with an MLP; ``transformer.build_structure``
+refuses the rest) each rank runs its q heads, its stored kv heads and its
+d_ff columns, and every phase ends in one ``psum_tp``: an LP pair's phase
+of two layers too. The core reads the rank's selection of the stored kv
+heads (``_sel_pairwise``, ``_fold_ctx_kv``).
 """
 from __future__ import annotations
 
@@ -158,7 +164,8 @@ def _mixer(group: Group) -> str:
 
 def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
                          prefix_len=0, cross_kv=None, attn_impl="auto",
-                         ctx_kv=None, q0=0, differentiable=False):
+                         ctx_kv=None, q0=0, differentiable=False,
+                         pc: ParallelContext = ParallelContext()):
     """Full-sequence attention (prefill). Returns (partial_out, kv_list)
     with one (k, v) in stored layout per layer in the group.
 
@@ -180,7 +187,11 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     per-row context lengths (bucketed radix-hit rows).
 
     ``differentiable`` (the train step's forward) goes to the attention
-    core: a torch core on any device in place of the flash kernel."""
+    core: a torch core on any device in place of the flash kernel.
+
+    ``pc`` (tp > 1): the projections give the rank's q heads and its
+    stored kv heads; the core reads the rank's selection of the kv heads
+    (``_sel_pairwise``), in ``attention.core_layout``'s (Hk, g)."""
     kinds = _mixer_kinds(group)
     cross = cross_kv is not None
     p = gp["xattn"] if cross else gp["attn"]
@@ -188,7 +199,7 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     S = xn.shape[2] if group.pair else xn.shape[1]
     nP = 2 if group.pair else 1
     if len(set(kinds)) > 1 and not cross:
-        return _mixed_attention_full(p, xn, cfg, dims, kinds=kinds,
+        return _mixed_attention_full(p, xn, cfg, dims, pc, kinds=kinds,
                                      positions=positions, prefix_len=prefix_len,
                                      attn_impl=attn_impl, ctx_kv=ctx_kv,
                                      differentiable=differentiable)
@@ -200,11 +211,12 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     else:
         k, v = A.project_kv(p, xn, cfg, dims, positions=positions, kind=kind,
                             pair=group.pair)
-    ks, vs = k, v
+    Hk, g = A.core_layout(dims)
+    ks, vs = _sel_pairwise(k, v, dims, pc, pair=group.pair)
     if ctx_kv is not None:
-        cks, cvs = _fold_ctx_kv(ctx_kv, dims, group=group)
-        ks = torch.cat([cks.to(k.dtype), k], dim=1)
-        vs = torch.cat([cvs.to(v.dtype), v], dim=1)
+        cks, cvs = _fold_ctx_kv(ctx_kv, dims, pc, group=group)
+        ks = torch.cat([cks.to(ks.dtype), ks], dim=1)
+        vs = torch.cat([cvs.to(vs.dtype), vs], dim=1)
         if torch.is_tensor(q0):
             # Per-row ctx lengths: row i's real context is the first q0[i]
             # positions of the Tc-wide ctx block, the rest garbage-page
@@ -226,8 +238,8 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
         # torch.cat and torch.gather materialise the keys and values before
         # the core, so the value contraction runs over one tensor and its
         # float accumulation is grouped as in the cold full-prompt forward.
-    # Pair-major folds: q heads [2*hq] group onto kv heads [2*hkv].
-    qh = q.reshape(B, S, nP * dims.hkv, dims.group, dims.hd)
+    # Pair-major folds: q heads [2*hq] group onto kv heads [2*Hk].
+    qh = q.reshape(B, S, nP * Hk, g, dims.hd)
     o = A.attention_core(qh, ks, vs, kind=kind, window=cfg.window,
                          chunk=cfg.chunk, prefix_len=prefix_len, q0=q0,
                          impl=attn_impl, differentiable=differentiable)
@@ -236,8 +248,8 @@ def attention_phase_full(gp, xn, cfg, dims, *, group: Group, positions,
     return out, _split_kv(k, v, dims, pair=group.pair)
 
 
-def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
-                          attn_impl, ctx_kv, differentiable):
+def _mixed_attention_full(p, xn, cfg, dims, pc, *, kinds, positions,
+                          prefix_len, attn_impl, ctx_kv, differentiable):
     """A pair of mixed attention kinds (llama4 chunked + global): per-half
     projections and cores, still one merged output projection and one
     phase_out. Returns (partial_out, [(k, v)] per half)."""
@@ -245,6 +257,7 @@ def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
         raise NotImplementedError(
             "suffix prefill supports homogeneous attention groups only")
     B, S = xn.shape[1], xn.shape[2]
+    Hk, g = A.core_layout(dims)
     os, kvs = [], []
     for i, kind in enumerate(kinds):
         ph = tree_map(lambda w: w[i], p)
@@ -252,8 +265,9 @@ def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
                          pair=False)
         ki, vi = A.project_kv(ph, xn[i], cfg, dims, positions=positions,
                               kind=kind, pair=False)
-        oi = A.attention_core(qi.reshape(B, S, dims.hkv, dims.group, dims.hd),
-                              ki, vi, kind=kind, window=cfg.window,
+        ksi, vsi = _sel_pairwise(ki, vi, dims, pc, pair=False)
+        oi = A.attention_core(qi.reshape(B, S, Hk, g, dims.hd),
+                              ksi, vsi, kind=kind, window=cfg.window,
                               chunk=cfg.chunk, prefix_len=prefix_len,
                               impl=attn_impl, differentiable=differentiable)
         os.append(oi.reshape(B, S, dims.hq, dims.hd))
@@ -262,17 +276,52 @@ def _mixed_attention_full(p, xn, cfg, dims, *, kinds, positions, prefix_len,
     return A.output_proj(p, o, dims, pair=True), kvs
 
 
-def _fold_ctx_kv(ctx_kv, dims, *, group: Group):
-    """Cached context kv (stored layout) -> the folded [B,Tc,P*hkv,hd]
-    layout of fresh projections, so a suffix forward can put context before
-    suffix keys along the length axis. The pair fold is pair-major, as
-    ``project_kv``'s."""
+def _sel_pairwise(k, v, dims, pc, *, pair: bool):
+    """The rank's kv heads of fresh projections (``A.select_local_kv``),
+    keeping a pair's halves folded pair-major into the head axis."""
+    if not pair:
+        return A.select_local_kv(k, dims, pc), A.select_local_kv(v, dims, pc)
+    if dims.kv_sharded or dims.tp == 1:
+        return k, v
+    B, S = k.shape[0], k.shape[1]
+    k2 = A.select_local_kv(k.reshape(B, S, 2, dims.hkv, dims.hd), dims, pc,
+                           head_axis=3)
+    v2 = A.select_local_kv(v.reshape(B, S, 2, dims.hkv, dims.hd), dims, pc,
+                           head_axis=3)
+    return (k2.reshape(B, S, 2 * k2.shape[3], dims.hd),
+            v2.reshape(B, S, 2 * v2.shape[3], dims.hd))
+
+
+def _fold_ctx_kv(ctx_kv, dims, pc, *, group: Group):
+    """Cached context kv (stored layout) -> the folded [B,Tc,P*Hk,hd]
+    layout ``_sel_pairwise`` gives fresh projections, so a suffix forward
+    can put context before suffix keys along the length axis. The pair
+    fold is pair-major, as ``project_kv``'s.
+
+    At tp > 1 a split-kv pool hands each rank its own heads, so the fold
+    is pure layout; a replicated pool hands every rank all stored heads,
+    and the rank selects its own here (the selection the paged decode
+    kernel makes through its head map). Either way the folded head count
+    must be ``core_layout``'s: a ctx tree of another layout raises rather
+    than reduce at another shape than the cold full-prompt forward."""
+    Hk, _ = A.core_layout(dims)
     if group.pair:
-        ck, cv = ctx_kv["k"], ctx_kv["v"]              # [2,B,Tc,hkv,hd]
-        B, Tc = ck.shape[1], ck.shape[2]
-        return (ck.movedim(0, 2).reshape(B, Tc, 2 * dims.hkv, dims.hd),
-                cv.movedim(0, 2).reshape(B, Tc, 2 * dims.hkv, dims.hd))
-    return ctx_kv["k0"], ctx_kv["v0"]                  # [B,Tc,hkv,hd]
+        ks = A.select_local_kv_pair(ctx_kv["k"], dims, pc)   # [2,B,Tc,Hk,hd]
+        vs = A.select_local_kv_pair(ctx_kv["v"], dims, pc)
+        if ks.shape[3] != Hk:
+            raise ValueError(f"ctx kv folds to {ks.shape[3]} heads per pair "
+                             f"half but the attention core reduces over {Hk}: "
+                             "the ctx tree does not match this rank's kv layout")
+        B, Tc = ks.shape[1], ks.shape[2]
+        return (ks.movedim(0, 2).reshape(B, Tc, 2 * Hk, dims.hd),
+                vs.movedim(0, 2).reshape(B, Tc, 2 * Hk, dims.hd))
+    ks = A.select_local_kv(ctx_kv["k0"], dims, pc)           # [B,Tc,Hk,hd]
+    vs = A.select_local_kv(ctx_kv["v0"], dims, pc)
+    if ks.shape[2] != Hk:
+        raise ValueError(f"ctx kv folds to {ks.shape[2]} heads but the "
+                         f"attention core reduces over {Hk}: the ctx tree "
+                         "does not match this rank's kv layout")
+    return ks, vs
 
 
 def _split_kv(k, v, dims, *, pair: bool):
@@ -415,7 +464,7 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                                         positions=positions,
                                         prefix_len=prefix_len,
                                         attn_impl=attn_impl, ctx_kv=ctx_kv,
-                                        q0=q0, differentiable=diff)
+                                        q0=q0, differentiable=diff, pc=pc)
         if emit_cache:
             kinds = _mixer_kinds(group)
             fks = [fill_cache(k, max_len, mixer=m, cfg=cfg)
@@ -526,7 +575,7 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
             o, _, _ = A.decode_attn_standard(
                 tree_map(lambda w: w[i], gp["attn"]), xn[i], cache[f"k{i}"],
                 cache[f"v{i}"], t, cfg, dims, kind=kind, pair=False,
-                window=cfg.window, chunk=cfg.chunk)
+                window=cfg.window, chunk=cfg.chunk, pc=pc)
             outs.append(o)
         out = outs[0] + outs[1]
     else:
@@ -535,12 +584,12 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
         if paged:
             out, _, _ = A.decode_attn_paged(
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t,
-                block_tables, cfg, dims, kind=kind, pair=group.pair)
+                block_tables, cfg, dims, kind=kind, pair=group.pair, pc=pc)
         else:
             out, _, _ = A.decode_attn_standard(
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg,
                 dims, kind=kind, pair=group.pair, window=cfg.window,
-                chunk=cfg.chunk)
+                chunk=cfg.chunk, pc=pc)
     x = x + pc.psum_tp(out).to(x.dtype)
 
     if group.specs[0].cross_attn:

@@ -2,8 +2,10 @@
 token choice.
 
 Same functions and conventions as the JAX package (vocabulary padded to a
-multiple of tp, logits over the LOCAL vocabulary shard, pad columns masked);
-at world size 1 the shard is the whole vocabulary.
+multiple of tp and split over the ranks, logits over the LOCAL vocabulary
+shard, pad columns masked); at world size 1 the shard is the whole
+vocabulary. The lookup gives each rank a partial embedding (zero rows for
+ids outside its shard) that the caller's ``psum_tp`` adds up.
 """
 from __future__ import annotations
 
@@ -19,11 +21,11 @@ def vocab_pad(V: int, tp: int) -> int:
 
 def embed_template(cfg, tp: int):
     Vp = vocab_pad(cfg.vocab_size, tp)
-    t = {"tok": PD((Vp, cfg.d_model), fan_in=cfg.d_model)}
+    t = {"tok": PD((Vp, cfg.d_model), fan_in=cfg.d_model, split=0)}
     if cfg.pos_embed == "learned":
         t["pos"] = PD((cfg.max_position, cfg.d_model), fan_in=cfg.d_model)
     if not cfg.tie_embeddings:
-        t["head"] = PD((cfg.d_model, Vp))
+        t["head"] = PD((cfg.d_model, Vp), split=1)
     return t
 
 
@@ -97,9 +99,15 @@ def vocab_parallel_sample(logits, generator: torch.Generator, temperature,
     """Gumbel-max sampling: independent Gumbel noise per column from
     ``generator`` (which must live on the logits' device), then the argmax
     is an exact sample from softmax(logits/T). The noise stream differs from
-    JAX's threefry stream; compare sampled paths by distribution."""
-    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+    JAX's threefry stream; compare sampled paths by distribution. At tp > 1
+    every rank draws the noise of the whole (padded) vocabulary from its
+    generator, seeded alike on every rank, and keeps its shard's columns:
+    the draw tp = 1 makes from the same seed."""
+    v_local = logits.shape[-1]
+    u = torch.rand((*logits.shape[:-1], v_local * pc.tp_size),
+                   generator=generator, dtype=torch.float32,
                    device=logits.device)
+    u = u[..., pc.tp_index() * v_local:(pc.tp_index() + 1) * v_local]
     tiny = torch.finfo(torch.float32).tiny
     g = -torch.log(-torch.log(u.clamp_min(tiny)))
     return vocab_parallel_argmax(logits / max(temperature, 1e-6) + g, pc)

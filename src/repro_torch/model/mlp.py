@@ -1,5 +1,10 @@
 """MLP (gated SwiGLU/GeGLU or plain 2-matrix), single layer and LP pair.
 
+Tensor parallel as Megatron: the up (and gate) projections split their
+d_ff columns over the ranks, the down projection its rows, so each rank
+returns a partial sum (its share of the replicated ``b_down`` added as
+``b_down / tp``) that the caller's phase_out adds up.
+
 LP pairs: both layers' up projections run as one batched matmul over a
 leading pair axis; the down projection is two per-path gemms and one
 explicit add, as in the JAX package (mlp.py), which pins the reduction
@@ -20,11 +25,11 @@ _ACTS = {"silu": F.silu,
 def mlp_template(cfg, tp: int):
     D, Fd = cfg.d_model, cfg.d_ff
     assert Fd % tp == 0, (cfg.name, Fd, tp)
-    t = {"w_up": PD((D, Fd)), "w_down": PD((Fd, D))}
+    t = {"w_up": PD((D, Fd), split=1), "w_down": PD((Fd, D), split=0)}
     if cfg.mlp_gated:
-        t["w_gate"] = PD((D, Fd))
+        t["w_gate"] = PD((D, Fd), split=1)
     if getattr(cfg, "mlp_bias", False):
-        t["b_up"] = PD((Fd,), init="zeros")
+        t["b_up"] = PD((Fd,), init="zeros", split=0)
         t["b_down"] = PD((D,), init="zeros")
     return t
 

@@ -47,15 +47,15 @@ def moe_template(cfg, tp: int):
     assert E % tp == 0, (cfg.name, E, tp)
     t = {
         "router": PD((D, E), fan_in=D),
-        "w_up": PD((E, D, F)),
-        "w_down": PD((E, F, D)),
+        "w_up": PD((E, D, F), split=0),
+        "w_down": PD((E, F, D), split=0),
     }
     if cfg.mlp_gated:
-        t["w_gate"] = PD((E, D, F))
+        t["w_gate"] = PD((E, D, F), split=0)
     if cfg.moe_shared_expert:
-        t["shared"] = {"w_up": PD((D, F)), "w_down": PD((F, D))}
+        t["shared"] = {"w_up": PD((D, F), split=1), "w_down": PD((F, D), split=0)}
         if cfg.mlp_gated:
-            t["shared"]["w_gate"] = PD((D, F))
+            t["shared"]["w_gate"] = PD((D, F), split=1)
     return t
 
 

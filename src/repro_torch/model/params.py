@@ -1,8 +1,11 @@
 """Parameter templates, tree helpers and the module that owns the weights.
 
 Model modules describe their parameters as trees (nested dicts and lists) of
-``PD`` descriptors, as in the JAX package. From a template ``init_tree``
-makes tensors. The layer math takes plain trees of tensors; ``ModelParams``
+``PD`` descriptors, as in the JAX package: GLOBAL shapes, and the axis each
+leaf splits over the tensor-parallel ranks (``split``, JAX's "model" entry
+of the leaf's PartitionSpec). From a template ``init_tree`` makes tensors
+(a rank's shard of them at tp > 1), ``split_tree`` gives the split axes
+and ``shard_tree`` cuts a global tree to one rank's shard. The layer math takes plain trees of tensors; ``ModelParams``
 is the ``nn.Module`` that owns them, so ``.to(device)`` and ``state_dict``
 work, and ``ModelParams.tree()`` hands the layer functions the same tensors
 as a plain tree.
@@ -24,6 +27,7 @@ class PD:
     init: str = "normal"  # normal | zeros | ones
     fan_in: Optional[int] = None  # None -> last-but-one dim (or last)
     dtype: Any = None  # None -> use the build dtype
+    split: Optional[int] = None  # axis cut over the tp ranks; None: replicated
 
 
 def tree_map(fn, tree, *rest):
@@ -62,8 +66,39 @@ def tree_structure(tree):
     return tree_map(lambda _: None, tree)
 
 
+def split_tree(tmpl):
+    """The ``split`` axis of every leaf of a template (None: replicated)."""
+    return tree_map(lambda pd: pd.split, tmpl)
+
+
+def shard_slice(shape, split: Optional[int], tp: int, rank: int):
+    """Index of rank ``rank``'s shard of a global leaf of ``shape``: the
+    ``split`` axis cut into ``tp`` equal blocks, the others whole."""
+    if split is None or tp == 1:
+        return (slice(None),) * len(shape)
+    n = shape[split]
+    if n % tp:
+        raise ValueError(f"axis {split} of {tuple(shape)} does not divide by "
+                         f"tp={tp}")
+    w = n // tp
+    return tuple(slice(rank * w, (rank + 1) * w) if i == split else slice(None)
+                 for i in range(len(shape)))
+
+
+def shard_tree(tree, splits, tp: int, rank: int):
+    """Rank ``rank``'s shard of a global tree (tensors or numpy arrays):
+    each leaf cut along its ``splits`` axis (``split_tree`` of the
+    template), as views where the leaf type slices to views."""
+    return tree_map(lambda x, ax: x[shard_slice(x.shape, ax, tp, rank)],
+                    tree, splits)
+
+
+def local_shape(pd: PD, tp: int):
+    return tuple(n // tp if i == pd.split else n for i, n in enumerate(pd.shape))
+
+
 def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
-              device=None):
+              device=None, *, tp: int = 1, rank: int = 0):
     """Tensors for a template: normal * fan_in^-0.5, zeros or ones. Leaves
     draw from ``generator`` in JAX's flatten order; the bits differ from
     JAX's ``init_tree``, the distribution does not. ``generator`` must live
@@ -72,24 +107,40 @@ def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
     A stacked leaf ([n, (2,) D, F]) is drawn one matrix at a time, in fp32,
     and cast into its slice of the output: the fp32 transient is one
     layer's matrix, not the whole leaf (granite-34b's stacked ``w_up`` would
-    be ~27 GB in fp32)."""
+    be ~27 GB in fp32).
+
+    At ``tp`` > 1 the result is rank ``rank``'s shard: every matrix is drawn
+    whole, so each rank draws the same global weights from the same seed
+    (those of ``tp`` 1 where the global shapes agree), and only the rank's
+    block of it is kept."""
     device = torch.device(device if device is not None else generator.device)
 
     def make(pd: PD):
         dt = pd.dtype or dtype
+        shape = local_shape(pd, tp)
         if pd.init == "zeros":
-            return torch.zeros(pd.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if pd.init == "ones":
-            return torch.ones(pd.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         fan = pd.fan_in
         if fan is None:
             fan = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
-        out = torch.empty(pd.shape, dtype=dt, device=device)
-        mats = out.view(-1, *pd.shape[-2:]) if len(pd.shape) > 2 else out[None]
-        for m in mats:
-            x = torch.randn(m.shape, generator=generator, dtype=torch.float32,
+        out = torch.empty(shape, dtype=dt, device=device)
+        cut = shard_slice(pd.shape, pd.split, tp, rank)
+        if len(pd.shape) <= 2:
+            x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
                             device=device)
-            m.copy_(x.mul_(fan ** -0.5))
+            out.copy_(x[cut].mul_(fan ** -0.5))
+            return out
+        # Every matrix of the stack is drawn; the rank's are kept, in order.
+        keep = torch.zeros(pd.shape[:-2], dtype=torch.bool)
+        keep[cut[:-2]] = True
+        mats = iter(out.view(-1, *shape[-2:]))
+        for kept in keep.reshape(-1).tolist():
+            x = torch.randn(pd.shape[-2:], generator=generator,
+                            dtype=torch.float32, device=device)
+            if kept:
+                next(mats).copy_(x[cut[-2:]].mul_(fan ** -0.5))
         return out
 
     return tree_map(make, tmpl)
@@ -97,13 +148,15 @@ def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
 
 def stack_tmpl(tmpl, n: int):
     """Template for ``n`` stacked copies (segments / LP pairs): prepend a
-    leading axis to every descriptor, keeping each one's fan-in."""
+    leading axis to every descriptor, keeping each one's fan-in; the split
+    axis moves one to the right."""
 
     def bump(pd: PD) -> PD:
         fan = pd.fan_in if pd.fan_in is not None else (
             pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1])
         return PD(shape=(n, *pd.shape), init=pd.init, fan_in=fan,
-                  dtype=pd.dtype)
+                  dtype=pd.dtype,
+                  split=None if pd.split is None else pd.split + 1)
 
     return tree_map(bump, tmpl)
 

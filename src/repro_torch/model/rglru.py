@@ -34,16 +34,16 @@ def rglru_template(cfg, tp: int):
     D, W, K = cfg.d_model, cfg.lru_width, cfg.rec_conv
     assert W % tp == 0
     return {
-        "w_gate": PD((D, W)),
-        "w_rec": PD((D, W)),
-        "conv_w": PD((K, W), fan_in=K),
-        "conv_b": PD((W,), init="zeros"),
-        "lam": PD((W,), init="ones"),    # softplus(lam) ~ decay rate
-        "wa": PD((W,), init="zeros"),
-        "ba": PD((W,), init="zeros"),
-        "wx": PD((W,), init="zeros"),
-        "bx": PD((W,), init="zeros"),
-        "w_out": PD((W, D)),
+        "w_gate": PD((D, W), split=1),
+        "w_rec": PD((D, W), split=1),
+        "conv_w": PD((K, W), fan_in=K, split=1),
+        "conv_b": PD((W,), init="zeros", split=0),
+        "lam": PD((W,), init="ones", split=0),    # softplus(lam) ~ decay rate
+        "wa": PD((W,), init="zeros", split=0),
+        "ba": PD((W,), init="zeros", split=0),
+        "wx": PD((W,), init="zeros", split=0),
+        "bx": PD((W,), init="zeros", split=0),
+        "w_out": PD((W, D), split=0),
     }
 
 

@@ -32,15 +32,15 @@ def ssm_template(cfg, tp: int):
     assert di % tp == 0
     R, N, K = cfg.dt_rank, cfg.ssm_state, cfg.ssm_conv
     return {
-        "w_in": PD((D, 2 * di)),                      # [x; z]
-        "conv_w": PD((K, di), init="normal", fan_in=K),
-        "conv_b": PD((di,), init="zeros"),
-        "w_x": PD((di, R + 2 * N)),
-        "w_dt": PD((R, di)),
-        "dt_bias": PD((di,), init="zeros"),
-        "A_log": PD((di, N), init="zeros"),
-        "D": PD((di,), init="ones"),
-        "w_out": PD((di, D)),
+        "w_in": PD((D, 2 * di), split=1),             # [x; z]
+        "conv_w": PD((K, di), init="normal", fan_in=K, split=1),
+        "conv_b": PD((di,), init="zeros", split=0),
+        "w_x": PD((di, R + 2 * N), split=0),
+        "w_dt": PD((R, di), split=1),
+        "dt_bias": PD((di,), init="zeros", split=0),
+        "A_log": PD((di, N), init="zeros", split=0),
+        "D": PD((di,), init="ones", split=0),
+        "w_out": PD((di, D), split=0),
     }
 
 

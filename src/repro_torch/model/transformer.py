@@ -47,7 +47,7 @@ from repro_torch.model import embedding as E
 from repro_torch.model import stack as ST
 from repro_torch.model.norms import apply_norm
 from repro_torch.model.params import (ModelParams, as_tree, init_tree,
-                                      tree_leaves, tree_map)
+                                      split_tree, tree_leaves, tree_map)
 from repro_torch.parallel.context import ParallelContext
 
 
@@ -74,10 +74,15 @@ class ModelStructure:
 
 def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
                     tp: int = 1) -> ModelStructure:
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported")
+    """The static structure of ``cfg`` under ``plan`` at ``tp``-way tensor
+    parallelism. Above tp 1 the port serves the attention + MLP families
+    (causal attention layers with an MLP or no FFN) and refuses the rest."""
+    if tp < 1:
+        raise ValueError(f"tp={tp}")
     plan = plan or EMPTY_PLAN
     groups = ST.make_groups(cfg, plan.pairs)
+    if tp > 1:
+        _check_tensor_parallel(cfg, tp)
     enc_segments: Tuple[ST.Segment, ...] = ()
     if cfg.enc_layers:
         # The encoder: bidirectional attention + MLP layers, never paired.
@@ -86,6 +91,29 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
         enc_segments = tuple(ST.make_segments(enc_groups))
     return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)),
                           enc_segments)
+
+
+def _check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
+    """Refuse, at tp > 1, what the port does not shard yet (ROADMAP item
+    10): every mixer but causal attention ("attn"), cross-attention, a
+    mixture of experts, an encoder and a prefix-LM."""
+    what = set()
+    if cfg.enc_layers:
+        what.add("an encoder")
+    if cfg.prefix_len:
+        what.add("a prefix-LM")
+    for spec in cfg.layer_specs():
+        if spec.mixer != "attn":
+            what.add(f"{spec.mixer} layers")
+        if spec.cross_attn:
+            what.add("cross-attention")
+        if spec.ffn not in ("mlp", None):
+            what.add(f"{spec.ffn} layers")
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name} at tp={tp}: {', '.join(sorted(what))} under tensor "
+            "parallelism are not ported yet (ROADMAP item 10); the port "
+            "shards causal attention + MLP models")
 
 
 def model_template(ms: ModelStructure) -> Dict[str, Any]:
@@ -102,13 +130,26 @@ def model_template(ms: ModelStructure) -> Dict[str, Any]:
 
 
 def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
-                dtype=torch.float32, device="cuda") -> ModelParams:
+                dtype=torch.float32, device="cuda",
+                rank: Optional[int] = None) -> ModelParams:
     """Random weights from ``generator`` (normal * fan_in^-0.5, zeros,
     ones), made on ``device`` — the card unless the caller asks for "cpu".
-    Without a generator, one seeded with 0 on ``device`` is used."""
+    Without a generator, one seeded with 0 on ``device`` is used. At
+    ``ms.tp`` > 1, rank ``rank``'s shard of the global weights (every rank
+    draws the same global weights from the same seed and keeps its own)."""
+    if (ms.tp > 1) != (rank is not None):
+        raise ValueError(f"tp={ms.tp}: give the rank at tp > 1, and only there")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return ModelParams(init_tree(model_template(ms), generator, dtype, device))
+    return ModelParams(init_tree(model_template(ms), generator, dtype, device,
+                                 tp=ms.tp, rank=rank or 0))
+
+
+def param_pspecs(ms: ModelStructure):
+    """The axis each weight splits over the tp ranks (None: replicated), in
+    the weights' tree: the JAX function of this name gives the same as
+    PartitionSpecs, where the axis is that of their "model" entry."""
+    return split_tree(model_template(ms))
 
 
 def abstract_params(ms: ModelStructure, dtype=torch.bfloat16):
@@ -263,9 +304,10 @@ def loss_fn(params, batch, *, ms: ModelStructure, pc: ParallelContext,
 
 def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
                dtype=torch.bfloat16):
-    """Per segment, {entry name: (shape, dtype)} of the decode cache; the
-    cross-attention entries of an encoder-decoder hold ``cfg.enc_seq``
-    positions."""
+    """Per segment, {entry name: (shape, dtype)} of this rank's decode
+    cache (at tp > 1: the rank's share of split kv heads, or every stored
+    head when kv is replicated); the cross-attention entries of an
+    encoder-decoder hold ``cfg.enc_seq`` positions."""
     return ST.stack_cache_meta(ms.cfg, ms.segments, ms.dims, batch=batch,
                                max_len=max_len,
                                enc_len=ms.cfg.enc_seq if ms.enc_segments else 0,

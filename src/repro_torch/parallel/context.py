@@ -1,28 +1,50 @@
-"""Explicit-collective parallel context.
+"""Explicit-collective parallel context, backed by ``torch.distributed``.
 
 All model code takes a ``ParallelContext`` and calls its collective helpers,
-with the method names of the JAX package's context. At world size 1 every
-helper is the identity, which is all this package runs so far: a tensor
-parallel degree above 1 raises ``NotImplementedError`` (the
-``torch.distributed`` backing comes later).
+with the method names of the JAX package's context. Where the JAX package
+runs one program inside ``shard_map``, the port runs one process per tensor
+parallel rank: every rank executes the same code on its own shard of the
+weights (SPMD), and the context's collectives are ``all_reduce`` calls over
+the ranks' process group.
+
+At ``tp_size`` 1 every helper is the identity and there is no group. Above
+1 the context carries its rank and the group; a context without a group
+raises at its first collective instead of running as one rank. Build it
+with ``make_context`` from an initialised group, or ``init_context``, which
+also initialises the group with the backend the caller names: ``"nccl"``
+for one card per rank, or ``"gloo"`` (CUDA or CPU tensors; several ranks may
+share one card). Nothing picks a backend for the caller.
+
+Serving only: sequence parallelism (``sp=True``) at tp > 1 raises, and so
+does a collective on a tensor that autograd tracks (the sharded trainer is
+ROADMAP item 10).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
 
 
 @dataclass(frozen=True)
 class ParallelContext:
     tp_size: int = 1
+    rank: int = 0               # this process's rank in ``group``
+    group: Any = None           # torch.distributed process group of the tp ranks
     sp: bool = False            # sequence-parallel residual stream
     seq_axis: int = 1           # which tensor dim is "sequence" in activations
 
     def __post_init__(self):
-        if self.tp_size != 1:
+        if self.tp_size < 1 or not 0 <= self.rank < self.tp_size:
+            raise ValueError(f"rank {self.rank} of tp_size {self.tp_size}")
+        if self.tp_size > 1 and self.sp:
             raise NotImplementedError(
-                f"tensor parallelism (tp_size={self.tp_size}) is not ported "
-                "yet; the port runs at world size 1")
+                "sequence parallelism (sp=True) at tp > 1 belongs to the "
+                "sharded trainer, which is not ported yet: ROADMAP item 10")
 
     @property
     def tp(self) -> int:
@@ -32,16 +54,38 @@ class ParallelContext:
         return replace(self, sp=sp)
 
     def tp_index(self) -> int:
-        return 0
+        return self.rank
 
     # -- collectives over the TP axis (identity at world size 1) --------
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        if self.group is None:
+            raise RuntimeError(
+                f"a tp_size={self.tp_size} context has no process group: "
+                "build it with make_context() from an initialised "
+                "torch.distributed group")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "a collective under autograd: the sharded trainer is not "
+                "ported yet (ROADMAP item 10); serve under torch.no_grad()")
+        y = x.contiguous().clone()   # in place on a copy: x stays as it was
+        dist.all_reduce(y, op=op, group=self.group)
+        return y
+
     def psum_tp(self, x):
-        return x
+        if self.tp_size == 1:
+            return x
+        return self._all_reduce(x, dist.ReduceOp.SUM)
 
     def pmax_tp(self, x):
-        return x
+        if self.tp_size == 1:
+            return x
+        return self._all_reduce(x, dist.ReduceOp.MAX)
 
     # -- phase boundaries (the paper's sync points) ---------------------
+    # A phase is one column-parallel -> local -> row-parallel region; an LP
+    # pair runs two layers' phase in one, so it syncs once where two layers
+    # sync twice. Without sequence parallelism the entry is the identity and
+    # the exit one all-reduce.
     def phase_in(self, x, axis: Optional[int] = None):
         """Enter a TP phase: make the activation full-sequence."""
         return x
@@ -51,5 +95,37 @@ class ParallelContext:
         return self.psum_tp(x)
 
     def shard_seq(self, x):
-        """Slice a replicated activation down to this rank's seq shard."""
+        """Slice a replicated activation down to this rank's seq shard
+        (the identity without sequence parallelism)."""
         return x
+
+
+def make_context(group=None, *, sp: bool = False) -> ParallelContext:
+    """The context of this process in an initialised process group
+    (``group`` None: the default group). One rank gives the identity
+    context with no group."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_context needs an initialised torch.distributed "
+                           "process group (init_context, or "
+                           "torch.distributed.init_process_group)")
+    size = dist.get_world_size(group)
+    if size == 1:
+        return ParallelContext(sp=sp)
+    return ParallelContext(tp_size=size, rank=dist.get_rank(group),
+                           group=group if group is not None else dist.group.WORLD,
+                           sp=sp)
+
+
+def init_context(*, backend: str, init_method: str, world_size: int,
+                 rank: int) -> ParallelContext:
+    """Initialise the default process group with ``backend`` ("nccl": one
+    card per rank; "gloo": CUDA or CPU tensors, ranks may share a card)
+    and return this rank's context. ``init_method`` is where the ranks
+    meet: ``tcp://localhost:<port>`` or ``file://<path>``. The caller
+    places its tensors (``torch.cuda.set_device`` for NCCL) and ends the
+    group with ``torch.distributed.destroy_process_group``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    dist.init_process_group(backend=backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+    return make_context()

@@ -18,6 +18,7 @@ from repro_torch.serve.engine import (  # noqa: F401
     make_paged_bucket_prefill_fn,
     make_prefill,
     make_serve_step,
+    sharded_generate,
 )
 from repro_torch.serve.faults import (  # noqa: F401
     ALL_FAULT_KINDS,

@@ -72,12 +72,24 @@ positions are then un-written in both pool trees. Greedy streams equal the
 ``spec_k = 0`` engine's. Recurrent mixers turn speculation off with a
 warning.
 
-This is the JAX engine at world size 1, for attention + MLP models, Mamba
-models, the RG-LRU hybrid and the mixture-of-experts models (dbrx,
-llama4): tensor parallelism (``mesh``, ROADMAP item 10) raises
-``NotImplementedError``. The prefix-LM (paligemma) and encoder-decoder
-(whisper) models run through ``generate`` only, as in the JAX package:
-the paged pool refuses them (``paged_cache.validate_paged_support``).
+This is the JAX engine for attention + MLP models, Mamba models, the
+RG-LRU hybrid and the mixture-of-experts models (dbrx, llama4) at world
+size 1. The prefix-LM (paligemma) and encoder-decoder (whisper) models run
+through ``generate`` only, as in the JAX package: the paged pool refuses
+them (``paged_cache.validate_paged_support``).
+
+Tensor parallel serving (attention + MLP models): one process per rank,
+each with its shard of the weights (``transformer.init_params(rank=)``,
+``bridge.shard_from_numpy``) and its ``ParallelContext``, runs the same
+program: ``sharded_generate`` (the ring cache), or a ``PagedEngine`` given
+the rank's ``pc``. Every rank runs the same scheduler, prefix cache and
+bucket ladder on the same requests; the tokens come from the
+vocab-parallel argmax and the finite flags are agreed over the ranks
+(``pmax_tp``), so the host decisions of all ranks agree. Each rank's pool
+holds its share of split kv heads, or every stored head when kv is
+replicated (the paged kernel then reads the rank's through its head
+map). ``spec_k`` and ``degrade_delta`` are tp=1-only, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -204,18 +216,51 @@ def generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
     return torch.stack(toks + [tok], dim=1)
 
 
+def sharded_generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
+                     pc: ParallelContext, sv: ServeConfig,
+                     timings: Optional[Dict[str, float]] = None):
+    """One-shot greedy generation at tp > 1 on the ring cache: the tp > 1
+    reference stream the sharded ``PagedEngine`` is held to. Each rank's
+    process calls it with its own shard of the weights, its context and the
+    same ``prompts`` [B, S]; all ranks return the same [B, n_new] tokens
+    (the vocab-parallel argmax). It is ``generate`` under the rank's
+    context: where the JAX package runs the ranks under ``shard_map`` from
+    one process, every rank here runs the same host loop."""
+    if pc.tp_size != ms.tp:
+        raise ValueError(f"a tp_size={pc.tp_size} context for a tp={ms.tp} "
+                         "structure")
+    if sv.temperature != 0.0:
+        raise ValueError("sharded generation is the greedy reference "
+                         "(temperature 0)")
+    if ms.cfg.prefix_len or ms.enc_segments:
+        raise ValueError(f"{ms.cfg.name}: sharded one-shot generation does not "
+                         "take prefix/encoder extras")
+    return generate(params, prompts, n_new, ms=ms, pc=pc, sv=sv,
+                    timings=timings)
+
+
 # ---------------------------------------------------------------------------
 # Continuous batching over the paged pair-KV pool
 # ---------------------------------------------------------------------------
 
-def _rows_finite(logits, seq) -> torch.Tensor:
-    """[rows] bool: each row's logits and emitted cache are all finite."""
+def _agreed(ok: torch.Tensor, pc: ParallelContext) -> torch.Tensor:
+    """A per-row flag true on every rank (``pmax_tp`` of its negation), so
+    each rank takes the same host decision on a row whose shard of the
+    logits or the cache is not finite on one rank only."""
+    if pc.tp_size == 1:
+        return ok
+    return pc.pmax_tp((~ok).to(torch.int32)) == 0
+
+
+def _rows_finite(logits, seq, pc: ParallelContext) -> torch.Tensor:
+    """[rows] bool: each row's logits and emitted cache are all finite, on
+    every rank."""
     ok = torch.isfinite(logits).all(-1)
     for seg in seq:
         for name, c in seg.items():
             c = c.movedim(T.cache_batch_axis(name), 0)
             ok = ok & torch.isfinite(c).reshape(c.shape[0], -1).all(-1)
-    return ok
+    return _agreed(ok, pc)
 
 
 def make_paged_decode_fn(ms: T.ModelStructure, pc: ParallelContext, psv):
@@ -225,7 +270,8 @@ def make_paged_decode_fn(ms: T.ModelStructure, pc: ParallelContext, psv):
     place.
 
     ``ok[slot]`` is the per-row finite guard: False when the slot's logits
-    hold NaN/inf. ``poison`` is the deterministic-chaos hook: True rows get
+    hold NaN/inf (on any rank: every rank reports alike). ``poison`` is the
+    deterministic-chaos hook: True rows get
     their logits overwritten with NaN BEFORE the guard; an all-False mask
     is a bitwise no-op (``where`` with a false predicate returns the
     original lanes)."""
@@ -233,7 +279,7 @@ def make_paged_decode_fn(ms: T.ModelStructure, pc: ParallelContext, psv):
         logits, caches = T.decode_step(params, tok, caches, pos, ms=ms, pc=pc,
                                        cache_layout="paged", block_tables=bt)
         logits = torch.where(poison[:, None], torch.nan, logits)
-        ok = torch.isfinite(logits).all(-1)
+        ok = _agreed(torch.isfinite(logits).all(-1), pc)
         return _choose(logits, generator, psv, pc), ok, caches
     return f
 
@@ -302,7 +348,7 @@ def make_paged_prefill_fn(ms: T.ModelStructure, pc: ParallelContext, psv,
             attn_impl=BK.PREFILL_ATTN_IMPL)
         seq = T.cast_cache(seq, psv.cache_dtype)
         last = logits[:, prompt_len - 1]
-        ok = _rows_finite(last, seq)
+        ok = _rows_finite(last, seq, pc)
         tok0 = _choose(last, generator, psv, pc)
         PG.scatter_prefill(caches, seq, page_ids, slot)
         return tok0, ok, caches
@@ -343,7 +389,7 @@ def make_paged_bucket_prefill_fn(ms: T.ModelStructure, pc: ParallelContext,
         seq = T.cast_cache(seq, psv.cache_dtype)
         idx = (true_lens.long() - 1)[:, None, None].expand(-1, 1, logits.shape[-1])
         last = logits.gather(1, idx)[:, 0]
-        ok = _rows_finite(last, seq)
+        ok = _rows_finite(last, seq, pc)
         tok0 = _choose(last, generator, psv, pc)
         PG.scatter_prefill_rows(caches, seq, page_ids)
         return tok0, ok, caches
@@ -370,7 +416,7 @@ def make_paged_suffix_prefill_fn(ms: T.ModelStructure, pc: ParallelContext,
             ctx_kv=ctx, start=start, attn_impl=BK.PREFILL_ATTN_IMPL)
         seq = T.cast_cache(seq, psv.cache_dtype)
         last = logits[:, suffix_len - 1]
-        ok = _rows_finite(last, seq)
+        ok = _rows_finite(last, seq, pc)
         tok0 = _choose(last, generator, psv, pc)
         PG.scatter_prefill(caches, seq, sfx_ids)
         return tok0, ok, caches
@@ -498,9 +544,10 @@ class PagedServeConfig:
         put("telemetry_cfg", TelemetryConfig(
             enabled=self.telemetry, profile_decode=self.profile_decode))
 
-    def validate(self) -> None:
+    def validate(self, *, tp_size: int = 1) -> None:
         """Every cross-field configuration rule, as actionable
-        ValueErrors."""
+        ValueErrors. ``tp_size``: the engine's tensor-parallel degree; some
+        features are tp=1-only, as in the JAX package."""
         if self.max_len % self.page_size != 0:
             raise ValueError(
                 f"max_len={self.max_len} is not a multiple of "
@@ -524,6 +571,11 @@ class PagedServeConfig:
                     f"degrade_delta needs 1 <= degrade_slots < n_slots "
                     f"(got degrade_slots={self.degrade_slots}, "
                     f"n_slots={self.n_slots})")
+            if tp_size > 1:
+                raise ValueError(
+                    "degrade_delta is tp=1-only for now: the degraded "
+                    "cohort would need its own sharded program pair and "
+                    "replanned param placement")
         elif self.degrade_slots:
             raise ValueError(
                 f"degrade_slots={self.degrade_slots} without degrade_delta: "
@@ -534,6 +586,11 @@ class PagedServeConfig:
             if self.temperature > 0:
                 raise ValueError("spec_k needs temperature=0.0: acceptance "
                                  "compares greedy argmax ids")
+            if tp_size > 1:
+                raise ValueError(
+                    "spec_k is tp=1-only for now: the draft and wide "
+                    "verify programs need their own sharded wrappers and "
+                    "replanned param placement")
             if self.degrade_delta:
                 raise ValueError("spec_k is exclusive with degrade_delta")
         elif self.spec_delta:
@@ -567,6 +624,10 @@ class PagedEngine:
     ``fault_plan``: a ``serve.faults.FaultPlan``; each step applies that
     step's events through the same hooks real faults take, and
     ``fault_log`` records what fired.
+
+    ``pc``: this rank's context at tp > 1 (``ms`` built at its tp_size,
+    ``params`` the rank's shard); every rank builds its engine alike and
+    submits the same requests in the same steps.
     """
 
     #: Every monotone engine counter, pre-registered at 0. Per-step
@@ -587,15 +648,20 @@ class PagedEngine:
                  *, pc: Optional[ParallelContext] = None,
                  generator: Optional[torch.Generator] = None, mesh=None,
                  fault_plan: Optional[F.FaultPlan] = None):
-        psv.validate()
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet: ROADMAP "
-                "item 10")
+                "the port serves tensor parallel as one process per rank, "
+                "each with its shard and its ParallelContext (pc=); a mesh "
+                "and the launcher that would start its processes are not "
+                "ported: ROADMAP item 10")
+        self.pc = pc if pc is not None else ParallelContext()
+        if self.pc.tp_size != ms.tp:
+            raise ValueError(f"a tp_size={self.pc.tp_size} context for a "
+                             f"tp={ms.tp} structure")
+        psv.validate(tp_size=ms.tp)
         PG.validate_paged_support(ms, psv.max_len)
         self.ms = ms
         self.psv = psv
-        self.pc = pc if pc is not None else ParallelContext()
         self.params = as_tree(params)
         self.device = self.params["embed"]["tok"].device
         self.n_main = psv.n_slots - (psv.degrade_slots

@@ -61,13 +61,27 @@ def validate_paged_support(ms: T.ModelStructure, max_len: int) -> None:
     absolute position, and slot state. Rejected, as in the JAX package: an
     encoder or cross-attention (whisper), a prefix-LM (paligemma), and
     ring kinds whose cache is a reused window/chunk ring (``attn_local``,
-    ``attn_chunked``) shorter than ``max_len``."""
+    ``attn_chunked``) shorter than ``max_len``.
+
+    At tp > 1 a pool of split kv heads (n_kv >= tp) cuts the stored head
+    axis into equal per-rank shards, so n_kv must divide by tp: the padded
+    heads the ring cache tolerates would be phantom heads in every page.
+    Replicated kv (n_kv < tp) has no such rule: every rank holds all stored
+    heads and the kernel reads its own through the head map."""
     cfg = ms.cfg
     if ms.enc_segments or cfg.enc_layers:
         raise ValueError(f"{cfg.name}: encoder/cross-attention caches are "
                          "not pageable")
     if cfg.prefix_len:
         raise ValueError(f"{cfg.name}: prefix-LM serving is not paged yet")
+    dims = ms.dims
+    if ms.tp > 1 and dims.kv_sharded and cfg.n_kv_heads % ms.tp:
+        raise ValueError(
+            f"{cfg.name}: n_kv_heads={cfg.n_kv_heads} does not divide by "
+            f"tp={ms.tp}; the paged pool splits stored kv heads evenly over "
+            f"the ranks (the ring cache pads to {dims.hkv_global} heads, but "
+            "padded pool heads would be phantom heads in every page): pick "
+            "tp dividing n_kv_heads, or tp > n_kv_heads for replicated kv")
     for seg in ms.segments:
         for spec in seg.group.specs:
             if spec.cross_attn:
@@ -82,10 +96,12 @@ def validate_paged_support(ms: T.ModelStructure, max_len: int) -> None:
 
 def paged_cache_meta(ms: T.ModelStructure, *, n_slots: int, n_pages: int,
                      page_size: int, dtype=torch.bfloat16):
-    """Per segment, {entry name: (shape, dtype)} of the pool: the ring cache
-    meta with the ``[B, L]`` prefix of every k/v entry replaced by
-    ``[n_pages, page_size]``; state entries keep ``n_slots`` as their batch
-    and their own type (``h`` is fp32)."""
+    """Per segment, {entry name: (shape, dtype)} of this rank's pool: the
+    ring cache meta with the ``[B, L]`` prefix of every k/v entry replaced
+    by ``[n_pages, page_size]``; state entries keep ``n_slots`` as their
+    batch and their own type (``h`` is fp32). At tp > 1 the head axis holds
+    the rank's share of split kv heads, or every stored head when kv is
+    replicated (``attention.AttnDims.hkv``)."""
     meta = T.cache_meta(ms, batch=n_slots, max_len=n_pages * page_size,
                         dtype=dtype)
     out = []

@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain versions (and the
-paged kernel against the ring kernel, the selective scan against its plain
+paged kernel against the ring kernel and, with a head map, against the
+identity launch on the gathered pool, the selective scan against its plain
 version in fp32, bit for bit), the flash kernel's padding transparency, the
 decode and dual RMSNorm kernels' batch invariance (bit for bit), the
 engine against ``generate``, the speculative and degraded-cohort engines,
@@ -124,6 +125,37 @@ def test_paged_kernels_match_plain_and_ring_on_gpu(cuda, dtype):
         ring = ops.decode_attention_pair(q[:, b:b + 1], k[:, b:b + 1],
                                          v[:, b:b + 1], int(t[b]))
         assert torch.equal(got[:, b:b + 1], ring), b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hm,G,hd", [([3, 0], 4, 32), ([1, 1], 4, 32),
+                                     ([2], 48, 128), ([0, 2], 16, 256)])
+def test_paged_head_map_on_gpu(cuda, dtype, hm, G, hd):
+    """A head map over a pool of 4 stored heads: against the plain version,
+    and bit for bit against the identity launch on the gathered pool."""
+    td, tol = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+
+    B, L, ps = 3, 48, 16
+    k, v = rand(2, B, L, 4, hd), rand(2, B, L, 4, hd)
+    q = rand(2, B, len(hm), G, hd)
+    kp, bt = _paginate(k, ps)
+    vp, _ = _paginate(v, ps)
+    t = torch.tensor([40, 0, 17], dtype=torch.int32, device=cuda)
+    hmap = torch.tensor(hm, dtype=torch.int32, device=cuda)
+    kg, vg = kp.index_select(3, hmap.long()), vp.index_select(3, hmap.long())
+    got = ops.decode_attention_pair_paged(q, kp, vp, bt, t, hmap)
+    torch.testing.assert_close(
+        got, ops.decode_attention_pair_paged_plain(q, kp, vp, bt, t, hmap),
+        atol=tol, rtol=tol)
+    assert torch.equal(got, ops.decode_attention_pair_paged(q, kg, vg, bt, t))
+    got1 = ops.decode_attention_paged(q[0], kp[0], vp[0], bt, t, hmap)
+    assert torch.equal(got1, ops.decode_attention_paged(q[0], kg[0], vg[0], bt, t))
+    with pytest.raises(ValueError, match="outside"):
+        ops.decode_attention_paged(q[0], kp[0], vp[0], bt, t, hmap + 4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -213,10 +213,40 @@ with contextlib.redirect_stdout(io.StringIO()):
     assert serve.main(["--device", "cpu", "--new-tokens", "3"])["tokens"].shape == (4, 3)
 assert dryrun.lower_cell("yi-6b", "decode_32k")["memory"]["over_budget"]
 assert "H100" in report.TITLE
+import tempfile
+from repro_torch.bridge import shard_from_numpy
+from repro_torch.kernels import ops
+from repro_torch.model import attention as A
+from repro_torch.model.params import init_tree, tree_items, tree_map
+from repro_torch.parallel.context import init_context
+from repro_torch.serve import sharded_generate
+cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+ms2 = T.build_structure(cfg, plan=plan_for_depth(cfg, 3), tp=8)
+tree = tree_map(lambda t: t.numpy(), init_tree(T.model_template(ms2),
+                                               torch.Generator().manual_seed(0)))
+shard = shard_from_numpy(tree, ms2, 5, device="cpu").tree()
+rank5 = T.init_params(ms2, torch.Generator().manual_seed(0), device="cpu", rank=5).tree()
+assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(shard), tree_items(rank5)))
+hm = A.paged_head_map(ms2.dims, ParallelContext(tp_size=8, rank=5))
+assert hm == (3,), hm     # rank 5 of 8 reads a padded q head: the last kv head
+pool = torch.randn(9, 8, 4, 16)
+o = ops.decode_attention_paged(torch.randn(2, 1, 1, 16), pool, pool,
+                               torch.tensor([[1], [2]], dtype=torch.int32),
+                               torch.tensor([3, 5], dtype=torch.int32),
+                               torch.tensor(hm, dtype=torch.int32))
+assert o.shape == (2, 1, 1, 16)
+with tempfile.TemporaryDirectory() as d:
+    pc = init_context(backend="gloo", init_method=f"file://{d}/store", world_size=1,
+                      rank=0)
+    assert pc == ParallelContext()
+    out = sharded_generate(params, torch.zeros((2, 5), dtype=torch.int64), 3, ms=ms,
+                           pc=pc, sv=ServeConfig(max_len=16))
+    assert out.shape == (2, 3)
+    torch.distributed.destroy_process_group()
 for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
              "train.checkpoint", "launch.train", "launch.elastic", "launch.serve",
              "launch.dryrun", "launch.specs", "analysis.roofline", "analysis.report",
-             "configs.shapes"):
+             "configs.shapes", "parallel.context", "bridge"):
     assert "repro_torch." + name in sys.modules, name
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules
@@ -249,7 +279,7 @@ def test_port_sources_import_no_jax():
                  "train/trainer.py", "train/checkpoint.py", "launch/train.py",
                  "launch/elastic.py", "launch/serve.py", "launch/dryrun.py",
                  "launch/specs.py", "analysis/roofline.py", "analysis/report.py",
-                 "configs/shapes.py"):
+                 "configs/shapes.py", "parallel/context.py", "bridge.py"):
         assert SRC / "repro_torch" / name in files, name
     for f in files:
         hits = pat.findall(f.read_text())
