@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      shape (8 slots x 5 probe rows = 40 rows). Both paged kernels with a
      head map (``HEAD_MAP_SHAPES``: tinyllama's heads and its tp = 8
      rank's, granite-34b's g = 48 at hd 128; the identity, a permutation
-     and repeated heads over a pool of more stored heads than q has) are
+     and repeated heads over a pool of more stored heads than q has;
+     recurrentgemma-9b's tp = 2 rank, g = 8 at hd 256 over pools of 1 and
+     2 stored heads) are
      held against their plain versions and, bit for bit, against the
      identity launch on a pool whose heads were gathered first, and timed
      beside it. The flash kernel with a
@@ -28,7 +30,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launch cut to Lq (padding transparency, also with junk keys past Lq),
      and it is timed at the engine's bucket shape beside SDPA with a
      boolean mask; the selective scan equals its plain version bit for bit
-     in fp32 (and a sequence split across two calls equals one call). The
+     in fp32 (and a sequence split across two calls equals one call), also
+     at phase 15's rank widths (a Mamba pair at d_inner / 2, an RG-LRU
+     pair at lru_width / 2). The
      dual RMSNorm's rows equal, bit for bit, the same row launched alone,
      inside an 8-row launch and at three offsets of a 2048-row launch (D =
      2048, 4096 and 100, plus_one both ways; scales that are not 16-byte
@@ -129,9 +133,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths, minicpm cut to its first 10 of 40 layers and granite to its
-     first 11 of 88 (``DENSE_LAYERS``), each under plan_for_depth(3/4 of
-     its layers): 32 -> 24, 10 -> 7, 11 -> 8 groups, bf16 random weights
+     widths, yi cut to its first 12 of 32 layers, minicpm to its first 10
+     of 40 and granite to its first 11 of 88 (``DENSE_LAYERS``), each under
+     plan_for_depth(3/4 of its layers): 12 -> 9, 10 -> 7, 11 -> 8 groups, bf16 random weights
      made on the card from the seed (each model freed before the next):
      phase 5's ``generate`` and phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
@@ -213,8 +217,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  15. tensor parallel: serving at tp > 1 with every rank a process of its
      own on the one card, joined over gloo (NCCL refuses two ranks on one
      device; the NCCL paths stay unrun and are printed). (a) tinyllama-1.1b
-     at its 22 layers under plan_for_depth(16) at tp = 2 (its 4 kv heads
-     split, 2 a rank), the ranks' shards of phase 6's seeded weights: each
+     cut to 11 of its 22 layers under plan_for_depth(8) at tp = 2 (its 4 kv
+     heads split, 2 a rank), the ranks' shards of bf16 weights from the
+     seed: each
      rank first checks that gloo takes CUDA tensors for all_reduce SUM and
      MAX (fp32, bf16, int64, int32), then ``sharded_generate`` (4 x 128,
      32 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
@@ -224,9 +229,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pair, two single layers) at tp = 8: 4 kv heads under 8 ranks are
      replicated and rank r's q heads read stored head r // 2 through the
      paged kernels' head map; its tokens (fp32 compute, 16 new) equal tp =
-     1's and every rank launched both paged kernels with its map. All
-     ranks' tokens agree. Times over gloo go through the host: correctness
-     runs, not speed.
+     1's and every rank launched both paged kernels with its map. (c) in
+     (a)'s rank processes, after tinyllama: falcon-mamba-7b (4 layers, pair
+     (0, 1): d_inner / 2 a rank), recurrentgemma-9b (3 layers, rec, rec,
+     attn_local, pair (0, 1): lru_width / 2 a rank, its one kv head
+     replicated and read through the paged kernel's head map), dbrx-132b
+     (3 layers, pair (1, 2): 8 of 16 experts a rank) and llama4-scout (4
+     layers, pairs (0, 1) and (2, 3), chunked + global, for
+     ``sharded_generate``; the engine under (0, 1)) at their published
+     widths, bf16 random weights from the seed (``TP_FAMILIES``): each
+     family's ``sharded_generate`` (4 x 128) and engine (``tp_traffic``),
+     16 new, in fp32 compute (the MoE models at capacity E/k) held to tp =
+     1 streams that this process made and freed before the ranks started;
+     timed bf16 runs reconciled and probed as in (a) (the first flash and
+     scan launch at each shape too); one decode step's all-reduces
+     counted and held to 1 + 2 per group sums and 3 max (tinyllama's
+     too). All ranks' tokens agree. Times over gloo go through the host:
+     correctness runs, not speed.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
 phases 9 to 15 after 7. The second-to-last line is the kernels JSON (with
@@ -292,11 +311,12 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
                (5120, 4), (5120, 8), (5120, 512))
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
-# Layers phase 9 keeps of each model (its first ones): minicpm-2b's 40 are
-# cut to a quarter, granite-34b's 88 to an eighth, so that with phases 10
-# to 15 the script keeps room in its time limit (PERF.md §4; 20 and 22
-# layers until phase 15 came); yi-6b keeps its 32.
-DENSE_LAYERS = {"minicpm-2b": 10, "granite-34b": 11}
+# Layers phase 9 keeps of each model (its first ones): yi-6b's 32 are cut
+# to 12 (since phase 15 took the recurrent and MoE families), minicpm-2b's
+# 40 to a quarter, granite-34b's 88 to an eighth, so that with phases 10 to
+# 15 the script keeps room in its time limit (PERF.md §4; 20 and 22 layers
+# until phase 15 came).
+DENSE_LAYERS = {"yi-6b": 12, "minicpm-2b": 10, "granite-34b": 11}
 # Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
 # tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
 # recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
@@ -381,23 +401,41 @@ HEAD_MAP_SHAPES = (
                                      "permutation": [5, 3, 0, 1],
                                      "repeated": [4, 4, 1, 1]}),
     ("granite-34b", 2, 48, 128, 3, {"identity": [0, 1], "permutation": [2, 0],
-                                    "repeated": [1, 1]}))
+                                    "repeated": [1, 1]}),
+    # recurrentgemma-9b's rank shape at tp = 2: 8 q heads over its one
+    # replicated kv head (g = 8, hd 256), over a pool of 1 stored head (its
+    # own) and of 2 (reading the second)
+    ("recurrentgemma-9b", 1, 8, 256, 1, {"rank map [0]": [0]}),
+    ("recurrentgemma-9b", 1, 8, 256, 2, {"map [1]": [1]}))
 # Tensor-parallel serving (phase 15): every rank a process on the one card,
 # joined over gloo (NCCL refuses two ranks on one device). (a) tinyllama-1.1b
-# at its 22 layers under plan_for_depth(16) at tp = 2 (kv heads split):
+# cut to 11 of its 22 layers (since phase 15 took (c); 22 until then) under
+# plan_for_depth(8) at tp = 2 (kv heads split):
 # sharded_generate (4 x 128, 32 new) and the engine on half of phase 6's
 # traffic (``tp_traffic``: 4 requests of each wave, 32 new); (b) cut to 4
 # layers under plan_for_depth(3) (one pair, two single layers) at tp = 8 (4
 # kv heads under 8 ranks: replicated, head map [rank // 2]), the same with 16
-# new tokens. A decode step costs 0.1-0.2 s over gloo (36 all-reduces
-# through the host at tp = 2), so the runs are short.
-TP_BACKEND, TP_TIMEOUT = "gloo", 300
-TP2, TP2_EFF_DEPTH, TP2_NEW = 2, 16, 32
+# new tokens. A decode step costs 0.1-0.2 s over gloo (20 all-reduces
+# through the host at tp = 2), so the runs are short. (c) the recurrent and
+# MoE families at tp = 2, served by (a)'s rank processes after tinyllama, at
+# their published widths cut to a few layers: arch -> (layers kept,
+# generate's LP pairs, the engine's LP pairs); sharded_generate (4 x 128)
+# and the engine on ``tp_traffic``, 16 new tokens. llama4's generate pair
+# (2, 3) is chunked + global, which the pool refuses: its engine runs under
+# (0, 1) on weights made anew.
+TP_BACKEND, TP_TIMEOUT = "gloo", 420
+TP2, TP2_LAYERS, TP2_EFF_DEPTH, TP2_NEW = 2, 11, 8, 32
 TP8, TP8_LAYERS, TP8_EFF_DEPTH, TP8_NEW = 8, 4, 3, 16
+TP_FAMILIES = {MAMBA: (4, ((0, 1),), ((0, 1),)),
+               HYBRID: (3, ((0, 1),), ((0, 1),)),
+               DBRX: (3, ((1, 2),), ((1, 2),)),
+               LLAMA4: (4, ((0, 1), (2, 3)), ((0, 1),))}
+TP_FAMILY_NEW = 16
 TP_NCCL_NOT_RUN = [
     "init_context(backend='nccl'): one card per rank, every all_reduce of the "
-    "tp = 2 and tp = 8 paths over NCCL (one card here, and NCCL refuses two "
-    "ranks on one device)"]
+    "tp = 2 and tp = 8 paths and of the four families' tp = 2 paths (Mamba's "
+    "x_proj sum, the MoE and RG-LRU phase exits) over NCCL (one card here, and "
+    "NCCL refuses two ranks on one device)"]
 
 
 def log(msg):
@@ -709,11 +747,15 @@ def check_kernels():
 
         log(f"[kernels] ssm_scan {dtype}")
         # generate's pair and single-layer prefill, one engine admission of
-        # 97 tokens, and RG-LRU's width (N = 1).
+        # 97 tokens, RG-LRU's width (N = 1), and phase 15's rank widths at
+        # tp = 2: a Mamba pair's d_inner / 2 and an RG-LRU pair's
+        # lru_width / 2.
         for what, (R, Ss, C, N) in (("pair", (2 * B, S, DI, NS)),
                                      ("single", (B, S, DI, NS)),
                                      ("engine", (1, 97, DI, NS)),
-                                     ("rglru", (4, 128, 4096, 1))):
+                                     ("rglru", (4, 128, 4096, 1)),
+                                     ("tp2 mamba pair", (2 * B, S, DI // 2, NS)),
+                                     ("tp2 rglru pair", (2 * B, S, 4096 // 2, 1))):
             a = (0.5 + 0.5 * torch.rand((R, Ss, C, N), generator=gen, device=dev)).to(dtype)
             bb = rand(R, Ss, C, N, dtype=dtype)
             h0 = rand(R, C, N, dtype=torch.float32)
@@ -740,8 +782,12 @@ def check_kernels():
                        flops_peak=PEAK_OPS["float32"])
             else:
                 b_ms, b_by = bound(nb, fl, "float32")
-                log(f"  ssm_scan {what}: ms={time_ms(lambda: ops.ssm_scan(a, bb, h0)):.5f} "
-                    f"plain_ms={time_ms(lambda: ops.ssm_scan_plain(a, bb, h0)):.5f} "
+                e = {"shape": list(a.shape), "max_abs_err": err,
+                     "ms": time_ms(lambda: ops.ssm_scan(a, bb, h0)),
+                     "plain_ms": time_ms(lambda: ops.ssm_scan_plain(a, bb, h0)),
+                     "bound_ms": b_ms, "bound_by": b_by}
+                rows[("ssm_shape", what, dtype)] = e
+                log(f"  ssm_scan {what}: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
                     f"bound_ms={b_ms:.6f} ({b_by})")
                 record("ssm_scan", dtype, err, None, None, 0, 0)
             del a, bb, h0
@@ -1771,8 +1817,10 @@ class DecodeProbe:
                 key = (name, kw.get("kind"), *(
                     (tuple(a.shape), a.dtype) for a in args if hasattr(a, "shape")))
                 if key not in self.firsts:
+                    outs = out if isinstance(out, tuple) else (out,)   # the scan's (y, hT)
                     self.firsts[key] = ([copy(a) for a in args],
-                                        {k: copy(v) for k, v in kw.items()}, out.clone())
+                                        {k: copy(v) for k, v in kw.items()},
+                                        [o.clone() for o in outs])
                 return out
             setattr(ops, name, first)
         return self
@@ -1800,12 +1848,14 @@ class DecodeProbe:
             tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
             errs.append(compare(f"[{what}] {name}, decode step {step}, on the model path",
                                 out, getattr(ops, f"{name}_plain")(*args), tol))
-        for (name, _, *shapes), (args, kw, out) in self.firsts.items():
-            tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
-            errs.append(compare(
-                f"[{what}] {name} {' '.join(str(list(s)) for s, _ in shapes)} "
-                f"{kw.get('kind', '')}, first launch at this shape, on the model path",
-                out, getattr(ops, f"{name}_plain")(*args, **kw), tol))
+        for (name, _, *shapes), (args, kw, outs) in self.firsts.items():
+            want = getattr(ops, f"{name}_plain")(*args, **kw)
+            for out, ref in zip(outs, want if isinstance(want, tuple) else (want,)):
+                tol = BF16_TOL if out.dtype == torch.bfloat16 else FP32_TOL
+                errs.append(compare(
+                    f"[{what}] {name} {' '.join(str(list(s)) for s, _ in shapes)} "
+                    f"{kw.get('kind', '')}, first launch at this shape, on the model path",
+                    out, ref, tol))
         self.kept.clear()
         self.firsts.clear()
         return max(errs)
@@ -1912,11 +1962,12 @@ def generate_path(what, cfg, ms, params, *, check_ms=None, inputs=None,
 
 def norm_launches(cfg, n_pairs):
     """Dual RMSNorm launches per forward: 2 per LP pair (one per phase) for
-    RMSNorm models. A LayerNorm model (granite-34b, dbrx, whisper) launches
-    none: its ``dual_norm`` is plain PyTorch, as in the JAX package, which
-    has no kernel for it."""
+    RMSNorm models, 1 where the layers have no FFN phase (falcon-mamba). A
+    LayerNorm model (granite-34b, dbrx, whisper) launches none: its
+    ``dual_norm`` is plain PyTorch, as in the JAX package, which has no
+    kernel for it."""
     if cfg.norm_kind == "rmsnorm":
-        return 2 * n_pairs
+        return (2 if cfg.block_pattern[0].ffn else 1) * n_pairs
     log(f"  {cfg.name}: norm_kind={cfg.norm_kind}: no dual_rmsnorm launch expected")
     return 0
 
@@ -2881,7 +2932,8 @@ def no_drops(ms):
     from repro_torch.model import transformer as T
     cfg = ms.cfg
     return T.build_structure(dataclasses.replace(
-        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k), plan=ms.plan)
+        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k), plan=ms.plan,
+        tp=ms.tp)
 
 
 def first_moe_drops(ms, params):
@@ -3611,7 +3663,7 @@ def tp_spawn(case, world, timeout=TP_TIMEOUT):
     for rank in range(world) if failed else (0,):
         text = (d / f"rank{rank}.log").read_text()
         log(f"[tp {case}] rank {rank} of {world}:\n" + "\n".join(
-            f"  | {line}" for line in text.splitlines()[-(400 if rank == 0 else 60):]))
+            f"  | {line}" for line in text.splitlines()[-(900 if rank == 0 else 60):]))
     if failed:
         raise AssertionError(f"tensor-parallel {case}: {failed}")
     return [json.loads((d / f"rank{rank}.json").read_text()) for rank in range(world)]
@@ -3666,9 +3718,9 @@ def tp_probe(got):
     return sorted(got[0]["probe"])
 
 
-def tp_model(pc, n_layers=None, eff_depth=TP2_EFF_DEPTH):
-    """tinyllama-1.1b at its published widths (the first ``n_layers``
-    layers where given) under plan_for_depth(``eff_depth``) at the
+def tp_model(pc, n_layers=TP2_LAYERS, eff_depth=TP2_EFF_DEPTH):
+    """tinyllama-1.1b at its published widths cut to its first
+    ``n_layers`` layers under plan_for_depth(``eff_depth``) at the
     context's tp, bf16 random weights from the seed made on the card: the
     rank's shard of the weights tp = 1 makes (``init_params(rank=)``)."""
     import dataclasses
@@ -3676,9 +3728,7 @@ def tp_model(pc, n_layers=None, eff_depth=TP2_EFF_DEPTH):
     from repro_torch.configs import get_config
     from repro_torch.core.lp import plan_for_depth
     from repro_torch.model import transformer as T
-    cfg = get_config("tinyllama-1.1b")
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=n_layers)
     ms = T.build_structure(cfg, plan=plan_for_depth(cfg, eff_depth), tp=pc.tp_size)
     params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
                            torch.bfloat16, device="cuda",
@@ -3701,33 +3751,45 @@ def tp_prompts(cfg):
                          device="cuda")
 
 
-def tp_streams(pc, cfg, ms, params, work, n_new):
+def tp_streams(pc, cfg, ms, params, work, n_new, parts=("generate", "engine")):
     """fp32 compute on the bf16 weights: ``sharded_generate``'s tokens
     (B = 4 x 128, ``n_new`` new) and the engine's streams on ``work`` (fp32
-    ring cache and pool), as lists."""
+    ring cache and pool), as lists; the ones ``parts`` leaves out are None.
+    A mixture of experts runs at the capacity factor E/k (``no_drops``),
+    where a prefill drops no slot that a decode step keeps."""
     import torch
     from repro_torch.serve import PagedEngine, ServeConfig, sharded_generate
+    if cfg.moe_experts:
+        ms = no_drops(ms)
     set_compute_dtype(params, torch.float32)
     sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
-    gen = sharded_generate(params, tp_prompts(cfg), n_new, ms=ms, pc=pc, sv=sv)
-    eng = PagedEngine(params, ms, engine_config(torch.float32), pc=pc)
-    streams = serve(eng, work)
+    gen = streams = None
+    if "generate" in parts:
+        gen = sharded_generate(params, tp_prompts(cfg), n_new, ms=ms, pc=pc,
+                               sv=sv).cpu().tolist()
+    if "engine" in parts:
+        eng = PagedEngine(params, ms, engine_config(torch.float32), pc=pc)
+        streams = [s.tolist() for s in serve(eng, work)]
     set_compute_dtype(params, torch.bfloat16)
-    return gen.cpu().tolist(), [s.tolist() for s in streams]
+    return gen, streams
 
 
-def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too):
+def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True):
     """bf16 runs whose launches are counted and reconciled, and whose
-    decode launches at steps 0 and 8 are held against their plain versions
-    (``DecodeProbe``): ``sharded_generate`` (4 x 128, ``n_new`` new; with
-    ``generate_too``) and the engine on ``work``. Returns {path: {launches,
-    head_map_launches, seconds, decode_path_max_abs_err, ...}}."""
+    decode launches at steps 0 and 8 (and first flash and scan launch at
+    each shape) are held against their plain versions (``DecodeProbe``):
+    ``sharded_generate`` (4 x 128, ``n_new`` new; with ``generate_too``)
+    and the engine on ``work`` (with ``engine_too``). Returns {path:
+    {launches, head_map_launches, seconds, decode_path_max_abs_err,
+    ...}}."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.model import attention as A
     from repro_torch.serve import PagedEngine, ServeConfig, sharded_generate
     _, n_pairs = model_counts(ms)
-    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    n_single, n_attn_pairs, n_rec = mixer_counts(ms)
+    shapes = (("flash_attention",) if n_single + n_attn_pairs else ()) + (
+        ("ssm_scan",) if n_rec else ())
     out = {}
     if generate_too:
         sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
@@ -3735,45 +3797,48 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too):
         torch.cuda.synchronize()
         ops.reset_launches()
         timings = {}
-        with DecodeProbe(ms, paged=False, steps=(0, 8)) as probe:
+        with DecodeProbe(ms, paged=False, steps=(0, 8), shapes=shapes) as probe:
             sharded_generate(params, prompts, n_new, ms=ms, pc=pc, sv=sv,
                              timings=timings)
         steps = n_new - 1
-        reconcile(f"tp={pc.tp_size} rank {pc.rank} sharded_generate",
+        reconcile(f"tp={pc.tp_size} rank {pc.rank} {cfg.name} sharded_generate",
                   dict(ops.LAUNCHES),
                   {"flash_attention": n_single + n_attn_pairs,
                    "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
                    "decode_attention": steps * n_single,
                    "decode_attention_pair": steps * n_attn_pairs,
                    "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
-                   "ssm_scan": 0})
+                   "ssm_scan": n_rec})
         out["generate"] = {"launches": dict(ops.LAUNCHES),
                            "head_map_launches": dict(ops.HEAD_MAP_LAUNCHES),
                            "prefill_ms": timings["prefill_s"] * 1e3,
                            "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
                            "decode_path_max_abs_err": probe.check(
-                               f"tp={pc.tp_size} rank {pc.rank} sharded_generate")}
+                               f"tp={pc.tp_size} rank {pc.rank} {cfg.name} "
+                               "sharded_generate")}
+    if not engine_too:
+        return out
     eng = PagedEngine(params, ms, engine_config(torch.bfloat16), pc=pc)
     steps = []
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with DecodeProbe(ms, paged=True, steps=(0, 8)) as probe:
+    with DecodeProbe(ms, paged=True, steps=(0, 8), shapes=shapes) as probe:
         serve(eng, work, steps)
     wall_s = time.perf_counter() - t0
     launches, hm = dict(ops.LAUNCHES), dict(ops.HEAD_MAP_LAUNCHES)
-    err = probe.check(f"tp={pc.tp_size} rank {pc.rank} engine")
+    err = probe.check(f"tp={pc.tp_size} rank {pc.rank} {cfg.name} engine")
     c = eng.counters
     prefill_launches = c["bucket_groups"] + (c["full_prefills"] + c["suffix_prefills"]
                                              - c["bucket_prefills"])
     decode_launches = sum(1 for _, st in steps if st["decoded"])
-    reconcile(f"tp={pc.tp_size} rank {pc.rank} engine", launches, {
+    reconcile(f"tp={pc.tp_size} rank {pc.rank} {cfg.name} engine", launches, {
         "dual_rmsnorm": norm_launches(cfg, n_pairs) * (prefill_launches + decode_launches),
         "decode_attention": 0, "decode_attention_pair": 0,
         "decode_attention_paged": n_single * decode_launches,
         "decode_attention_pair_paged": n_attn_pairs * decode_launches,
         "flash_attention": (n_single + n_attn_pairs) * prefill_launches,
-        "ssm_scan": 0})
+        "ssm_scan": n_rec * prefill_launches})
     want_hm = ({"decode_attention_paged": launches["decode_attention_paged"],
                 "decode_attention_pair_paged": launches["decode_attention_pair_paged"]}
                if A.paged_head_map(ms.dims, pc) is not None else
@@ -3787,6 +3852,8 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too):
     eng.pool.check_balance()
     if live != resident or eng.pool.live != 0:
         raise AssertionError(f"rank {pc.rank}: pages still held after drain")
+    if (eng.prefix is None) != exact_prefills(ms):
+        raise AssertionError(f"{cfg.name}: prefix cache {eng.prefix} at tp={pc.tp_size}")
     out["engine"] = {"launches": launches, "head_map_launches": hm,
                      **decode_metrics(wall_s, steps), "decoded": c["decoded"],
                      "prefix_hits": c["prefix_hits"],
@@ -3795,18 +3862,105 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too):
     return out
 
 
+def tp_decode_all_reduces(pc, ms, params, work):
+    """The context's all_reduce calls in one engine step that only decodes
+    (the first request of ``work`` alone, past its prefill), by operation,
+    held to LP's count: a sum per phase exit of each group (a Mamba group's
+    x_proj sum and its exit; an LP pair's phase is one) and the embedding's,
+    and 3 max (the vocab-parallel argmax's two and the finite flag's)."""
+    import torch
+    from repro_torch.parallel import context
+    from repro_torch.serve import PagedEngine
+    eng = PagedEngine(params, ms, engine_config(torch.bfloat16), pc=pc)
+    eng.add_request(work[0][1], work[0][2])
+    while not eng.counters["decoded"]:
+        eng.step()
+    context.reset_all_reduces()
+    stats = eng.step()
+    got = dict(context.ALL_REDUCES)
+    groups = model_counts(ms)[0]
+    want = {"sum": 1 + 2 * groups, "max": 3}
+    if stats["decoded"] != 1 or stats["admitted"] or got != want:
+        raise AssertionError(f"{ms.cfg.name} tp={pc.tp_size}: one decode step "
+                             f"{stats} made {got} all_reduces, want {want}")
+    log(f"[tp] rank {pc.rank} {ms.cfg.name}: one decode step, {groups} groups "
+        f"({len(ms.plan.pairs)} LP pairs): all_reduce {got} (1 + 2 per group sums, "
+        "3 max)")
+    return {"groups": groups, "pairs": len(ms.plan.pairs), **got}
+
+
+def tp_family_model(pc, name, pairs):
+    """``name`` at its published widths cut to its ``TP_FAMILIES`` layers,
+    under the LP ``pairs``, bf16 random weights from the seed made on the
+    card: at tp > 1 the rank's shard of the weights tp = 1 makes."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = dataclasses.replace(get_config(name), n_layers=TP_FAMILIES[name][0])
+    ms = T.build_structure(cfg, plan=LPPlan(pairs), tp=pc.tp_size)
+    params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                           torch.bfloat16, device="cuda",
+                           rank=pc.rank if pc.tp_size > 1 else None)
+    return cfg, ms, params
+
+
+def tp_family(pc, name, *, timed):
+    """One family of (c) under the context ``pc``: fp32-compute streams of
+    ``sharded_generate`` on the generate model and of the engine on the
+    engine model (one model where the pairs agree), and with ``timed`` the
+    bf16 runs (``tp_timed``) and one decode step's all-reduces. Each model
+    is freed before the next."""
+    import torch
+    _, gen_pairs, eng_pairs = TP_FAMILIES[name]
+    models = ([(gen_pairs, ("generate", "engine"))] if gen_pairs == eng_pairs else
+              [(gen_pairs, ("generate",)), (eng_pairs, ("engine",))])
+    out = {"timed": {}}
+    for pairs, parts in models:
+        cfg, ms, params = tp_family_model(pc, name, pairs)
+        work = tp_traffic(cfg.vocab_size, TP_FAMILY_NEW)
+        if pc.rank == 0:
+            log(f"[tp] {name} at tp = {pc.tp_size}, {cfg.n_layers} layers, pairs "
+                f"{ms.plan.pairs} ({', '.join(parts)}): {ms.dims}; "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        gen, streams = tp_streams(pc, cfg, ms, params, work, TP_FAMILY_NEW, parts)
+        if gen is not None:
+            out["generate"] = gen
+        if streams is not None:
+            out["engine"] = streams
+        if timed:
+            out["timed"].update(tp_timed(pc, cfg, ms, params, work, TP_FAMILY_NEW,
+                                         generate_too="generate" in parts,
+                                         engine_too="engine" in parts))
+            if "engine" in parts:
+                out["all_reduces"] = tp_decode_all_reduces(pc, ms, params, work)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_case_tp2(pc):
     """Rank of (a): first the probe (``tp_case_probe``), then tinyllama-1.1b,
-    22 layers, plan_for_depth(16), at tp = 2 (kv heads split: 2 of the 4 a
-    rank)."""
+    ``TP2_LAYERS`` layers, plan_for_depth(``TP2_EFF_DEPTH``), at tp = 2 (kv
+    heads split: 2 of the 4 a rank); then (c), the families."""
+    import torch
     probe = tp_case_probe(pc)
     cfg, ms, params = tp_model(pc)
     work = tp_traffic(cfg.vocab_size, TP2_NEW)
     log(f"[tp2] rank {pc.rank}: {ms.dims}")
     gen, streams = tp_streams(pc, cfg, ms, params, work, TP2_NEW)
-    return {"probe": probe, "generate": gen, "engine": streams,
-            "timed": tp_timed(pc, cfg, ms, params, work, TP2_NEW, generate_too=True),
-            "weights_bytes": sum(p.numel() * p.element_size() for p in params.parameters())}
+    out = {"probe": probe, "generate": gen, "engine": streams,
+           "timed": tp_timed(pc, cfg, ms, params, work, TP2_NEW, generate_too=True),
+           "all_reduces": tp_decode_all_reduces(pc, ms, params, work),
+           "weights_bytes": sum(p.numel() * p.element_size() for p in params.parameters())}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c): the recurrent and MoE families in the same processes
+    out["families"] = {name: tp_family(pc, name, timed=True) for name in TP_FAMILIES}
+    return out
 
 
 def tp_case_tp8(pc):
@@ -3827,7 +3981,7 @@ def tp_case_tp8(pc):
 TP_CASES = {"tp2": tp_case_tp2, "tp8": tp_case_tp8}
 
 
-def tp_reference(n_new, n_layers=None, eff_depth=TP2_EFF_DEPTH):
+def tp_reference(n_new, n_layers=TP2_LAYERS, eff_depth=TP2_EFF_DEPTH):
     """tp = 1 in this process on the same weights: the fp32-compute streams
     the ranks are held to, and the model (for ``held_to``'s near-tie
     check)."""
@@ -3846,30 +4000,68 @@ def tp_check_ranks(what, got):
             raise AssertionError(f"{what}: rank {rank}'s tokens differ from rank 0's")
 
 
-def tp_launches(got):
-    """Launches summed over the ranks, per path, and the head-mapped ones."""
+def tp_launches(timed):
+    """Launches summed over the ranks (``timed``: each rank's ``tp_timed``
+    result), per path, and the head-mapped ones."""
     paths = {}
-    for path in got[0]["timed"]:
-        paths[path] = {k: sum(r["timed"][path]["launches"][k] for r in got)
-                       for k in got[0]["timed"][path]["launches"]}
+    for path in timed[0]:
+        paths[path] = {k: sum(r[path]["launches"][k] for r in timed)
+                       for k in timed[0][path]["launches"]}
         paths[path + ":head_map"] = {
-            k: sum(r["timed"][path]["head_map_launches"][k] for r in got)
-            for k in got[0]["timed"][path]["head_map_launches"]}
+            k: sum(r[path]["head_map_launches"][k] for r in timed)
+            for k in timed[0][path]["head_map_launches"]}
     return paths
+
+
+def tp_family_held(name, ref, got):
+    """The ranks' streams of one family of (c) against tp = 1's (``ref``),
+    all equal or leaving at a near-tie of tp = 1's logits; tp = 1's model
+    is made anew (from the seed) only where a stream differs. Returns
+    {path: (equal streams, streams)}."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    _, gen_pairs, eng_pairs = TP_FAMILIES[name]
+    out = {}
+    for path, pairs in (("generate", gen_pairs), ("engine", eng_pairs)):
+        want, have = ref[path], got[0][path]
+        if want == have:
+            out[path] = (len(want), len(want))
+            continue
+        cfg, ms, params = tp_family_model(ParallelContext(), name, pairs)
+        work = (tp_traffic(cfg.vocab_size, TP_FAMILY_NEW) if path == "engine" else
+                [(0, p, TP_FAMILY_NEW) for p in tp_prompts(cfg).cpu().numpy()])
+        pms = no_drops(ms) if cfg.moe_experts else ms
+        set_compute_dtype(params, torch.float32)
+        out[path] = (held_to(f"tp2 {name} {path}", [(params, pms)] * len(work), work,
+                             [np.array(x) for x in have], [np.array(x) for x in want]),
+                     len(want))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def tp_path():
     """Phase 15: tensor-parallel serving over ``TP_BACKEND``, every rank a
-    process on the one card. (a) tp = 2, tinyllama at 22 layers: streams in
-    fp32 compute held to tp = 1 (near-tie rule), timed bf16 runs probed;
+    process on the one card. (a) tp = 2, tinyllama at ``TP2_LAYERS`` layers:
+    streams in fp32 compute held to tp = 1 (near-tie rule), timed bf16 runs
+    probed; (c) the four families in (a)'s ranks, held the same way;
     (b) tp = 8 at ``TP8_LAYERS`` layers: the head-mapped paged kernels on
     every rank, tokens == tp = 1. Returns ({path: launches}, metrics)."""
     import numpy as np
     import torch
     by_path = {}
 
-    # (a) tp = 2 at 22 layers, after the probe
+    # (a) tp = 2 after the probe; then (c) in the same ranks,
+    # whose tp = 1 references this process makes first, one model at a time
+    from repro_torch.parallel.context import ParallelContext
     t = time.perf_counter()
+    fam_ref, fam_ref_s = {}, {}
+    for name in TP_FAMILIES:
+        t1 = time.perf_counter()
+        fam_ref[name] = tp_family(ParallelContext(), name, timed=False)
+        fam_ref_s[name] = time.perf_counter() - t1
     cfg, ms, params, work, gen1, eng1 = tp_reference(TP2_NEW)
     ref_s = time.perf_counter() - t
     t = time.perf_counter()
@@ -3887,18 +4079,42 @@ def tp_path():
                     [np.array(x) for x in eng1])
     set_compute_dtype(params, torch.bfloat16)
     del params
-    for path, launches in tp_launches(got).items():
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path, launches in tp_launches([r["timed"] for r in got]).items():
         by_path[f"tp2_{path}"] = launches
     metrics["tp2"] = {"world": TP2, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
                       "tp1_reference_s": ref_s, "run_s": tp2_s,
                       "generate_equal": n_gen, "generate_streams": B,
                       "engine_equal": n_eng, "engine_streams": len(work),
-                      "rank0": got[0]["timed"], "rank_weights_bytes": got[0]["weights_bytes"]}
+                      "rank0": got[0]["timed"], "rank_weights_bytes": got[0]["weights_bytes"],
+                      "all_reduces": got[0]["all_reduces"]}
     log(f"[tp2] {TP_BACKEND}, world {TP2}: sharded_generate {n_gen}/{B} and engine "
         f"{n_eng}/{len(work)} streams equal to tp = 1 (fp32 compute; the rest at "
-        f"near-ties); tp = 1 reference {ref_s:.1f} s, ranks {tp2_s:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
+        f"near-ties); tp = 1 references (with (c)'s) {ref_s:.1f} s, ranks (with "
+        f"(c)) {tp2_s:.1f} s")
+
+    # (c) the families, from the same ranks
+    metrics["tp2_families"] = {}
+    for name in TP_FAMILIES:
+        fam = [r["families"][name] for r in got]
+        for rank, r in enumerate(fam[1:], 1):
+            if r["generate"] != fam[0]["generate"] or r["engine"] != fam[0]["engine"]:
+                raise AssertionError(f"tp=2 {name}: rank {rank}'s tokens differ from "
+                                     "rank 0's")
+        held = tp_family_held(name, fam_ref[name], fam)
+        for path, launches in tp_launches([r["timed"] for r in fam]).items():
+            by_path[f"tp2_{name}_{path}"] = launches
+        ar = [r["all_reduces"] for r in fam]
+        metrics["tp2_families"][name] = {
+            "layers": TP_FAMILIES[name][0], "generate_pairs": TP_FAMILIES[name][1],
+            "engine_pairs": TP_FAMILIES[name][2], "tp1_reference_s": fam_ref_s[name],
+            "equal_streams": held, "rank0": fam[0]["timed"], "all_reduces": ar[0]}
+        log(f"[tp2] {name}: sharded_generate {held['generate'][0]}/{held['generate'][1]} "
+            f"and engine {held['engine'][0]}/{held['engine'][1]} streams equal to tp = 1 "
+            f"(fp32 compute; the rest at near-ties); one decode step's all_reduce "
+            f"{ {k: ar[0][k] for k in ('sum', 'max')} } over {ar[0]['groups']} groups "
+            f"({ar[0]['pairs']} LP pairs); tp = 1 reference {fam_ref_s[name]:.1f} s")
 
     # (b) tp = 8 at TP8_LAYERS layers: replicated kv, head-mapped paged decode
     t = time.perf_counter()
@@ -3916,7 +4132,7 @@ def tp_path():
         if r["head_map"] != [rank // 2] or not all(hm.values()):
             raise AssertionError(f"tp = 8 rank {rank}: head map {r['head_map']}, "
                                  f"head-mapped launches {hm}")
-    for path, launches in tp_launches(got).items():
+    for path, launches in tp_launches([r["timed"] for r in got]).items():
         by_path[f"tp8_{path}"] = launches
     metrics["tp8"] = {"world": TP8, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
                       "tp1_reference_s": ref_s, "run_s": tp8_s,
@@ -4108,6 +4324,24 @@ def main() -> int:
     for name in ("decode_attention_paged", "decode_attention_pair_paged"):
         if not head_map_by_path["tp8_engine"][name]:
             raise AssertionError(f"{name} took no head map on tp8_engine")
+    # (c): the scan on the recurrent families' tp = 2 paths, flash and the
+    # ring / paged decode kernels on those with attention (the pair forms
+    # where an attention pair runs: dbrx, llama4), and recurrentgemma's
+    # replicated kv head read through the paged kernel's head map (its pairs
+    # are RG-LRU pairs, so the pair kernel's head-mapped form is held in
+    # phase 3 at its shape)
+    for name in TP_FAMILIES:
+        for path in ("generate", "engine"):
+            paged = "_paged" if path == "engine" else ""
+            names = (("ssm_scan",) if name in (MAMBA, HYBRID) else ()) + (
+                () if name == MAMBA else ("flash_attention", f"decode_attention{paged}")) + (
+                (f"decode_attention_pair{paged}",) if name in (DBRX, LLAMA4) else ())
+            for kernel in names:
+                if not by_path[f"tp2_{name}_{path}"][kernel]:
+                    raise AssertionError(f"{kernel} was not launched on tp2 {name} {path}")
+    if not head_map_by_path[f"tp2_{HYBRID}_engine"]["decode_attention_paged"]:
+        raise AssertionError(f"decode_attention_paged took no head map on tp2 {HYBRID} "
+                             "engine")
     for path in ("serve_oneshot", "serve_continuous", "serve_spec", "serve_degraded"):
         for name in ("flash_attention", "dual_rmsnorm"):
             if not by_path[path][name]:
@@ -4134,6 +4368,9 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if name == "flash_attention":
             kernels[-1]["engine_bucket"] = rows[("flash_attention_bucket", dtype)]
+        if name == "ssm_scan":
+            kernels[-1]["shapes"] = {f"{k[1]} {str(k[2]).split('.')[1]}": e
+                                     for k, e in rows.items() if k[0] == "ssm_shape"}
         if name in ("decode_attention_paged", "decode_attention_pair_paged"):
             kernels[-1]["verify"] = {str(d).split(".")[1]: rows[("verify", name, d)]
                                      for d in (torch.bfloat16, torch.float32)}

@@ -12,8 +12,9 @@ the same function.
 At tp > 1 (``shard_from_numpy``) the tree is the GLOBAL one the JAX
 package builds for a tp-structured model, and each rank keeps its shard:
 every leaf is cut on the host along its split axis
-(``transformer.param_pspecs``) before anything is copied, so no process
-puts another rank's shard on the card.
+(``transformer.param_pspecs``, block by block where ``param_parts`` says
+the axis concatenates blocks: Mamba's ``w_in``) before anything is copied,
+so no process puts another rank's shard on the card.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ def shard_from_numpy(tree, ms, rank: int, *, device="cuda",
     """Rank ``rank``'s shard of a GLOBAL numpy param tree of the structure
     ``ms`` (built at its tp, as the JAX package's ``init_params`` makes
     it), as ``ModelParams`` on ``device``."""
-    from repro_torch.model.transformer import param_pspecs
-    return params_from_numpy(shard_tree(tree, param_pspecs(ms), ms.tp, rank),
+    from repro_torch.model.transformer import param_parts, param_pspecs
+    return params_from_numpy(shard_tree(tree, param_pspecs(ms), ms.tp, rank,
+                                        param_parts(ms)),
                              device=device, dtype=dtype)

@@ -45,11 +45,20 @@ prefix-LM mask, cross-attention), Mamba mixers and RG-LRU mixers, with an
 MLP, a mixture of experts (``moe.moe_forward``) or no FFN. Recurrent pairs
 of mixed kinds raise ``NotImplementedError``.
 
-At tp > 1 (causal attention with an MLP; ``transformer.build_structure``
-refuses the rest) each rank runs its q heads, its stored kv heads and its
-d_ff columns, and every phase ends in one ``psum_tp``: an LP pair's phase
-of two layers too. The core reads the rank's selection of the stored kv
-heads (``_sel_pairwise``, ``_fold_ctx_kv``).
+At tp > 1 (every decoder-only family; ``transformer.build_structure``
+refuses an encoder, cross-attention and a prefix-LM) each rank runs its q
+heads and its stored kv heads, on every attention kind: causal, the window
+ring (``attn_local``), the chunk ring (``attn_chunked``) and a pair of mixed
+kinds (llama4's chunked + global), through ``_mixed_attention_full`` and
+the half-by-half decode. The core reads the rank's selection of the stored
+kv heads (``_sel_pairwise``, ``_fold_ctx_kv``); replicated kv (fewer kv
+heads than ranks: recurrentgemma's one) is stored whole on every rank. The
+rank runs its d_ff columns of an MLP, its experts and its shard of the
+shared expert of a mixture of experts (``moe``), its d_inner/tp channels of
+a Mamba mixer and its lru_width/tp channels of an RG-LRU mixer, whose
+``conv``/``h`` state is the rank's channels (``group_cache_meta``). Every
+phase ends in one ``psum_tp``, an LP pair's phase of two layers too; a
+Mamba phase adds its x_proj's one stacked ``psum_tp``.
 """
 from __future__ import annotations
 
@@ -388,7 +397,8 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
     "k1", "v1"), each with its own ring length. Cross-attention layers add
     the encoder's keys and values ``xk``/``xv`` of length ``enc_len``. The
     recurrent state ``h`` (Mamba, RG-LRU) is fp32 whatever the cache
-    type."""
+    type. Every width is this rank's (``dims.tp``): its stored kv heads,
+    and d_inner/tp (Mamba) or lru_width/tp (RG-LRU) state channels."""
     cross = (batch, enc_len, dims.hkv, dims.hd)
     if _mixer(group) == "attn" and group.pair and not pair_cache_stacked(group):
         out = {}
@@ -405,11 +415,11 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
         if group.specs[0].cross_attn:
             entries.update(xk=(cross, dtype), xv=(cross, dtype))
     elif mixer == "mamba":
-        di = cfg.d_inner
+        di = cfg.d_inner // dims.tp
         entries = {"conv": ((batch, cfg.ssm_conv - 1, di), dtype),
                    "h": ((batch, di, cfg.ssm_state), torch.float32)}
     elif mixer == "rec":
-        W = cfg.lru_width
+        W = cfg.lru_width // dims.tp
         entries = {"conv": ((batch, cfg.rec_conv - 1, W), dtype),
                    "h": ((batch, W, 1), torch.float32)}
     else:

@@ -8,7 +8,12 @@ halved (the pair still costs one phase reduction). Aux output
 (load-balance loss) follows Switch/GShard: mean(frac_tokens *
 frac_router_prob) * E.
 
-Tensor parallelism is not ported: the one rank owns every expert.
+Tensor parallelism is expert parallelism, as in the JAX package: every rank
+routes the same replicated tokens (capacity C from the global token count),
+rank r owns experts [r*E/tp, (r+1)*E/tp) and dispatches only the slots that
+land there (a foreign slot goes to the trash row like a dropped one), and
+the shared expert (llama4) is split column/row like an MLP. The output is
+the rank's partial sum, which the phase's one ``psum_tp`` completes.
 
 What keeps the port's answers the JAX package's, and its own bitwise
 invariants (engine == ``generate``, a row alone == the row in a batch):
@@ -107,18 +112,22 @@ def _moe_single(p, xn, cfg, pc):
     B, S, D = xn.shape
     T = B * S
     E, k = cfg.moe_experts, cfg.moe_top_k
+    e_local = E // pc.tp_size
     C = capacity(T, cfg)
     x = xn.reshape(T, D)
 
     idx, w, aux = _route(x @ p["router"].to(x.dtype), cfg)      # [T,k]
     slot_expert, pos, keep = slot_positions(idx, cfg)
     slot_token = torch.arange(T, device=x.device).repeat_interleave(k)
-    # Dropped slots write to the trash row C (cut off below).
-    le = torch.where(keep, slot_expert, 0)
+    # This rank owns experts [lo, lo + e_local); dropped and foreign slots
+    # write to the trash row C (cut off below).
+    local_e = slot_expert - pc.tp_index() * e_local
+    keep = keep & (local_e >= 0) & (local_e < e_local)
+    le = torch.where(keep, local_e, 0)
     pe = torch.where(keep, pos, C)
 
     n_slots = T * k
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e_local, C + 1, D), dtype=x.dtype, device=x.device)
     for a in range(0, n_slots, CHUNK):
         b = min(a + CHUNK, n_slots)
         kp = keep[a:b, None]
@@ -132,7 +141,7 @@ def _moe_single(p, xn, cfg, pc):
         h = act(gate.float()).to(up.dtype) * up
     else:
         h = act(up.float()).to(up.dtype)
-    eout = torch.bmm(h, p["w_down"].to(h.dtype))                 # [E,C,D]
+    eout = torch.bmm(h, p["w_down"].to(h.dtype))                 # [E/tp,C,D]
 
     # Combine: each token's k slots are consecutive and CHUNK % k == 0, so
     # a chunk of slots is a run of whole tokens; their weighted outputs are
@@ -157,6 +166,6 @@ def _moe_single(p, xn, cfg, pc):
             sh = act(sg.float()).to(sup.dtype) * sup
         else:
             sh = act(sup.float()).to(sup.dtype)
-        out = out + sh @ sp["w_down"].to(sh.dtype)
+        out = out + sh @ sp["w_down"].to(sh.dtype)   # the rank's partial
 
     return out.reshape(B, S, D), aux

@@ -5,7 +5,10 @@ Model modules describe their parameters as trees (nested dicts and lists) of
 leaf splits over the tensor-parallel ranks (``split``, JAX's "model" entry
 of the leaf's PartitionSpec). From a template ``init_tree`` makes tensors
 (a rank's shard of them at tp > 1), ``split_tree`` gives the split axes
-and ``shard_tree`` cuts a global tree to one rank's shard. The layer math takes plain trees of tensors; ``ModelParams``
+and ``shard_tree`` cuts a global tree to one rank's shard. A split axis
+that concatenates ``parts`` equal blocks (Mamba's ``w_in`` = [x; z]) is cut
+block by block: rank r keeps the r-th piece of every block, in block order.
+The layer math takes plain trees of tensors; ``ModelParams``
 is the ``nn.Module`` that owns them, so ``.to(device)`` and ``state_dict``
 work, and ``ModelParams.tree()`` hands the layer functions the same tensors
 as a plain tree.
@@ -28,6 +31,7 @@ class PD:
     fan_in: Optional[int] = None  # None -> last-but-one dim (or last)
     dtype: Any = None  # None -> use the build dtype
     split: Optional[int] = None  # axis cut over the tp ranks; None: replicated
+    parts: int = 1               # equal blocks along ``split``, each cut over the ranks
 
 
 def tree_map(fn, tree, *rest):
@@ -71,26 +75,43 @@ def split_tree(tmpl):
     return tree_map(lambda pd: pd.split, tmpl)
 
 
-def shard_slice(shape, split: Optional[int], tp: int, rank: int):
+def parts_tree(tmpl):
+    """The ``parts`` of every leaf of a template (1: one block)."""
+    return tree_map(lambda pd: pd.parts, tmpl)
+
+
+def shard_slice(shape, split: Optional[int], tp: int, rank: int,
+                parts: int = 1):
     """Index of rank ``rank``'s shard of a global leaf of ``shape``: the
-    ``split`` axis cut into ``tp`` equal blocks, the others whole."""
+    ``split`` axis cut into ``tp`` equal blocks, the others whole. With
+    ``parts`` > 1 the axis is ``parts`` equal blocks laid end to end, each
+    cut into ``tp``: the rank's piece of every block, in block order (a
+    list of indices on that axis, so the shard is a copy)."""
     if split is None or tp == 1:
         return (slice(None),) * len(shape)
     n = shape[split]
-    if n % tp:
+    if n % (tp * parts):
         raise ValueError(f"axis {split} of {tuple(shape)} does not divide by "
-                         f"tp={tp}")
-    w = n // tp
-    return tuple(slice(rank * w, (rank + 1) * w) if i == split else slice(None)
-                 for i in range(len(shape)))
+                         f"tp={tp}"
+                         + (f" in each of {parts} parts" if parts > 1 else ""))
+    w = n // (tp * parts)
+    if parts == 1:
+        cut = slice(rank * w, (rank + 1) * w)
+    else:
+        cut = [b * (n // parts) + rank * w + i for b in range(parts) for i in range(w)]
+    return tuple(cut if i == split else slice(None) for i in range(len(shape)))
 
 
-def shard_tree(tree, splits, tp: int, rank: int):
+def shard_tree(tree, splits, tp: int, rank: int, parts=None):
     """Rank ``rank``'s shard of a global tree (tensors or numpy arrays):
     each leaf cut along its ``splits`` axis (``split_tree`` of the
-    template), as views where the leaf type slices to views."""
-    return tree_map(lambda x, ax: x[shard_slice(x.shape, ax, tp, rank)],
-                    tree, splits)
+    template), block by block where ``parts`` (``parts_tree`` of the
+    template; None: one block each) says so; as views where the leaf type
+    slices to views and the leaf is one block."""
+    if parts is None:
+        parts = tree_map(lambda _: 1, splits)
+    return tree_map(lambda x, ax, n: x[shard_slice(x.shape, ax, tp, rank, n)],
+                    tree, splits, parts)
 
 
 def local_shape(pd: PD, tp: int):
@@ -126,7 +147,7 @@ def init_tree(tmpl, generator: torch.Generator, dtype=torch.float32,
         if fan is None:
             fan = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         out = torch.empty(shape, dtype=dt, device=device)
-        cut = shard_slice(pd.shape, pd.split, tp, rank)
+        cut = shard_slice(pd.shape, pd.split, tp, rank, pd.parts)
         if len(pd.shape) <= 2:
             x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
                             device=device)
@@ -156,7 +177,8 @@ def stack_tmpl(tmpl, n: int):
             pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1])
         return PD(shape=(n, *pd.shape), init=pd.init, fan_in=fan,
                   dtype=pd.dtype,
-                  split=None if pd.split is None else pd.split + 1)
+                  split=None if pd.split is None else pd.split + 1,
+                  parts=pd.parts)
 
     return tree_map(bump, tmpl)
 

@@ -17,6 +17,12 @@ train step's differentiable forward, advance the state one token at a time
 with plain torch ops. The state ``h`` is computed and returned in fp32;
 the conv state in the input's type. The causal conv
 is the Mamba mixer's (``model/ssm.py``).
+
+Tensor parallelism: rank r runs lru_width/tp channels (its columns of the
+gate and recurrent projections, its slice of the conv and the per-channel
+gates, its rows of ``w_out``). The recurrence is per channel, so the mixer
+makes no collective; its output is a partial sum that the phase's exit
+completes, and its state is the rank's channels.
 """
 from __future__ import annotations
 

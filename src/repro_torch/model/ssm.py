@@ -15,6 +15,20 @@ advances the state one token at a time with plain torch ops, as the JAX
 package does; so does the train step's differentiable forward over the
 whole sequence (the kernel has no backward). The state ``h`` is computed
 and returned in fp32; the conv state in the input's type.
+
+Tensor parallelism: rank r runs d_inner/tp channels, [r*di/tp,
+(r+1)*di/tp): its columns of ``w_in``'s x half and the same channels of its
+z half (the template's ``parts=2`` split), its slice of the depthwise conv,
+``dt``, ``A_log``, ``D``, the scan and its rows of ``w_out``. The x_proj
+``w_x`` is row-parallel, so its partial goes through the one stacked
+``psum_tp`` before ``dt``/B/C, which every rank then holds whole; the output
+projection is a partial sum that the phase's exit completes. The JAX package
+declares ``w_in`` as one [D, 2*di] block split over "model", so at tp = 2
+rank 0's local block is all of x, which ``ssm_mix`` then cuts into x and a
+gate z taken from x's other half: a different function from tp = 1
+(ROADMAP §3). The port splits each half, so tp > 1 computes tp = 1's
+function; the global [D, 2*di] layout, and ``param_pspecs``'s axis 1, are
+JAX's.
 """
 from __future__ import annotations
 
@@ -32,7 +46,9 @@ def ssm_template(cfg, tp: int):
     assert di % tp == 0
     R, N, K = cfg.dt_rank, cfg.ssm_state, cfg.ssm_conv
     return {
-        "w_in": PD((D, 2 * di), split=1),             # [x; z]
+        # [x; z], each half cut over the ranks: rank r holds x's and z's
+        # channels [r*di/tp, (r+1)*di/tp) (see the module docstring).
+        "w_in": PD((D, 2 * di), split=1, parts=2),
         "conv_w": PD((K, di), init="normal", fan_in=K, split=1),
         "conv_b": PD((di,), init="zeros", split=0),
         "w_x": PD((di, R + 2 * N), split=0),

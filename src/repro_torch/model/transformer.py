@@ -47,7 +47,8 @@ from repro_torch.model import embedding as E
 from repro_torch.model import stack as ST
 from repro_torch.model.norms import apply_norm
 from repro_torch.model.params import (ModelParams, as_tree, init_tree,
-                                      split_tree, tree_leaves, tree_map)
+                                      parts_tree, split_tree, tree_leaves,
+                                      tree_map)
 from repro_torch.parallel.context import ParallelContext
 
 
@@ -75,8 +76,10 @@ class ModelStructure:
 def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
                     tp: int = 1) -> ModelStructure:
     """The static structure of ``cfg`` under ``plan`` at ``tp``-way tensor
-    parallelism. Above tp 1 the port serves the attention + MLP families
-    (causal attention layers with an MLP or no FFN) and refuses the rest."""
+    parallelism. Above tp 1 the port serves the decoder-only families
+    (attention of every kind, Mamba and RG-LRU mixers, an MLP, a mixture of
+    experts or no FFN) and refuses an encoder, cross-attention and a
+    prefix-LM."""
     if tp < 1:
         raise ValueError(f"tp={tp}")
     plan = plan or EMPTY_PLAN
@@ -95,25 +98,19 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
 
 def _check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
     """Refuse, at tp > 1, what the port does not shard yet (ROADMAP item
-    10): every mixer but causal attention ("attn"), cross-attention, a
-    mixture of experts, an encoder and a prefix-LM."""
+    10): an encoder, cross-attention and a prefix-LM."""
     what = set()
     if cfg.enc_layers:
         what.add("an encoder")
     if cfg.prefix_len:
         what.add("a prefix-LM")
-    for spec in cfg.layer_specs():
-        if spec.mixer != "attn":
-            what.add(f"{spec.mixer} layers")
-        if spec.cross_attn:
-            what.add("cross-attention")
-        if spec.ffn not in ("mlp", None):
-            what.add(f"{spec.ffn} layers")
+    if any(spec.cross_attn for spec in cfg.layer_specs()):
+        what.add("cross-attention")
     if what:
         raise NotImplementedError(
             f"{cfg.name} at tp={tp}: {', '.join(sorted(what))} under tensor "
             "parallelism are not ported yet (ROADMAP item 10); the port "
-            "shards causal attention + MLP models")
+            "shards the decoder-only families")
 
 
 def model_template(ms: ModelStructure) -> Dict[str, Any]:
@@ -150,6 +147,13 @@ def param_pspecs(ms: ModelStructure):
     the weights' tree: the JAX function of this name gives the same as
     PartitionSpecs, where the axis is that of their "model" entry."""
     return split_tree(model_template(ms))
+
+
+def param_parts(ms: ModelStructure):
+    """The blocks each weight's split axis concatenates (``PD.parts``: 2
+    for Mamba's ``w_in`` = [x; z], else 1), in the weights' tree: with
+    ``param_pspecs`` what ``params.shard_tree`` cuts a global tree by."""
+    return parts_tree(model_template(ms))
 
 
 def abstract_params(ms: ModelStructure, dtype=torch.bfloat16):

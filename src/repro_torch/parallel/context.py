@@ -15,6 +15,13 @@ also initialises the group with the backend the caller names: ``"nccl"``
 for one card per rank, or ``"gloo"`` (CUDA or CPU tensors; several ranks may
 share one card). Nothing picks a backend for the caller.
 
+``ALL_REDUCES`` counts the ``all_reduce`` calls the contexts make, by
+operation, as ``kernels.ops.LAUNCHES`` counts kernel launches: it moves
+only where a collective is issued (never at tp = 1, where every helper is
+the identity), so a caller can hold a step's count to LP's halving (an LP
+pair's phase syncs once where two layers sync twice). ``reset_all_reduces``
+sets it to zero.
+
 Serving only: sequence parallelism (``sp=True``) at tp > 1 raises, and so
 does a collective on a tensor that autograd tracks (the sharded trainer is
 ROADMAP item 10).
@@ -28,6 +35,14 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
+
+#: all_reduce calls issued by the contexts of this process, by operation.
+ALL_REDUCES = {"sum": 0, "max": 0}
+
+
+def reset_all_reduces() -> None:
+    for op in ALL_REDUCES:
+        ALL_REDUCES[op] = 0
 
 
 @dataclass(frozen=True)
@@ -57,7 +72,7 @@ class ParallelContext:
         return self.rank
 
     # -- collectives over the TP axis (identity at world size 1) --------
-    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+    def _all_reduce(self, x: torch.Tensor, op, name: str) -> torch.Tensor:
         if self.group is None:
             raise RuntimeError(
                 f"a tp_size={self.tp_size} context has no process group: "
@@ -69,17 +84,18 @@ class ParallelContext:
                 "ported yet (ROADMAP item 10); serve under torch.no_grad()")
         y = x.contiguous().clone()   # in place on a copy: x stays as it was
         dist.all_reduce(y, op=op, group=self.group)
+        ALL_REDUCES[name] += 1
         return y
 
     def psum_tp(self, x):
         if self.tp_size == 1:
             return x
-        return self._all_reduce(x, dist.ReduceOp.SUM)
+        return self._all_reduce(x, dist.ReduceOp.SUM, "sum")
 
     def pmax_tp(self, x):
         if self.tp_size == 1:
             return x
-        return self._all_reduce(x, dist.ReduceOp.MAX)
+        return self._all_reduce(x, dist.ReduceOp.MAX, "max")
 
     # -- phase boundaries (the paper's sync points) ---------------------
     # A phase is one column-parallel -> local -> row-parallel region; an LP

@@ -78,7 +78,8 @@ size 1. The prefix-LM (paligemma) and encoder-decoder (whisper) models run
 through ``generate`` only, as in the JAX package: the paged pool refuses
 them (``paged_cache.validate_paged_support``).
 
-Tensor parallel serving (attention + MLP models): one process per rank,
+Tensor parallel serving (every family the pool pages: attention + MLP,
+Mamba, the RG-LRU hybrid, the mixtures of experts): one process per rank,
 each with its shard of the weights (``transformer.init_params(rank=)``,
 ``bridge.shard_from_numpy``) and its ``ParallelContext``, runs the same
 program: ``sharded_generate`` (the ring cache), or a ``PagedEngine`` given
@@ -88,7 +89,9 @@ vocab-parallel argmax and the finite flags are agreed over the ranks
 (``pmax_tp``), so the host decisions of all ranks agree. Each rank's pool
 holds its share of split kv heads, or every stored head when kv is
 replicated (the paged kernel then reads the rank's through its head
-map). ``spec_k`` and ``degrade_delta`` are tp=1-only, as in the JAX
+map), and its channels of the recurrent slot state. The recurrent and MoE
+families prefill every admission exactly at tp > 1 too (no prefix cache,
+no buckets). ``spec_k`` and ``degrade_delta`` are tp=1-only, as in the JAX
 package.
 """
 from __future__ import annotations

@@ -24,7 +24,8 @@ Recurrent state entries (``conv``/``h`` of Mamba and RG-LRU) are O(1)
 per request and are not paged: they stay slot-indexed,
 ``[count, (2,) n_slots, ...]``, with the decode slot as their batch axis. ``scatter_prefill`` writes a request's
 state at its slot and ``scrub_pages`` clears it. The state ``h`` stays
-fp32 whatever the pool's type.
+fp32 whatever the pool's type. At tp > 1 a rank's slot state holds its
+channels only (d_inner / tp for Mamba, lru_width / tp for RG-LRU).
 
 Every write here is IN PLACE (``index_copy_`` / ``index_fill_`` on the pool
 tensors); the functions return the same pool list for convenience. The

@@ -14,7 +14,12 @@
   it by those specs, and ``init_params(rank=)`` against the shard of the
   global weights;
 - the refusals at tp > 1: ``spec_k``, ``degrade_delta``, ``sp=True``, the
-  mixers and phases outside the slice, a context without a group.
+  families outside the slice (the encoder-decoder and the prefix-LM), a
+  context without a group; the decoder-only families build at tp 2 and 8;
+- the recurrent and MoE rank pieces: ``shard_slice`` over a split axis of
+  two blocks (Mamba's ``w_in``), the recurrent state at the rank's width
+  (``group_cache_meta``), and ``_moe_single``'s rank partials against tp
+  = 1.
 
 Tolerance: 2e-5 in fp32 (tests/test_kernels.py); layouts and shards match
 exactly. The processes that run tp > 1 end to end are in
@@ -340,9 +345,7 @@ def test_refusals_at_tp_above_one():
     TPG.validate_paged_support(TT.build_structure(c3, tp=4), 64)
 
 
-@pytest.mark.parametrize("arch", [a for a in TC.ASSIGNED_ARCHS
-                                  if a not in ("tinyllama-1.1b", "yi-6b",
-                                               "minicpm-2b", "granite-34b")])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium"])
 def test_families_outside_the_slice_refuse_tp(arch):
     cfg = TC.reduced_config(TC.get_config(arch), n_layers=4)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
@@ -351,13 +354,109 @@ def test_families_outside_the_slice_refuse_tp(arch):
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "yi-6b", "minicpm-2b",
-                                  "granite-34b"])
-def test_attention_families_build_at_tp(arch):
-    """The slice's families build at tp 2 and 8 at their published widths,
-    with the head layout JAX gives them, and their pools validate."""
+                                  "granite-34b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b", "dbrx-132b",
+                                  "llama4-scout-17b-a16e"])
+def test_families_build_at_tp(arch):
+    """The decoder-only families build at tp 2 and 8 at their published
+    widths, with the head layout JAX gives them, and their pools validate."""
     for tp in (2, 8):
         jms = JT.build_structure(get_config(arch), tp=tp)
         tms = TT.build_structure(TC.get_config(arch), tp=tp)
         assert dataclasses.asdict(tms.dims) == dataclasses.asdict(jms.dims)
         if not tms.dims.kv_sharded or TC.get_config(arch).n_kv_heads % tp == 0:
             TPG.validate_paged_support(tms, 256)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and MoE families' rank pieces
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shard_slice_parts_reassemble(tp):
+    """A split axis of 2 blocks ([x; z]): rank r holds the r-th piece of
+    each block, and the ranks' pieces put back block by block are the
+    global leaf; one block keeps the contiguous cut (a view)."""
+    from repro_torch.model.params import shard_slice
+    g = torch.arange(3 * 2 * 8 * tp).reshape(3, 2 * 8 * tp)
+    shards = [g[shard_slice(g.shape, 1, tp, r, 2)] for r in range(tp)]
+    assert all(s.shape == (3, 16) for s in shards)
+    halves = [torch.cat([s[:, :8] for s in shards], 1),
+              torch.cat([s[:, 8:] for s in shards], 1)]
+    assert torch.equal(torch.cat(halves, 1), g)
+    assert torch.equal(shards[1][:, :8], g[:, 8:16])
+    assert torch.equal(shards[1][:, 8:], g[:, 8 * tp + 8:8 * tp + 16])
+    one = g[shard_slice(g.shape, 1, tp, 1)]
+    assert one.data_ptr() == g.data_ptr() + 16 * g.element_size()
+    assert torch.equal(one, g[:, 16:32])
+    with pytest.raises(ValueError, match="in each of 2 parts"):
+        shard_slice((3, 2 * tp + 2), 1, tp, 0, 2)
+    # Mamba's w_in: the template's parts, the structure's param_parts, and
+    # the shard of a layer's weights
+    from repro_torch.model import ssm as SSM
+    from repro_torch.model.params import init_tree, parts_tree, split_tree
+    tcfg = TC.reduced_config(TC.get_config("falcon-mamba-7b"), n_layers=2)
+    tmpl = SSM.ssm_template(tcfg, tp)
+    assert parts_tree(tmpl)["w_in"] == 2 and split_tree(tmpl)["w_in"] == 1
+    assert TT.param_parts(TT.build_structure(tcfg, tp=tp))["segments"][0]["mamba"]["w_in"] == 2
+    w = init_tree(tmpl, torch.Generator().manual_seed(1))
+    di, q = tcfg.d_inner, tcfg.d_inner // tp
+    for r in range(tp):
+        got = shard_tree(w, split_tree(tmpl), tp, r, parts_tree(tmpl))
+        assert torch.equal(got["w_in"], torch.cat([w["w_in"][:, r * q:(r + 1) * q],
+                                                   w["w_in"][:, di + r * q:di + (r + 1) * q]], 1))
+        assert torch.equal(got["w_out"], w["w_out"][r * q:(r + 1) * q])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_recurrent_cache_meta_at_rank_width(arch):
+    """The recurrent state (conv, h) is the rank's channels: d_inner / tp
+    (Mamba), lru_width / tp (RG-LRU); the attention entries keep the
+    stored kv heads."""
+    cfg = TC.get_config(arch)
+    width = cfg.d_inner if arch.startswith("falcon") else cfg.lru_width
+    for tp in (1, 2, 8):
+        ms = TT.build_structure(cfg, plan=plan_range(cfg, 0, 2), tp=tp)
+        meta = TT.cache_meta(ms, batch=3, max_len=64)
+        pair = meta[0]
+        assert pair["conv"][0][-1] == width // tp and pair["h"][0][-2] == width // tp
+        assert pair["h"][1] == torch.float32
+        for seg in meta[1:]:
+            for name, (shape, _) in seg.items():
+                if name.startswith("conv"):
+                    assert shape[-1] == width // tp
+                elif name.startswith("h"):
+                    assert shape[-2] == width // tp
+                else:
+                    assert shape[-2] == ms.dims.hkv
+
+
+@pytest.mark.parametrize("arch,tp", [("dbrx-132b", 2), ("dbrx-132b", 4),
+                                     ("llama4-scout-17b-a16e", 2),
+                                     ("llama4-scout-17b-a16e", 4)])
+def test_moe_rank_partials_sum_to_tp1(arch, tp):
+    """``_moe_single`` on each rank's shard (its experts, its columns/rows
+    of the shared expert) with a stand-in context of that rank: the
+    partials summed in one process equal tp = 1 within 2e-5, and the aux
+    loss is every rank's. Capacity 1.25, so slots drop (on every rank
+    alike)."""
+    from repro_torch.model import moe as MOE
+    from repro_torch.model.params import init_tree, split_tree
+    cfg = TC.reduced_config(TC.get_config(arch))
+    tmpl = MOE.moe_template(cfg, tp)
+    p = init_tree(tmpl, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)   # tokens about one direction: slots drop
+    x = torch.from_numpy((rng.standard_normal(cfg.d_model) + 0.3 * rng.standard_normal(
+        (2, 24, cfg.d_model))).astype(np.float32))
+    want, aux = MOE._moe_single(p, x, cfg, ParallelContext())
+    dropped = (~MOE.slot_positions(MOE._route(x.reshape(-1, cfg.d_model) @ p["router"],
+                                              cfg)[0], cfg)[2]).sum()
+    assert dropped > 0
+    parts = []
+    for r in range(tp):
+        pr = shard_tree(p, split_tree(tmpl), tp, r)
+        assert pr["w_up"].shape[0] == cfg.moe_experts // tp
+        out, a = MOE._moe_single(pr, x, cfg, ParallelContext(tp_size=tp, rank=r))
+        assert torch.equal(a, aux)
+        parts.append(out)
+    _close(sum(parts), want.numpy())
