@@ -58,7 +58,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      8448-token prompt; the dual RMSNorm also at D = 5120 (llama4). The
      same at paligemma-3b's and whisper-medium's head shapes
      (``PREFIX_ENCDEC_SHAPES``: 8 query heads over 1 kv head at hd 256; 16
-     heads at hd 64), with flash at phase 12's launches: the causal mask
+     heads at hd 64; and their tp = 2 rank shapes of phase 15 (d), 4 query
+     heads over the kv head and 8 heads), with flash at phase 12's launches: the causal mask
      with a prefix of 256 over 384 positions (hd 256), the bidirectional
      encoder at S = T = 1500, and cross-attention of 32 and of 1 query row
      against 1500 keys.
@@ -117,10 +118,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      cohort's plan, and a timed bf16-pool run whose launches reconcile per
      cohort with the engine's spans.
   7. Mamba path: LP falcon-mamba-7b at full width (d 4096, d_inner 8192,
-     N 16, vocab 65024) cut to its first 16 of 64 layers (plan_for_depth
-     12 -> 4 pairs + 8 single layers), random weights made on the card
+     N 16, vocab 65024) cut to its first 8 of 64 layers (plan_for_depth
+     6 -> 2 pairs + 4 single layers), random weights made on the card
      from a seed, after the tinyllama weights are freed. First in fp32
-     (~8 GB): the engine
+     (~4 GB): the engine
      with phase 6's geometry and traffic, fp32 pool, held stream by stream
      against ``generate`` (the prefix cache and the bucket ladder switch
      off for the recurrent mixer: every admission prefills at its exact
@@ -133,9 +134,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with a profiled window.
 
   9. dense paths: yi-6b, minicpm-2b and granite-34b at their published
-     widths, yi cut to its first 12 of 32 layers, minicpm to its first 10
-     of 40 and granite to its first 11 of 88 (``DENSE_LAYERS``), each under
-     plan_for_depth(3/4 of its layers): 12 -> 9, 10 -> 7, 11 -> 8 groups, bf16 random weights
+     widths, yi cut to its first 8 of 32 layers, minicpm to its first 6
+     of 40 and granite to its first 7 of 88 (``DENSE_LAYERS``), each under
+     plan_for_depth(3/4 of its layers): 8 -> 6, 6 -> 4, 7 -> 5 groups, bf16 random weights
      made on the card from the seed (each model freed before the next):
      phase 5's ``generate`` and phase 6's engine (streams held to ``generate`` under the near-tie rule
      in an fp32 pool, both computing in fp32 on the bf16 weights: bf16
@@ -146,14 +147,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      LayerNorm model, launches no dual RMSNorm), with the peak of allocated
      device memory.
  10. hybrid path: LP recurrentgemma-9b at its published widths, cut to
-     its first 20 of 38 layers (plan_for_depth(15): 5 RG-LRU pairs, 4
-     single RG-LRU layers, 6 single local-attention layers at hd 256),
+     its first 10 of 38 layers (plan_for_depth(7): 3 RG-LRU pairs, 1
+     single RG-LRU layer, 3 single local-attention layers at hd 256),
      bf16 random weights made on the card from the seed: phase 5's
      ``generate`` and phase 6's engine (the prefix cache and the bucket
      ladder switch off for the recurrent state; streams held to
      ``generate`` in fp32 compute, the timed bf16 run reconciled: per
-     decode step 6 decode attention and 10 dual RMSNorm launches, per
-     prefill 6 flash and 9 scans), then a
+     decode step 3 decode attention and 6 dual RMSNorm launches, per
+     prefill 3 flash and 4 scans), then a
      window run: one 2304-token prompt (W + 256) and 16 new tokens, its
      first flash launch and its wrapped-ring decode launches held against
      their plain versions, and in fp32 compute prefill + one decode step
@@ -222,13 +223,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      seed: each
      rank first checks that gloo takes CUDA tensors for all_reduce SUM and
      MAX (fp32, bf16, int64, int32), then ``sharded_generate`` (4 x 128,
-     32 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
+     16 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
      compute, held to tp = 1 in this process (near-tie rule), and timed
      bf16 runs whose launches reconcile and whose decode launches are held
      to their plain versions (``DecodeProbe``); (b) cut to 4 layers (one
      pair, two single layers) at tp = 8: 4 kv heads under 8 ranks are
      replicated and rank r's q heads read stored head r // 2 through the
-     paged kernels' head map; its tokens (fp32 compute, 16 new) equal tp =
+     paged kernels' head map; its tokens (fp32 compute, 8 new) equal tp =
      1's and every rank launched both paged kernels with its map. (c) in
      (a)'s rank processes, after tinyllama: falcon-mamba-7b (4 layers, pair
      (0, 1): d_inner / 2 a rank), recurrentgemma-9b (3 layers, rec, rec,
@@ -244,8 +245,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      timed bf16 runs reconciled and probed as in (a) (the first flash and
      scan launch at each shape too); one decode step's all-reduces
      counted and held to 1 + 2 per group sums and 3 max (tinyllama's
-     too). All ranks' tokens agree. Times over gloo go through the host:
-     correctness runs, not speed.
+     too). (d) in the same ranks, after (c): whisper-medium (2 encoder + 2
+     decoder layers, pair (0, 1): 8 of 16 heads a rank in the encoder, the
+     decoder and the cross-attention) on frames [4, 1500, 1024] with
+     prompts 4 x 32, and paligemma-3b (2 layers, pair (0, 1): 4 of 8 q
+     heads over its replicated kv head) behind 256 patch embeddings with
+     prompts 4 x 128 and a cache of 512, once at kv_mode "heads" and once
+     at "seq" (the ring cut along the sequence, 256 positions a rank),
+     ``sharded_generate`` (16 new) held the same way (``TP_ENCDEC``); the
+     timed bf16 runs reconcile (the seq ring launches no decode kernel)
+     and hold the first flash launch at each rank shape (bidirectional
+     over 1500 frames, cross-attention at prefill and decode, the prefix
+     mask) and the ring decode launches against their plain versions; one
+     serve step's collectives counted: 1 + 2 per group sums, one more per
+     cross-attention phase, 2 max (the argmax), and per attention phase cut
+     along the sequence one gather, one max and one sum more. (e) in (b)'s
+     ranks: tinyllama's ``sharded_generate`` at kv_mode "seq" (its 4 kv
+     heads under 8 ranks), whose tokens equal the heads mode's and tp =
+     1's, its collectives counted as in (d). All ranks' tokens agree.
+     Times over gloo go through the host: correctness runs, not speed.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
 phases 9 to 15 after 7. The second-to-last line is the kernels JSON (with
@@ -296,12 +314,12 @@ ENGINE_NEW = 32
 # degraded cohort: the top 2 of the 8 slots, at maximal pairing.
 SPEC_K, DEG_SLOTS = 4, 2
 MARGIN_FRAC = 0.01   # a divergence must sit at a top-2 margin <= 1% of scale
-# Mamba path: falcon-mamba-7b, d_inner 8192, state 16, cut to its first 32
-# of 64 layers under plan_for_depth(24): 8 pairs + 16 single layers (at all
-# 64 layers, 48 groups, the phase took 78.9-107.7 s; the cut pays for
-# phase 12, PERF.md §4).
+# Mamba path: falcon-mamba-7b, d_inner 8192, state 16, cut to its first 8
+# of 64 layers under plan_for_depth(6): 2 pairs + 4 single layers (at all
+# 64 layers, 48 groups, the phase took 78.9-107.7 s; the cuts to 32, 16
+# and 8 layers paid for phases 12, 15 and 15 (d)-(e), PERF.md §4).
 MAMBA = "falcon-mamba-7b"
-MAMBA_LAYERS, MAMBA_EFF_DEPTH, DI, NS = 16, 12, 8192, 16
+MAMBA_LAYERS, MAMBA_EFF_DEPTH, DI, NS = 8, 6, 8192, 16
 # Dual RMSNorm (D, M) on the paths: tinyllama decode (generate, engine) and
 # prefill (generate's 4 x 128 and the engine's 8 x 64 bucket); falcon-mamba
 # decode, an exact engine admission of 97 tokens, and generate's prefill.
@@ -311,12 +329,12 @@ NORM_SHAPES = ((2048, 4), (2048, 8), (2048, 512),
                (5120, 4), (5120, 8), (5120, 512))
 NORM_EPS = 1e-6
 DENSE = ("yi-6b", "minicpm-2b", "granite-34b")
-# Layers phase 9 keeps of each model (its first ones): yi-6b's 32 are cut
-# to 12 (since phase 15 took the recurrent and MoE families), minicpm-2b's
-# 40 to a quarter, granite-34b's 88 to an eighth, so that with phases 10 to
-# 15 the script keeps room in its time limit (PERF.md §4; 20 and 22 layers
-# until phase 15 came).
-DENSE_LAYERS = {"yi-6b": 12, "minicpm-2b": 10, "granite-34b": 11}
+# Layers phase 9 keeps of each model (its first ones): yi-6b's 32, minicpm-2b's
+# 40 and granite-34b's 88 are cut to 8, 6 and 7 (two LP pairs each, since
+# phase 15 took whisper, paligemma and the seq cache; 12, 10 and 11 before),
+# so that with phases 10 to 15 the script keeps room in its time limit
+# (PERF.md §4).
+DENSE_LAYERS = {"yi-6b": 8, "minicpm-2b": 6, "granite-34b": 7}
 # Attention head shapes (kv heads, GQA group, hd) held in phase 3 beside
 # tinyllama's: yi-6b's GQA, minicpm-2b's MHA, granite-34b's MQA and
 # recurrentgemma-9b's local attention (16 query heads over 1 kv head at hd
@@ -324,12 +342,12 @@ DENSE_LAYERS = {"yi-6b": 12, "minicpm-2b": 10, "granite-34b": 11}
 DENSE_SHAPES = (("yi-6b", 4, 8, 128), ("minicpm-2b", 36, 1, 64),
                 ("granite-34b", 1, 48, 128), ("recurrentgemma-9b", 1, 16, 256))
 # Hybrid path: recurrentgemma-9b (RG-LRU and local attention, window 2048)
-# cut to its first 20 of 38 layers (6 periods and a trailing rec pair;
-# every layer kind stays) under plan_for_depth(15): 5 rec pairs, 4 single
-# rec layers, 6 single attn_local layers. Its window run takes a prompt of
-# W + 256 tokens.
+# cut to its first 10 of 38 layers (3 periods and a trailing rec layer;
+# every layer kind stays; 20 until phase 15 took (d) and (e)) under
+# plan_for_depth(7): 3 rec pairs, 1 single rec layer, 3 single attn_local
+# layers. Its window run takes a prompt of W + 256 tokens.
 HYBRID = "recurrentgemma-9b"
-HYBRID_LAYERS, HYBRID_EFF_DEPTH, WINDOW = 20, 15, 2048
+HYBRID_LAYERS, HYBRID_EFF_DEPTH, WINDOW = 10, 7, 2048
 WINDOW_PROMPT, WINDOW_NEW = WINDOW + 256, 16
 WINDOW_TOL = 2e-3   # prefill + one decode step against the full forward, fp32
 # MoE path (phase 11): dbrx-132b and llama4-scout cut to 4 layers (one
@@ -362,7 +380,10 @@ PALI_EFF_DEPTH, PALI_PREFIX, PALI_MAX_LEN = 14, 256, 512
 WHISPER_EFF_DEPTH, WHISPER_PROMPT, WHISPER_MAX_LEN, ENC_SEQ = 18, 32, 128, 1500
 # Their head shapes held in phase 3 (kv heads, GQA group, hd): paligemma's
 # 8 query heads over 1 kv head at hd 256, whisper's 16 heads at hd 64.
-PREFIX_ENCDEC_SHAPES = ((PALI, 1, 8, 256), (WHISPER, 16, 1, 64))
+# Their rank shapes at tp = 2 (phase 15 (d)): paligemma's 4 query heads
+# over its replicated kv head, whisper's 8 heads a rank.
+PREFIX_ENCDEC_SHAPES = ((PALI, 1, 8, 256), (WHISPER, 16, 1, 64),
+                        (PALI + " tp2", 1, 4, 256), (WHISPER + " tp2", 8, 1, 64))
 # Train path (phase 13): (a) tinyllama-1.1b cut to 2 layers (one LP pair) in
 # fp32, B = 2 x S = 64, card against CPU: loss within 1e-4 (of ~10.4),
 # each leaf's gradients within 1e-3 of that leaf's largest |g|, one AdamW
@@ -411,10 +432,11 @@ HEAD_MAP_SHAPES = (
 # joined over gloo (NCCL refuses two ranks on one device). (a) tinyllama-1.1b
 # cut to 11 of its 22 layers (since phase 15 took (c); 22 until then) under
 # plan_for_depth(8) at tp = 2 (kv heads split):
-# sharded_generate (4 x 128, 32 new) and the engine on half of phase 6's
-# traffic (``tp_traffic``: 4 requests of each wave, 32 new); (b) cut to 4
+# sharded_generate (4 x 128, 16 new; 32 until (d) came) and the engine on half
+# of phase 6's traffic (``tp_traffic``: 4 requests of each wave, 16 new);
+# (b) cut to 4
 # layers under plan_for_depth(3) (one pair, two single layers) at tp = 8 (4
-# kv heads under 8 ranks: replicated, head map [rank // 2]), the same with 16
+# kv heads under 8 ranks: replicated, head map [rank // 2]), the same with 8
 # new tokens. A decode step costs 0.1-0.2 s over gloo (20 all-reduces
 # through the host at tp = 2), so the runs are short. (c) the recurrent and
 # MoE families at tp = 2, served by (a)'s rank processes after tinyllama, at
@@ -422,20 +444,34 @@ HEAD_MAP_SHAPES = (
 # generate's LP pairs, the engine's LP pairs); sharded_generate (4 x 128)
 # and the engine on ``tp_traffic``, 16 new tokens. llama4's generate pair
 # (2, 3) is chunked + global, which the pool refuses: its engine runs under
-# (0, 1) on weights made anew.
+# (0, 1) on weights made anew. (d) the encoder-decoder and the prefix-LM at
+# tp = 2 in (a)'s ranks after (c), through sharded_generate only (the pool
+# refuses both): whisper-medium cut to 2 encoder + 2 decoder layers, frames
+# [4, 1500, 1024] and prompts 4 x 32 (cache 128); paligemma-3b cut to 2
+# layers, a prefix of 256 before prompts 4 x 128 (cache 512), once at
+# kv_mode "heads" and once at "seq" (its one kv head, replicated, cut along
+# the sequence); decoder pair (0, 1), 16 new tokens: arch -> (decoder
+# layers, kv modes). (e) in (b)'s ranks: tinyllama's sharded_generate at
+# kv_mode "seq" (4 kv heads under 8 ranks). (b) and (e) take 8 new tokens
+# (16 until (e) came): a step over gloo at tp = 8 takes 0.2-0.5 s.
 TP_BACKEND, TP_TIMEOUT = "gloo", 420
-TP2, TP2_LAYERS, TP2_EFF_DEPTH, TP2_NEW = 2, 11, 8, 32
-TP8, TP8_LAYERS, TP8_EFF_DEPTH, TP8_NEW = 8, 4, 3, 16
+TP2, TP2_LAYERS, TP2_EFF_DEPTH, TP2_NEW = 2, 11, 8, 16
+TP8, TP8_LAYERS, TP8_EFF_DEPTH, TP8_NEW = 8, 4, 3, 8
 TP_FAMILIES = {MAMBA: (4, ((0, 1),), ((0, 1),)),
                HYBRID: (3, ((0, 1),), ((0, 1),)),
                DBRX: (3, ((1, 2),), ((1, 2),)),
                LLAMA4: (4, ((0, 1), (2, 3)), ((0, 1),))}
 TP_FAMILY_NEW = 16
+TP_ENCDEC = {WHISPER: (2, ("heads",)), PALI: (2, ("heads", "seq"))}
+TP_ENCDEC_NEW = 16
 TP_NCCL_NOT_RUN = [
     "init_context(backend='nccl'): one card per rank, every all_reduce of the "
     "tp = 2 and tp = 8 paths and of the four families' tp = 2 paths (Mamba's "
     "x_proj sum, the MoE and RG-LRU phase exits) over NCCL (one card here, and "
-    "NCCL refuses two ranks on one device)"]
+    "NCCL refuses two ranks on one device)",
+    "the encoder's and the cross-attention's phase sums of whisper-medium, and "
+    "the sequence-sharded cache's all_gather_tp (an all_reduce of zero-padded "
+    "blocks), max and packed sum of paligemma-3b and tinyllama over NCCL"]
 
 
 def log(msg):
@@ -732,8 +768,9 @@ def check_kernels():
         for model, hkv, g, hd in DENSE_SHAPES + MOE_SHAPES + PREFIX_ENCDEC_SHAPES:
             log(f"[kernels] attention at {model}'s shape (Hkv={hkv}, g={g}, hd={hd}) {dtype}")
             found = check_dense_shape(ops, rand, gen, dtype, hkv, g, hd, tol)
-            if model in (PALI, WHISPER):
-                found.update(check_prefix_encdec_flash(ops, rand, dtype, tol, model))
+            if model.split()[0] in (PALI, WHISPER):
+                found.update(check_prefix_encdec_flash(ops, rand, dtype, tol, model,
+                                                       hkv, g))
             if model == HYBRID:
                 found.update(check_masked_flash(ops, rand, dtype, hkv, g, hd, tol,
                                                 "window", WINDOW, WINDOW_PROMPT))
@@ -1107,32 +1144,34 @@ def check_masked_flash(ops, rand, dtype, hkv, g, hd, tol, kind, span, long_len):
     return out
 
 
-def check_prefix_encdec_flash(ops, rand, dtype, tol, model):
-    """Flash at the shapes phase 12 launches it, each against its plain
-    version and timed beside its bound and SDPA (with a boolean mask for
-    the prefix). paligemma (Hkv 1, g 8, hd 256): the causal mask with a
-    prefix of 256 over S = 384 (256 patches + 128 text), B = 4, the pair
-    layer (2 folded kv heads) and a single one, block_n 16. whisper (16
-    heads, g 1, hd 64): the encoder's bidirectional S = T = 1500, the
-    cross-attention prefill (S 32 against T 1500; the pair's 32 folded
-    heads and a single layer's 16) at block_n 16, and the cross-attention
-    decode (S 1 against T 1500; the pair folded into the batch: 8 rows,
-    and a single layer's 4) at block_n 64. T = 1500 is no multiple of a
-    tile: the ragged last tile is on the path. Returns {(kernel name,
-    key): entry}."""
+def check_prefix_encdec_flash(ops, rand, dtype, tol, model, hkv, g):
+    """Flash at the shapes phases 12 and 15 (d) launch it, each against its
+    plain version and timed beside its bound and SDPA (with a boolean mask
+    for the prefix). paligemma (Hkv 1, g 8, hd 256; a rank's g 4 at tp =
+    2): the causal mask with a prefix of 256 over S = 384 (256 patches +
+    128 text), B = 4, the pair layer (2 folded kv heads) and a single one,
+    block_n 16. whisper (16 heads, g 1, hd 64; a rank's 8 at tp = 2): the
+    encoder's bidirectional S = T = 1500, the cross-attention prefill (S 32
+    against T 1500; the pair's 2 x ``hkv`` folded heads and a single
+    layer's ``hkv``) at block_n 16, and the cross-attention decode (S 1
+    against T 1500; the pair folded into the batch: 8 rows, and a single
+    layer's 4) at block_n 64. T = 1500 is no multiple of a tile: the
+    ragged last tile is on the path. Returns {(kernel name, key):
+    entry}."""
     import torch
     import torch.nn.functional as F
     dt = str(dtype).split(".")[1]
-    if model == PALI:
+    if model.split()[0] == PALI:
         P, St = PALI_PREFIX, PALI_PREFIX + S
-        cases = [("prefill prefix", B, St, St, 2, 8, 256, "causal", P, 16),
-                 ("prefill prefix single", B, St, St, 1, 8, 256, "causal", P, 16)]
+        cases = [("prefill prefix", B, St, St, 2 * hkv, g, 256, "causal", P, 16),
+                 ("prefill prefix single", B, St, St, hkv, g, 256, "causal", P, 16)]
     else:
-        cases = [("encoder bidir", B, ENC_SEQ, ENC_SEQ, 16, 1, 64, "bidir", 0, 16),
-                 ("cross prefill", B, WHISPER_PROMPT, ENC_SEQ, 32, 1, 64, "bidir", 0, 16),
-                 ("cross prefill single", B, WHISPER_PROMPT, ENC_SEQ, 16, 1, 64, "bidir", 0, 16),
-                 ("cross decode", 2 * B, 1, ENC_SEQ, 16, 1, 64, "bidir", 0, 64),
-                 ("cross decode single", B, 1, ENC_SEQ, 16, 1, 64, "bidir", 0, 64)]
+        cases = [("encoder bidir", B, ENC_SEQ, ENC_SEQ, hkv, 1, 64, "bidir", 0, 16),
+                 ("cross prefill", B, WHISPER_PROMPT, ENC_SEQ, 2 * hkv, 1, 64, "bidir", 0, 16),
+                 ("cross prefill single", B, WHISPER_PROMPT, ENC_SEQ, hkv, 1, 64, "bidir",
+                  0, 16),
+                 ("cross decode", 2 * B, 1, ENC_SEQ, hkv, 1, 64, "bidir", 0, 64),
+                 ("cross decode single", B, 1, ENC_SEQ, hkv, 1, 64, "bidir", 0, 64)]
     out = {}
     for key, b, s_len, t_len, h, g, hd, kind, prefix, bn in cases:
         q = rand(b, s_len, h, g, hd, dtype=dtype)
@@ -1783,8 +1822,9 @@ class DecodeProbe:
     on the same inputs (BF16_TOL in bf16), so a wrong body at the model's
     head shape fails the timed run itself."""
 
-    def __init__(self, ms, paged, steps=(0, 40), shapes=()):
-        n_single, n_pair, _ = mixer_counts(ms)
+    def __init__(self, ms, paged, steps=(0, 40), shapes=(), kv_mode="heads"):
+        n_single, n_pair, _ = mixer_counts(ms) if paged else ring_decode_counts(
+            ms, kv_mode)
         kind = "_paged" if paged else ""
         self.per_step = {name: per for name, per in (
             (f"decode_attention_pair{kind}", n_pair),
@@ -2044,21 +2084,23 @@ def shared_bucket_launches(eng):
             if "suffix" in kinds and "full" in kinds]
 
 
-def first_divergence(params, ms, pc, prompt, want, got):
+def first_divergence(params, ms, pc, prompt, want, got, inputs=None,
+                     max_len=MAX_LEN):
     """First position where the engine's stream leaves generate()'s, and
     the top-2 margin and scale of generate's logits there (its own
-    prefill + decode_step path)."""
+    prefill + decode_step path; ``inputs``: the row's prefix or frames)."""
     import torch
     from repro_torch.model import transformer as T
     from repro_torch.serve import ServeConfig, make_prefill
+    inputs = inputs or {}
     i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
-    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    sv = ServeConfig(max_len=max_len, cache_dtype=torch.float32)
     x = torch.from_numpy(prompt).cuda()[None]
-    logits, caches = make_prefill(ms, pc, sv)(params, x)
+    logits, caches = make_prefill(ms, pc, sv)(params, x, **inputs)
+    t0 = len(prompt) + (ms.cfg.prefix_len if "prefix" in inputs else 0)
     for j in range(i):
         tok = torch.tensor([int(want[j])], device="cuda")
-        logits, caches = T.decode_step(params, tok, caches, len(prompt) + j,
-                                       ms=ms, pc=pc)
+        logits, caches = T.decode_step(params, tok, caches, t0 + j, ms=ms, pc=pc)
     top = logits[0].float().topk(2).values
     return i, float(top[0] - top[1]), float(logits[0].abs().max())
 
@@ -2075,19 +2117,20 @@ def generate_streams(models, work):
             for (p, m), (_, prompt, n) in zip(models, work)]
 
 
-def held_to(what, models, work, got, want):
+def held_to(what, models, work, got, want, inputs=None, max_len=MAX_LEN):
     """Each stream equal to ``want`` or leaving it at a near-tie of
     generate's logits (top-2 margin <= MARGIN_FRAC of scale); ``models[i]``
-    is request i's (params, structure). Returns the count of equal
-    streams."""
+    is request i's (params, structure), ``inputs[i]`` its prefix or frames
+    (none when None). Returns the count of equal streams."""
     from repro_torch.parallel.context import ParallelContext
     n_equal, worst = 0, 0.0
-    for (p, m), (_, prompt, _), stream, ref in zip(models, work, got, want):
+    inputs = inputs or [None] * len(work)
+    for (p, m), (_, prompt, _), stream, ref, inp in zip(models, work, got, want, inputs):
         if ref.tolist() == stream.tolist():
             n_equal += 1
             continue
         j, margin, scale = first_divergence(p, m, ParallelContext(), prompt, ref,
-                                            stream)
+                                            stream, inp, max_len)
         worst = max(worst, margin / scale)
         log(f"[{what}] stream of a {len(prompt)}-token prompt leaves its reference "
             f"at token {j}: top-2 margin {margin:.5f} of logit scale {scale:.3f} "
@@ -2138,6 +2181,28 @@ def mixer_counts(ms):
         else:
             single += seg.count
     return single, pair, rec
+
+
+def ring_decode_counts(ms, kv_mode="heads"):
+    """(single-layer ring decode launches, pair launches, sequence-sharded
+    attention phases) of one decode step under ``kv_mode``: a layer whose
+    ring ``kv_mode`` cuts along the sequence (``blocks.seq_sharded_kind``)
+    decodes in torch ops with one gather, one max and one sum, and launches
+    no kernel; a pair of mixed kinds runs half by half."""
+    from repro_torch.model.blocks import seq_sharded_kind
+    single = pair = seq = 0
+    for seg in ms.segments:
+        kinds = [spec.mixer for spec in seg.group.specs]
+        if not kinds[0].startswith("attn"):
+            continue
+        cut = [seq_sharded_kind(ms.cfg, ms.dims, k, kv_mode) for k in kinds]
+        if seg.group.pair and len(set(kinds)) == 1:
+            pair += seg.count * (not cut[0])
+            seq += seg.count * cut[0]
+        else:
+            single += seg.count * (len(kinds) - sum(cut))
+            seq += seg.count * sum(cut)
+    return single, pair, seq
 
 
 MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_rec", "w_out",
@@ -3751,18 +3816,20 @@ def tp_prompts(cfg):
                          device="cuda")
 
 
-def tp_streams(pc, cfg, ms, params, work, n_new, parts=("generate", "engine")):
+def tp_streams(pc, cfg, ms, params, work, n_new, parts=("generate", "engine"),
+               kv_mode="heads"):
     """fp32 compute on the bf16 weights: ``sharded_generate``'s tokens
-    (B = 4 x 128, ``n_new`` new) and the engine's streams on ``work`` (fp32
-    ring cache and pool), as lists; the ones ``parts`` leaves out are None.
-    A mixture of experts runs at the capacity factor E/k (``no_drops``),
-    where a prefill drops no slot that a decode step keeps."""
+    (B = 4 x 128, ``n_new`` new, the ring cache in ``kv_mode``'s layout) and
+    the engine's streams on ``work`` (fp32 ring cache and pool), as lists;
+    the ones ``parts`` leaves out are None. A mixture of experts runs at the
+    capacity factor E/k (``no_drops``), where a prefill drops no slot that
+    a decode step keeps."""
     import torch
     from repro_torch.serve import PagedEngine, ServeConfig, sharded_generate
     if cfg.moe_experts:
         ms = no_drops(ms)
     set_compute_dtype(params, torch.float32)
-    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32, kv_mode=kv_mode)
     gen = streams = None
     if "generate" in parts:
         gen = sharded_generate(params, tp_prompts(cfg), n_new, ms=ms, pc=pc,
@@ -3774,14 +3841,16 @@ def tp_streams(pc, cfg, ms, params, work, n_new, parts=("generate", "engine")):
     return gen, streams
 
 
-def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True):
+def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True,
+             kv_mode="heads", prompts=None, inputs=None, max_len=MAX_LEN):
     """bf16 runs whose launches are counted and reconciled, and whose
     decode launches at steps 0 and 8 (and first flash and scan launch at
     each shape) are held against their plain versions (``DecodeProbe``):
-    ``sharded_generate`` (4 x 128, ``n_new`` new; with ``generate_too``)
-    and the engine on ``work`` (with ``engine_too``). Returns {path:
-    {launches, head_map_launches, seconds, decode_path_max_abs_err,
-    ...}}."""
+    ``sharded_generate`` (``prompts``, by default 4 x 128, with the prefix
+    or frames of ``inputs``, ``n_new`` new, a ring cache of ``max_len`` in
+    ``kv_mode``'s layout; with ``generate_too``) and the engine on
+    ``work`` (with ``engine_too``). Returns {path: {launches,
+    head_map_launches, seconds, decode_path_max_abs_err, ...}}."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.model import attention as A
@@ -3792,21 +3861,29 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True)
         ("ssm_scan",) if n_rec else ())
     out = {}
     if generate_too:
-        sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
-        prompts = tp_prompts(cfg)
+        sv = ServeConfig(max_len=max_len, cache_dtype=torch.bfloat16, kv_mode=kv_mode)
+        prompts = tp_prompts(cfg) if prompts is None else prompts
+        n_enc = sum(seg.count for seg in ms.enc_segments)
+        n_cross = sum(seg.count for seg in ms.segments if seg.group.specs[0].cross_attn)
+        d_single, d_pair, _ = ring_decode_counts(ms, kv_mode)
         torch.cuda.synchronize()
         ops.reset_launches()
         timings = {}
-        with DecodeProbe(ms, paged=False, steps=(0, 8), shapes=shapes) as probe:
+        with DecodeProbe(ms, paged=False, steps=(0, 8), shapes=shapes,
+                         kv_mode=kv_mode) as probe:
             sharded_generate(params, prompts, n_new, ms=ms, pc=pc, sv=sv,
-                             timings=timings)
+                             timings=timings, **(inputs or {}))
         steps = n_new - 1
-        reconcile(f"tp={pc.tp_size} rank {pc.rank} {cfg.name} sharded_generate",
-                  dict(ops.LAUNCHES),
-                  {"flash_attention": n_single + n_attn_pairs,
+        # Per prefill one flash launch per encoder layer, attention group
+        # and cross-attention group; per decode step one per cross-attention
+        # group (its query row against the encoder's keys) and one ring
+        # decode launch per group whose ring is not cut along the sequence.
+        reconcile(f"tp={pc.tp_size} rank {pc.rank} {cfg.name} sharded_generate "
+                  f"kv_mode={kv_mode}", dict(ops.LAUNCHES),
+                  {"flash_attention": n_enc + n_single + n_attn_pairs + n_cross * (1 + steps),
                    "dual_rmsnorm": norm_launches(cfg, n_pairs) * (1 + steps),
-                   "decode_attention": steps * n_single,
-                   "decode_attention_pair": steps * n_attn_pairs,
+                   "decode_attention": steps * d_single,
+                   "decode_attention_pair": steps * d_pair,
                    "decode_attention_paged": 0, "decode_attention_pair_paged": 0,
                    "ssm_scan": n_rec})
         out["generate"] = {"launches": dict(ops.LAUNCHES),
@@ -3815,7 +3892,7 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True)
                            "decode_ms_per_step": timings["decode_s"] / steps * 1e3,
                            "decode_path_max_abs_err": probe.check(
                                f"tp={pc.tp_size} rank {pc.rank} {cfg.name} "
-                               "sharded_generate")}
+                               f"sharded_generate kv_mode={kv_mode}")}
     if not engine_too:
         return out
     eng = PagedEngine(params, ms, engine_config(torch.bfloat16), pc=pc)
@@ -3941,10 +4018,139 @@ def tp_family(pc, name, *, timed):
     return out
 
 
+def tp_encdec_model(pc, name):
+    """``name`` (whisper-medium or paligemma-3b) at its published widths cut
+    to its ``TP_ENCDEC`` decoder layers (whisper also to as many encoder
+    layers) under the LP pair (0, 1), bf16 random weights from the seed made
+    on the card: the weights of the tp = 2 structure, whose vocabulary tp
+    pads (whisper's 51865 to 51866), so that the draws of every later leaf
+    agree; a rank keeps its shard, and tp = 1 the whole, cut back to its own
+    shapes (the pad row and column, which no id looks up and the logits
+    mask)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import ModelParams, init_tree, tree_map
+    n = TP_ENCDEC[name][0]
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=n, enc_layers=n if cfg.enc_layers else 0)
+    ms = T.build_structure(cfg, plan=LPPlan(((0, 1),)), tp=pc.tp_size)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if pc.tp_size > 1:
+        return cfg, ms, T.init_params(ms, gen, torch.bfloat16, device="cuda", rank=pc.rank)
+    tree = init_tree(T.model_template(T.build_structure(cfg, plan=ms.plan, tp=TP2)),
+                     gen, torch.bfloat16, "cuda")
+    tree = tree_map(lambda x, pd: x[tuple(slice(0, k) for k in pd.shape)].contiguous(),
+                    tree, T.model_template(ms))
+    return cfg, ms, ModelParams(tree)
+
+
+def tp_encdec_inputs(cfg):
+    """(prompts, extras, cache length) of (d), as phase 12 draws them:
+    whisper's frames [4, 1500, D] (N(0, 1)) and prompts 4 x 32, cache 128;
+    paligemma's prefix of 256 patch embeddings (0.02 N(0, 1)) and prompts
+    4 x 128, cache 512; bf16, from the seed, alike on every rank."""
+    import torch
+
+    def gen(k):
+        return torch.Generator(device="cuda").manual_seed(SEED + k)
+    if cfg.enc_layers:
+        extras = {"frames": torch.randn((B, ENC_SEQ, cfg.d_model), device="cuda",
+                                        generator=gen(8)).to(torch.bfloat16)}
+        prompt_len, max_len = WHISPER_PROMPT, WHISPER_MAX_LEN
+    else:
+        extras = {"prefix": (0.02 * torch.randn((B, PALI_PREFIX, cfg.d_model),
+                                                device="cuda", generator=gen(7))
+                             ).to(torch.bfloat16)}
+        prompt_len, max_len = S, PALI_MAX_LEN
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt_len), generator=gen(5),
+                            device="cuda")
+    return prompts, extras, max_len
+
+
+def fp32_inputs(extras):
+    """The frames in fp32 for the fp32-compute runs (the prefix takes the
+    stream's type inside the model)."""
+    import torch
+    return {k: v.float() if k == "frames" else v for k, v in extras.items()}
+
+
+def tp_encdec_collectives(pc, ms, params, prompts, extras, max_len, kv_mode):
+    """The context's collectives in one ``make_serve_step`` decode step
+    after a prefill, by kind, held to LP's count: a sum per phase exit of
+    each group (self-attention, cross-attention where the layers have it,
+    FFN) and the embedding's, the vocab-parallel argmax's 2 max, and per
+    attention phase whose ring ``kv_mode`` cuts along the sequence one
+    gather (q), one max and one sum more."""
+    import torch
+    from repro_torch.model import embedding as E
+    from repro_torch.parallel import context
+    from repro_torch.serve import ServeConfig, make_prefill, make_serve_step
+    sv = ServeConfig(max_len=max_len, cache_dtype=torch.bfloat16, kv_mode=kv_mode)
+    with torch.no_grad():
+        logits, caches = make_prefill(ms, pc, sv)(params, prompts, **extras)
+        tok = E.vocab_parallel_argmax(logits, pc)
+        del logits
+        t0 = prompts.shape[1] + (ms.cfg.prefix_len if "prefix" in extras else 0)
+        context.reset_all_reduces()
+        make_serve_step(ms, pc, sv)(params, tok, caches, t0)
+    got = {**context.ALL_REDUCES, **context.ALL_GATHERS}
+    groups = model_counts(ms)[0]
+    n_cross = sum(seg.count for seg in ms.segments if seg.group.specs[0].cross_attn)
+    n_seq = ring_decode_counts(ms, kv_mode)[2]
+    want = {"sum": 1 + 2 * groups + n_cross + n_seq, "max": 2 + n_seq, "gather": n_seq}
+    if got != want:
+        raise AssertionError(f"{ms.cfg.name} tp={pc.tp_size} kv_mode={kv_mode}: one "
+                             f"decode step made {got} collectives, want {want}")
+    log(f"[tp] rank {pc.rank} {ms.cfg.name} kv_mode={kv_mode}: one serve step, "
+        f"{groups} groups ({n_cross} with cross-attention, {n_seq} attention phases "
+        f"cut along the sequence): collectives {got}")
+    return {"groups": groups, "cross": n_cross, "seq_phases": n_seq, **got}
+
+
+def tp_encdec(pc, name, *, timed, modes=None):
+    """One model of (d) under the context ``pc``, per kv mode of ``modes``
+    (by default its ``TP_ENCDEC`` entry's): ``sharded_generate``'s
+    fp32-compute tokens (with the frames or the prefix), and with ``timed``
+    a bf16 run under ``DecodeProbe`` whose launches reconcile
+    (``tp_timed``) and one decode step's collectives."""
+    import torch
+    from repro_torch.serve import ServeConfig, sharded_generate
+    cfg, ms, params = tp_encdec_model(pc, name)
+    prompts, extras, max_len = tp_encdec_inputs(cfg)
+    if pc.rank == 0:
+        enc = f"{cfg.enc_layers} encoder + " if cfg.enc_layers else ""
+        log(f"[tp] {name} at tp = {pc.tp_size}, {enc}{cfg.n_layers} decoder layers, "
+            f"pairs {ms.plan.pairs}: {ms.dims}; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    out = {}
+    for mode in modes or TP_ENCDEC[name][1]:
+        set_compute_dtype(params, torch.float32)
+        sv = ServeConfig(max_len=max_len, cache_dtype=torch.float32, kv_mode=mode)
+        gen = sharded_generate(params, prompts, TP_ENCDEC_NEW, ms=ms, pc=pc, sv=sv,
+                               **fp32_inputs(extras))
+        set_compute_dtype(params, torch.bfloat16)
+        out[mode] = {"generate": gen.cpu().tolist()}
+        if timed:
+            out[mode]["timed"] = tp_timed(pc, cfg, ms, params, None, TP_ENCDEC_NEW,
+                                          generate_too=True, engine_too=False,
+                                          kv_mode=mode, prompts=prompts, inputs=extras,
+                                          max_len=max_len)
+            out[mode]["collectives"] = tp_encdec_collectives(pc, ms, params, prompts,
+                                                             extras, max_len, mode)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_case_tp2(pc):
     """Rank of (a): first the probe (``tp_case_probe``), then tinyllama-1.1b,
     ``TP2_LAYERS`` layers, plan_for_depth(``TP2_EFF_DEPTH``), at tp = 2 (kv
-    heads split: 2 of the 4 a rank); then (c), the families."""
+    heads split: 2 of the 4 a rank); then (c), the families, and (d), the
+    encoder-decoder and the prefix-LM."""
     import torch
     probe = tp_case_probe(pc)
     cfg, ms, params = tp_model(pc)
@@ -3960,6 +4166,8 @@ def tp_case_tp2(pc):
     torch.cuda.empty_cache()
     # (c): the recurrent and MoE families in the same processes
     out["families"] = {name: tp_family(pc, name, timed=True) for name in TP_FAMILIES}
+    # (d): whisper and paligemma (both kv modes) in the same processes
+    out["encdec"] = {name: tp_encdec(pc, name, timed=True) for name in TP_ENCDEC}
     return out
 
 
@@ -3975,7 +4183,15 @@ def tp_case_tp8(pc):
     log(f"[tp8] rank {pc.rank}: {ms.dims}, paged head map {hm}")
     gen, streams = tp_streams(pc, cfg, ms, params, work, TP8_NEW)
     timed = tp_timed(pc, cfg, ms, params, work, TP8_NEW, generate_too=False)
-    return {"generate": gen, "engine": streams, "timed": timed, "head_map": list(hm)}
+    # (e): the ring cache cut along the sequence (4 kv heads under 8 ranks)
+    seq, _ = tp_streams(pc, cfg, ms, params, work, TP8_NEW, ("generate",),
+                        kv_mode="seq")
+    seq_timed = tp_timed(pc, cfg, ms, params, work, TP8_NEW, generate_too=True,
+                         engine_too=False, kv_mode="seq")
+    seq_collectives = tp_encdec_collectives(pc, ms, params, tp_prompts(cfg), {}, MAX_LEN,
+                                            "seq")
+    return {"generate": gen, "engine": streams, "timed": timed, "head_map": list(hm),
+            "seq": {"generate": seq, "timed": seq_timed, "collectives": seq_collectives}}
 
 
 TP_CASES = {"tp2": tp_case_tp2, "tp8": tp_case_tp8}
@@ -4042,13 +4258,40 @@ def tp_family_held(name, ref, got):
     return out
 
 
+def tp_encdec_held(name, want, got):
+    """A stream set of (d) against tp = 1's (``want``), equal or leaving at
+    a near-tie of tp = 1's logits; tp = 1's model is made anew (from the
+    seed) only where a stream differs. Returns the count of equal
+    streams."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    if want == got:
+        return len(want)
+    cfg, ms, params = tp_encdec_model(ParallelContext(), name)
+    prompts, extras, max_len = tp_encdec_inputs(cfg)
+    extras = fp32_inputs(extras)
+    set_compute_dtype(params, torch.float32)
+    n = held_to(f"tp2 {name}", [(params, ms)] * B,
+                [(0, p, TP_ENCDEC_NEW) for p in prompts.cpu().numpy()],
+                [np.array(x) for x in got], [np.array(x) for x in want],
+                inputs=[{k: v[i:i + 1] for k, v in extras.items()} for i in range(B)],
+                max_len=max_len)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
 def tp_path():
     """Phase 15: tensor-parallel serving over ``TP_BACKEND``, every rank a
     process on the one card. (a) tp = 2, tinyllama at ``TP2_LAYERS`` layers:
     streams in fp32 compute held to tp = 1 (near-tie rule), timed bf16 runs
-    probed; (c) the four families in (a)'s ranks, held the same way;
-    (b) tp = 8 at ``TP8_LAYERS`` layers: the head-mapped paged kernels on
-    every rank, tokens == tp = 1. Returns ({path: launches}, metrics)."""
+    probed; (c) the four families and (d) whisper and paligemma (both kv
+    modes) in (a)'s ranks, held the same way; (b) tp = 8 at ``TP8_LAYERS``
+    layers: the head-mapped paged kernels on every rank, tokens == tp = 1,
+    and (e) the sequence-sharded ring: tokens == the heads mode's == tp =
+    1's. Returns ({path: launches}, metrics)."""
     import numpy as np
     import torch
     by_path = {}
@@ -4061,6 +4304,10 @@ def tp_path():
     for name in TP_FAMILIES:
         t1 = time.perf_counter()
         fam_ref[name] = tp_family(ParallelContext(), name, timed=False)
+        fam_ref_s[name] = time.perf_counter() - t1
+    for name in TP_ENCDEC:   # (d): tp = 1 runs the heads layout only
+        t1 = time.perf_counter()
+        fam_ref[name] = tp_encdec(ParallelContext(), name, timed=False, modes=("heads",))
         fam_ref_s[name] = time.perf_counter() - t1
     cfg, ms, params, work, gen1, eng1 = tp_reference(TP2_NEW)
     ref_s = time.perf_counter() - t
@@ -4116,6 +4363,30 @@ def tp_path():
             f"{ {k: ar[0][k] for k in ('sum', 'max')} } over {ar[0]['groups']} groups "
             f"({ar[0]['pairs']} LP pairs); tp = 1 reference {fam_ref_s[name]:.1f} s")
 
+    # (d) whisper and paligemma, from the same ranks
+    metrics["tp2_encdec"] = {}
+    for name in TP_ENCDEC:
+        runs = [r["encdec"][name] for r in got]
+        metrics["tp2_encdec"][name] = m = {"layers": TP_ENCDEC[name][0],
+                                           "tp1_reference_s": fam_ref_s[name]}
+        for mode in TP_ENCDEC[name][1]:
+            for rank, r in enumerate(runs[1:], 1):
+                if r[mode]["generate"] != runs[0][mode]["generate"]:
+                    raise AssertionError(f"tp=2 {name} kv_mode={mode}: rank {rank}'s "
+                                         "tokens differ from rank 0's")
+            n_eq = tp_encdec_held(name, fam_ref[name]["heads"]["generate"],
+                                  runs[0][mode]["generate"])
+            for path, launches in tp_launches([r[mode]["timed"] for r in runs]).items():
+                by_path[f"tp2_{name}_{mode}_{path}"] = launches
+            col = runs[0][mode]["collectives"]
+            m[mode] = {"equal_streams": (n_eq, B), "rank0": runs[0][mode]["timed"],
+                       "collectives": col}
+            log(f"[tp2] {name} kv_mode={mode}: sharded_generate {n_eq}/{B} streams "
+                f"equal to tp = 1 (fp32 compute; the rest at near-ties), every rank "
+                f"equal to rank 0; one serve step's collectives "
+                f"{ {k: col[k] for k in ('sum', 'max', 'gather')} } over "
+                f"{col['groups']} groups; tp = 1 reference {fam_ref_s[name]:.1f} s")
+
     # (b) tp = 8 at TP8_LAYERS layers: replicated kv, head-mapped paged decode
     t = time.perf_counter()
     cfg, ms, params, work, gen1, eng1 = tp_reference(TP8_NEW, TP8_LAYERS, TP8_EFF_DEPTH)
@@ -4134,10 +4405,23 @@ def tp_path():
                                  f"head-mapped launches {hm}")
     for path, launches in tp_launches([r["timed"] for r in got]).items():
         by_path[f"tp8_{path}"] = launches
+    # (e) the sequence-sharded ring: the heads mode's tokens and tp = 1's
+    for rank, r in enumerate(got):
+        if r["seq"]["generate"] != gen1 or r["seq"]["generate"] != r["generate"]:
+            raise AssertionError(f"tp = 8 rank {rank}: kv_mode='seq' tokens differ from "
+                                 "the heads mode's or tp = 1's")
+    for path, launches in tp_launches([r["seq"]["timed"] for r in got]).items():
+        by_path[f"tp8_seq_{path}"] = launches
     metrics["tp8"] = {"world": TP8, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
                       "tp1_reference_s": ref_s, "run_s": tp8_s,
                       "tokens_equal_tp1": True, "rank0": got[0]["timed"],
-                      "head_maps": [r["head_map"] for r in got]}
+                      "head_maps": [r["head_map"] for r in got],
+                      "seq": {"tokens_equal_heads_and_tp1": True,
+                              "rank0": got[0]["seq"]["timed"],
+                              "collectives": got[0]["seq"]["collectives"]}}
+    log(f"[tp8] kv_mode='seq': sharded_generate tokens == the heads mode's == tp = 1's "
+        f"on every rank; one serve step's collectives "
+        f"{ {k: got[0]['seq']['collectives'][k] for k in ('sum', 'max', 'gather')} }")
     log(f"[tp8] {TP_BACKEND}, world {TP8}: tokens == tp = 1 (sharded_generate "
         f"{B} x {TP8_NEW}, engine {len(work)} streams); every rank launched both "
         f"paged kernels with its head map [rank // 2]; tp = 1 reference {ref_s:.1f} s, "
@@ -4324,6 +4608,18 @@ def main() -> int:
     for name in ("decode_attention_paged", "decode_attention_pair_paged"):
         if not head_map_by_path["tp8_engine"][name]:
             raise AssertionError(f"{name} took no head map on tp8_engine")
+    # (d) and (e): flash (the encoder's, the cross-attention's and the prefix
+    # mask at the rank's heads) on every path, the pair's ring decode where
+    # the heads layout keeps it; the sequence-sharded rings launch no decode
+    # kernel (``tp_timed`` reconciles them to 0)
+    for path, names in ((f"tp2_{WHISPER}_heads_generate", ("decode_attention_pair",)),
+                        (f"tp2_{PALI}_heads_generate", ("decode_attention_pair",
+                                                        "dual_rmsnorm")),
+                        (f"tp2_{PALI}_seq_generate", ("dual_rmsnorm",)),
+                        ("tp8_seq_generate", ("dual_rmsnorm",))):
+        for name in names + ("flash_attention",):
+            if not by_path[path][name]:
+                raise AssertionError(f"{name} was not launched on {path}")
     # (c): the scan on the recurrent families' tp = 2 paths, flash and the
     # ring / paged decode kernels on those with attention (the pair forms
     # where an attention pair runs: dbrx, llama4), and recurrentgemma's

@@ -133,8 +133,8 @@ def apply_intervened(layer_params: Sequence[PyTree], plan: Sequence[LayerGroup],
     forms."""
     pc = pc or ParallelContext()
     if pc.tp_size != 1:
-        raise NotImplementedError("interventions under tensor parallelism are "
-                                  "not ported yet: ROADMAP item 10")
+        raise NotImplementedError("interventions run at tp = 1 only, as the "
+                                  "JAX package declares them (no TP)")
     dims = A.attn_dims(cfg, pc.tp_size)
     specs = cfg.layer_specs()
     for g in plan:

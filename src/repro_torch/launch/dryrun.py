@@ -164,14 +164,14 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: needs ranks (ROADMAP item 10)")
+                    help="not ported: needs ranks (ROADMAP item 10.4)")
     ap.add_argument("--no-lp", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError("the multi-pod dry run needs ranks: "
-                                  "ROADMAP item 10")
+                                  "ROADMAP item 10.4")
 
     out_path = Path(args.out) if args.out else (
         RESULTS / f"dryrun_torch{'_nolp' if args.no_lp else ''}.json")

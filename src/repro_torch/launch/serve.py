@@ -18,7 +18,7 @@ random bf16 from a generator seeded with 0, the synthetic prompts come from
 a CPU generator seeded with 1 (the JAX package draws both from threefry,
 which torch cannot replay), and the cache takes the weights' type. Only
 ``--mesh 1x1`` runs: the command line does not start the rank processes
-of tensor-parallel serving (ROADMAP item 10).
+of tensor-parallel serving (ROADMAP item 10.4).
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ def check_mesh(spec: str) -> None:
     if m > 1:
         raise NotImplementedError(
             f"mesh {spec!r}: the command line does not launch the {m} rank "
-            "processes of tensor-parallel serving yet (ROADMAP item 10); "
+            "processes of tensor-parallel serving yet (ROADMAP item 10.4); "
             "serve.sharded_generate and PagedEngine(pc=) run at tp > 1 in "
             "processes the caller starts")
 
@@ -98,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="(--continuous) tokens per cache page")
     ap.add_argument("--mesh", default="1x1",
                     help="1xM device mesh; only 1x1 runs (launching the "
-                         "tensor-parallel ranks is ROADMAP item 10)")
+                         "tensor-parallel ranks is ROADMAP item 10.4)")
     ap.add_argument("--preempt-after", type=int, default=0,
                     help="(--continuous) blocked-head steps before the "
                          "youngest running request is preempted (0 = off)")

@@ -3,7 +3,7 @@
 ``cell_policy`` holds the static decisions the launcher makes per cell:
 the LP plan, FSDP on or off, the KV-cache mode, the gradient-accumulation
 factor, batch sharding. It is the JAX package's decision at one rank; the
-abstract sharded inputs it lowers against need ranks (ROADMAP item 10).
+abstract sharded inputs it lowers against need ranks (ROADMAP item 10.4).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def cell_policy(cfg: ArchConfig, shape: ShapeConfig, *, tp: int = 1,
     if tp != 1 or dp != 1:
         raise NotImplementedError(
             f"cell policy at tp={tp}, dp={dp}: tensor and data parallelism "
-            "are not ported yet: ROADMAP item 10")
+            "are not ported yet: ROADMAP item 10.4")
     plan = default_plan(cfg) if lp else LPPlan(())
     fsdp = cfg.name in (FSDP_ARCHS if shape.step == "decode"
                         else TRAIN_FSDP_ARCHS)

@@ -24,6 +24,10 @@ impl (a pinned ``"chunked:<kb>"`` becomes its fixed kv tile width),
 pair. On a CPU tensor the impls are the plain cores below and decode runs
 the kernel's plain version. Decode updates the cache in place: the new
 token's k/v are index-assigned into the stored ring cache or page pool.
+
+``decode_attn_seq_sharded`` (the sequence-sharded ring, ``kv_mode="seq"``)
+has no kernel, in the JAX package either: its core is torch ops on every
+device, and it calls no ``ops`` wrapper.
 """
 from __future__ import annotations
 
@@ -467,6 +471,76 @@ def decode_attn_standard(p, xn, cache_k, cache_v, t: int, cfg, dims: AttnDims,
     o = ops.decode_attention(qh, ks, vs, t_local).to(xn.dtype)
     o = o.reshape(B, 1, dims.hq, dims.hd)
     return output_proj(p, o, dims, pair=False), cache_k, cache_v
+
+
+def decode_attn_seq_sharded(p, xn, cache_k, cache_v, t: int, cfg,
+                            dims: AttnDims, *, kind, pair: bool, window=0,
+                            chunk=0, pc: Optional[ParallelContext] = None):
+    """Decode with the ring cache cut along the SEQUENCE over the ranks
+    (replicated kv heads, fewer than the ranks: each rank stores L/tp
+    positions of every kv head instead of all L). Returns (partial_out,
+    cache_k, cache_v); the caches are the SAME tensors, updated in place.
+
+    pair=False: xn [B,1,D], cache_[kv] [B, L/tp, n_kv, hd]; pair=True:
+    xn [2,B,1,D], cache_[kv] [2, B, L/tp, n_kv, hd] stacked, both layers
+    in one evaluation. Every rank's q heads are gathered (``all_gather_tp``,
+    rank-major), the new token's k/v land only on the rank that holds slot
+    ``t``, each rank takes the partial softmax of all q heads over its
+    positions, and one ``pmax_tp`` plus ONE packed ``psum_tp`` of (acc, l)
+    combine them, whatever the pair width; the rank's q heads are sliced
+    back out for its output projection. Torch ops on every device: the
+    JAX package runs this core in XLA, with no kernel."""
+    pc = _context(pc, dims)
+    nP = 2 if pair else 1
+    B = xn.shape[1] if pair else xn.shape[0]
+    tp, rank, hd = dims.tp, pc.tp_index(), dims.hd
+    pos = torch.full((1,), t, dtype=torch.int64, device=xn.device)
+    q = project_q(p, xn, cfg, dims, positions=pos, kind=kind, pair=pair)
+    k, v = project_kv(p, xn, cfg, dims, positions=pos, kind=kind, pair=pair)
+    qg = pc.all_gather_tp(q, axis=2)            # [B,1,tp*nP*hq,hd] rank-major
+    qg = qg.reshape(B, tp, nP, dims.hq, hd).transpose(1, 2)  # [B,nP,tp,hq,hd]
+
+    # Only the rank that holds slot ``t`` writes the new token's k/v.
+    slot, t_local = cache_slot(kind, t, window=window, chunk=chunk)
+    seq_ax = 2 if pair else 1
+    L_loc, n_kv = cache_k.shape[seq_ax], cache_k.shape[seq_ax + 1]
+    local_slot = slot - rank * L_loc
+    if 0 <= local_slot < L_loc:
+        if pair:   # the pair-folded new token to the stacked layout
+            kn = k.reshape(B, 1, 2, n_kv, hd).permute(2, 0, 1, 3, 4)
+            vn = v.reshape(B, 1, 2, n_kv, hd).permute(2, 0, 1, 3, 4)
+            cache_k[:, :, local_slot:local_slot + 1] = kn.to(cache_k.dtype)
+            cache_v[:, :, local_slot:local_slot + 1] = vn.to(cache_v.dtype)
+        else:
+            cache_k[:, local_slot:local_slot + 1] = k.to(cache_k.dtype)
+            cache_v[:, local_slot:local_slot + 1] = v.to(cache_v.dtype)
+
+    Hq_all = tp * dims.hq                       # the padded global q heads
+    ks = cache_k if pair else cache_k[None]     # [nP,B,L_loc,n_kv,hd]
+    vs = cache_v if pair else cache_v[None]
+    if dims.per_head or Hq_all != dims.group * n_kv:
+        # One kv head per q head by the TRUE head -> kv map: head i reads
+        # i // group, clipped (padded q heads; their wo rows are zero).
+        hmap = torch.clamp(torch.arange(Hq_all, device=ks.device) // dims.group,
+                           max=n_kv - 1)
+        ks, vs = ks.index_select(3, hmap), vs.index_select(3, hmap)
+        n_eff, g = Hq_all, 1
+    else:
+        n_eff, g = n_kv, Hq_all // max(n_kv, 1)
+    qh = qg.reshape(B, nP, n_eff, g, hd)
+
+    s = torch.einsum("bpngh,pbtnh->bpngt", qh.float(), ks.float()) * hd ** -0.5
+    gpos = rank * L_loc + torch.arange(L_loc, device=s.device)
+    s = torch.where(gpos <= t_local, s, NEG_INF)
+    m = pc.pmax_tp(s.amax(dim=-1))
+    pexp = torch.exp(s - m[..., None])
+    acc = torch.einsum("bpngt,pbtnh->bpngh", pexp, vs.float())
+    packed = pc.psum_tp(torch.cat([acc, pexp.sum(dim=-1)[..., None]], dim=-1))
+    acc, l = packed[..., :-1], packed[..., -1]
+    o_all = (acc / torch.clamp_min(l, 1e-30)[..., None]).reshape(B, nP, Hq_all, hd)
+    o = o_all[:, :, rank * dims.hq:(rank + 1) * dims.hq]  # the rank's q heads
+    o = o.reshape(B, 1, nP * dims.hq, hd)                 # pair-major
+    return output_proj(p, o, dims, pair=pair), cache_k, cache_v
 
 
 def decode_attn_paged(p, xn, k_pages, v_pages, t, block_tables, cfg,

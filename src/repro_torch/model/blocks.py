@@ -45,20 +45,27 @@ prefix-LM mask, cross-attention), Mamba mixers and RG-LRU mixers, with an
 MLP, a mixture of experts (``moe.moe_forward``) or no FFN. Recurrent pairs
 of mixed kinds raise ``NotImplementedError``.
 
-At tp > 1 (every decoder-only family; ``transformer.build_structure``
-refuses an encoder, cross-attention and a prefix-LM) each rank runs its q
-heads and its stored kv heads, on every attention kind: causal, the window
-ring (``attn_local``), the chunk ring (``attn_chunked``) and a pair of mixed
-kinds (llama4's chunked + global), through ``_mixed_attention_full`` and
-the half-by-half decode. The core reads the rank's selection of the stored
-kv heads (``_sel_pairwise``, ``_fold_ctx_kv``); replicated kv (fewer kv
-heads than ranks: recurrentgemma's one) is stored whole on every rank. The
-rank runs its d_ff columns of an MLP, its experts and its shard of the
-shared expert of a mixture of experts (``moe``), its d_inner/tp channels of
-a Mamba mixer and its lru_width/tp channels of an RG-LRU mixer, whose
-``conv``/``h`` state is the rank's channels (``group_cache_meta``). Every
-phase ends in one ``psum_tp``, an LP pair's phase of two layers too; a
-Mamba phase adds its x_proj's one stacked ``psum_tp``.
+At tp > 1 (every family) each rank runs its q heads and its stored kv
+heads, on every attention kind: causal (with a prefix-LM's prefix too), the
+window ring (``attn_local``), the chunk ring (``attn_chunked``), a pair of
+mixed kinds (llama4's chunked + global), through ``_mixed_attention_full``
+and the half-by-half decode, the encoder's bidirectional layers and the
+cross-attention phase, whose ``xk``/``xv`` cache holds the rank's stored kv
+heads. The core reads the rank's selection of the stored kv heads
+(``_sel_pairwise``, ``_fold_ctx_kv``); replicated kv (fewer kv heads than
+ranks: recurrentgemma's and paligemma's one) is stored whole on every
+rank. The rank runs its d_ff columns of an MLP, its experts and its shard
+of the shared expert of a mixture of experts (``moe``), its d_inner/tp
+channels of a Mamba mixer and its lru_width/tp channels of an RG-LRU
+mixer, whose ``conv``/``h`` state is the rank's channels
+(``group_cache_meta``). Every phase ends in one ``psum_tp``, an LP pair's
+phase of two layers too; a Mamba phase adds its x_proj's one stacked
+``psum_tp``.
+
+The sequence-sharded kv cache (``kv_mode="seq"``, ring layout only): a
+full-length causal ring of replicated kv heads (``seq_sharded_kind``) is
+cut along the sequence, ``L / tp`` positions a rank, instead of stored
+whole on every rank; its decode is ``attention.decode_attn_seq_sharded``.
 """
 from __future__ import annotations
 
@@ -364,8 +371,29 @@ def ring_len(cfg, mixer: str, max_len: int) -> int:
     return max_len
 
 
-def fill_cache(k, L: int, *, mixer, cfg):
-    """Place prefill keys/values [B,S,hkv,hd] into a decode ring cache."""
+def seq_sharded_kind(cfg, dims, mixer: str, kv_mode: str) -> bool:
+    """Does ``kv_mode`` cut this mixer's ring along the sequence over the
+    ranks? Only the full-length causal rings of replicated kv heads (fewer
+    kv heads than ranks), as in the JAX package."""
+    if kv_mode not in ("heads", "seq"):
+        raise ValueError(f"kv_mode must be 'heads' or 'seq', got {kv_mode!r}")
+    return (kv_mode == "seq" and mixer in ("attn", "attn_global")
+            and not dims.kv_sharded and dims.tp > 1)
+
+
+def _seq_shard_len(L: int, tp: int) -> int:
+    """The positions of a ring of ``L`` that each of ``tp`` ranks holds."""
+    if L % tp:
+        raise ValueError(f"a sequence-sharded ring of {L} positions does not "
+                         f"divide over tp={tp} ranks: choose max_len a "
+                         "multiple of tp")
+    return L // tp
+
+
+def fill_cache(k, L: int, *, mixer, cfg, seq_shard=False,
+               pc: ParallelContext = ParallelContext()):
+    """Place prefill keys/values [B,S,hkv,hd] into a decode ring cache;
+    with ``seq_shard`` the rank's ``L / tp`` positions of it (a copy)."""
     B, S, H, hd = k.shape
     if mixer == "attn_local" and cfg.window and S >= (W := ring_len(cfg, mixer, L)):
         return torch.roll(k[:, S - W:], (S - W) % W, dims=1)
@@ -384,11 +412,15 @@ def fill_cache(k, L: int, *, mixer, cfg):
     kp = torch.zeros((B, Ls, H, hd), dtype=k.dtype, device=k.device)
     n = min(S, Ls)
     kp[:, :n] = k[:, :n]
+    if seq_shard:
+        L_loc = _seq_shard_len(Ls, pc.tp_size)
+        return kp[:, pc.tp_index() * L_loc:(pc.tp_index() + 1) * L_loc].clone()
     return kp
 
 
 def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
-                     enc_len: int = 0, dtype=torch.bfloat16):
+                     kv_mode: str = "heads", enc_len: int = 0,
+                     dtype=torch.bfloat16):
     """{entry name: (shape, dtype)} for one group's decode cache. A pair
     of one mixer kind stores one stacked entry per tensor under a bare name
     ("k", "v"; "xk", "xv"; "conv", "h") with a leading pair axis of 2; a
@@ -398,19 +430,28 @@ def group_cache_meta(cfg, group: Group, dims, *, batch: int, max_len: int,
     the encoder's keys and values ``xk``/``xv`` of length ``enc_len``. The
     recurrent state ``h`` (Mamba, RG-LRU) is fp32 whatever the cache
     type. Every width is this rank's (``dims.tp``): its stored kv heads,
-    and d_inner/tp (Mamba) or lru_width/tp (RG-LRU) state channels."""
+    and d_inner/tp (Mamba) or lru_width/tp (RG-LRU) state channels; a ring
+    that ``kv_mode`` cuts along the sequence (``seq_sharded_kind``) holds
+    the rank's ring_len / tp positions."""
     cross = (batch, enc_len, dims.hkv, dims.hd)
+
+    def ring(mixer):
+        L = ring_len(cfg, mixer, max_len)
+        if seq_sharded_kind(cfg, dims, mixer, kv_mode):
+            L = _seq_shard_len(L, dims.tp)
+        return (batch, L, dims.hkv, dims.hd)
+
     if _mixer(group) == "attn" and group.pair and not pair_cache_stacked(group):
         out = {}
         for i, spec in enumerate(group.specs):
-            shp = (batch, ring_len(cfg, spec.mixer, max_len), dims.hkv, dims.hd)
+            shp = ring(spec.mixer)
             out[f"k{i}"], out[f"v{i}"] = (shp, dtype), (shp, dtype)
             if spec.cross_attn:
                 out[f"xk{i}"], out[f"xv{i}"] = (cross, dtype), (cross, dtype)
         return out
     mixer = group.specs[0].mixer
     if mixer.startswith("attn"):
-        shp = (batch, ring_len(cfg, mixer, max_len), dims.hkv, dims.hd)
+        shp = ring(mixer)
         entries = {"k": (shp, dtype), "v": (shp, dtype)}
         if group.specs[0].cross_attn:
             entries.update(xk=(cross, dtype), xv=(cross, dtype))
@@ -445,14 +486,15 @@ def _recurrent_params(gp, group: Group, mixer: str):
 
 def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                      positions, prefix_len=0, enc_out=None, attn_impl="auto",
-                     emit_cache=False, max_len=0, ctx_kv=None, q0=0,
-                     differentiable=False):
+                     emit_cache=False, max_len=0, kv_mode="heads", ctx_kv=None,
+                     q0=0, differentiable=False):
     """One group over the full sequence. x: [B,S,D]. Returns (x, aux,
     cache_dict).
 
     ``prefix_len``: the prefix-LM's bidirectional prefix (causal kinds).
     ``enc_out`` [B,T,D]: the encoder output, which layers with
     cross-attention attend to in a phase between the mixer and the FFN.
+    ``kv_mode``: the emitted ring caches' layout (``seq_sharded_kind``).
 
     ``ctx_kv``/``q0`` (suffix prefill): cached kv for positions [0, q0) in
     stored layout; the sequence starts at absolute position ``q0``. The
@@ -476,11 +518,13 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
                                         attn_impl=attn_impl, ctx_kv=ctx_kv,
                                         q0=q0, differentiable=diff, pc=pc)
         if emit_cache:
-            kinds = _mixer_kinds(group)
-            fks = [fill_cache(k, max_len, mixer=m, cfg=cfg)
-                   for (k, _), m in zip(kvs, kinds)]
-            fvs = [fill_cache(v, max_len, mixer=m, cfg=cfg)
-                   for (_, v), m in zip(kvs, kinds)]
+            fks, fvs = [], []
+            for (k, v), m in zip(kvs, _mixer_kinds(group)):
+                ss = seq_sharded_kind(cfg, dims, m, kv_mode)
+                fks.append(fill_cache(k, max_len, mixer=m, cfg=cfg,
+                                      seq_shard=ss, pc=pc))
+                fvs.append(fill_cache(v, max_len, mixer=m, cfg=cfg,
+                                      seq_shard=ss, pc=pc))
             if pair_cache_stacked(group):  # stacked layout for the fused decode
                 cache["k"], cache["v"] = torch.stack(fks), torch.stack(fvs)
             else:
@@ -537,8 +581,8 @@ def apply_group_full(gp, x, *, cfg, group: Group, dims, pc: ParallelContext,
 # ---------------------------------------------------------------------------
 
 def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
-                       pc: ParallelContext, cache_layout="ring",
-                       block_tables=None):
+                       pc: ParallelContext, kv_mode="heads",
+                       cache_layout="ring", block_tables=None):
     """One group for one new token. x: [B,1,D]; ``cache`` entries are
     updated in place. Returns (x, cache).
 
@@ -560,9 +604,18 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     back in place.
 
     A layer with cross-attention then attends to the encoder's keys and
-    values that prefill left in ``xk``/``xv`` (read, never written)."""
+    values that prefill left in ``xk``/``xv`` (read, never written).
+
+    ``kv_mode="seq"`` (ring layout only): a ring that prefill cut along the
+    sequence (``seq_sharded_kind``) decodes through
+    ``attention.decode_attn_seq_sharded``, a pair as one call; a paged
+    call raises, since pages shard kv heads, not the sequence."""
     mixer = _mixer(group)
     paged = cache_layout == "paged"
+    if paged and kv_mode != "heads":
+        raise NotImplementedError(
+            f"paged decode supports kv_mode='heads' only (got {kv_mode!r}): "
+            "pages shard kv heads over the ranks, not the sequence")
     if paged and group.pair and not pair_cache_stacked(group):
         raise NotImplementedError(
             "paged decode requires the stacked pair cache layout "
@@ -582,7 +635,10 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
         # A pair of mixed attention kinds: half by half over its own rings.
         outs = []
         for i, kind in enumerate(_mixer_kinds(group)):
-            o, _, _ = A.decode_attn_standard(
+            decode = (A.decode_attn_seq_sharded
+                      if seq_sharded_kind(cfg, dims, kind, kv_mode)
+                      else A.decode_attn_standard)
+            o, _, _ = decode(
                 tree_map(lambda w: w[i], gp["attn"]), xn[i], cache[f"k{i}"],
                 cache[f"v{i}"], t, cfg, dims, kind=kind, pair=False,
                 window=cfg.window, chunk=cfg.chunk, pc=pc)
@@ -596,7 +652,10 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t,
                 block_tables, cfg, dims, kind=kind, pair=group.pair, pc=pc)
         else:
-            out, _, _ = A.decode_attn_standard(
+            decode = (A.decode_attn_seq_sharded
+                      if seq_sharded_kind(cfg, dims, kind, kv_mode)
+                      else A.decode_attn_standard)
+            out, _, _ = decode(
                 gp["attn"], xn, cache[names[0]], cache[names[1]], t, cfg,
                 dims, kind=kind, pair=group.pair, window=cfg.window,
                 chunk=cfg.chunk, pc=pc)
@@ -605,7 +664,7 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     if group.specs[0].cross_attn:
         xnx = _norm_inputs(gp, "lnx", x, cfg, group)
         out = _cross_attention_decode(gp["xattn"], xnx, cache, cfg, dims,
-                                      group=group)
+                                      group=group, pc=pc)
         x = x + pc.psum_tp(out).to(x.dtype)
 
     if group.specs[0].ffn is not None:
@@ -615,7 +674,8 @@ def apply_group_decode(gp, x, cache, t, *, cfg, group: Group, dims,
     return x, cache
 
 
-def _cross_attention_decode(p, xnx, cache, cfg, dims, *, group: Group):
+def _cross_attention_decode(p, xnx, cache, cfg, dims, *, group: Group,
+                            pc: ParallelContext):
     """One token's cross-attention over the encoder kv of the cache
     (``xk``/``xv``, never written here). Returns the partial output
     [B,1,D]. The core is the dense impl, as in the JAX package; on a CUDA
@@ -626,10 +686,16 @@ def _cross_attention_decode(p, xnx, cache, cfg, dims, *, group: Group):
     stacked cache [2, B, T, Hkv, hd] is a view as [2B, T, Hkv, hd] (folded
     into the head axis it would need a copy of the whole cache every
     step). A single layer, or each half of a pair of mixed kinds, runs one
-    projection, core and output projection of its own."""
-    hkv, g, hd = dims.hkv, dims.group, dims.hd
+    projection, core and output projection of its own.
+
+    At tp > 1 the cache holds the rank's stored kv heads, and the core
+    reads the rank's selection of them (``select_local_kv``), in
+    ``core_layout``'s (Hk, g)."""
+    hkv, g = A.core_layout(dims)
+    hd = dims.hd
     if pair_cache_stacked(group):
-        xk, xv = cache["xk"], cache["xv"]                  # [2,B,T,Hkv,hd]
+        xk = A.select_local_kv_pair(cache["xk"], dims, pc)   # [2,B,T,Hk,hd]
+        xv = A.select_local_kv_pair(cache["xv"], dims, pc)
         B, T = xk.shape[1], xk.shape[2]
         q = A.project_q(p, xnx, cfg, dims, positions=None, kind="attn_bidir",
                         pair=True)                          # [B,1,2*hq,hd]
@@ -648,10 +714,10 @@ def _cross_attention_decode(p, xnx, cache, cfg, dims, *, group: Group):
         q = A.project_q(ph, xi, cfg, dims, positions=None, kind="attn_bidir",
                         pair=False)
         B = q.shape[0]
-        xk = cache[f"xk{i}"]
+        xk = A.select_local_kv(cache[f"xk{i}"], dims, pc)
+        xv = A.select_local_kv(cache[f"xv{i}"], dims, pc)
         o = A.attention_core(A._widen(q.reshape(B, 1, hkv, g, hd), xk), xk,
-                             cache[f"xv{i}"], kind="attn_bidir",
-                             impl="dense").to(xnx.dtype)
+                             xv, kind="attn_bidir", impl="dense").to(xnx.dtype)
         out = out + A.output_proj(ph, o.reshape(B, 1, dims.hq, hd), dims,
                                   pair=False)
     return out

@@ -102,14 +102,15 @@ def _group_params(sp, seg: Segment, c: int):
 
 def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
                      prefix_len=0, enc_out=None, attn_impl="auto",
-                     emit_cache=False, max_len=0, ctx=None, q0=0,
-                     remat=False, differentiable=False):
+                     emit_cache=False, max_len=0, kv_mode="heads", ctx=None,
+                     q0=0, remat=False, differentiable=False):
     """Run all segments over the full sequence. Returns (x, aux, caches):
     caches is a list (one tree per segment, entries stacked to
     [count, ...]) when emit_cache, else None.
 
     ``prefix_len`` (prefix-LM) and ``enc_out`` (the encoder output the
-    cross-attention layers read) go to every group.
+    cross-attention layers read) go to every group, and so does
+    ``kv_mode``, the layout of the emitted caches.
 
     ``ctx``/``q0`` (suffix prefill): cached context kv for absolute
     positions [0, q0), one count-stacked tree per segment in the layout of
@@ -133,7 +134,7 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
                 B.apply_group_full, cfg=cfg, group=seg.group,
                 dims=dims, pc=pc, positions=positions, prefix_len=prefix_len,
                 enc_out=enc_out, attn_impl=attn_impl, emit_cache=emit_cache,
-                max_len=max_len, ctx_kv=ctx_g, q0=q0,
+                max_len=max_len, kv_mode=kv_mode, ctx_kv=ctx_g, q0=q0,
                 differentiable=differentiable)
             gp = _group_params(sp, seg, c)
             if remat:
@@ -150,9 +151,11 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
 
 
 def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,
-                       pc, cache_layout="ring", block_tables=None):
+                       pc, kv_mode="heads", cache_layout="ring",
+                       block_tables=None):
     """One decode step through all segments. ``caches`` (one stacked tree
-    per segment) are updated in place and returned.
+    per segment, in ``kv_mode``'s layout) are updated in place and
+    returned.
 
     cache_layout="paged": the entries are page pools indirected through
     ``block_tables`` and ``t`` is the per-slot position tensor."""
@@ -161,19 +164,19 @@ def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,
             view = {name: entry[c] for name, entry in cache.items()}
             x, _ = B.apply_group_decode(
                 _group_params(sp, seg, c), x, view, t, cfg=cfg,
-                group=seg.group, dims=dims, pc=pc, cache_layout=cache_layout,
-                block_tables=block_tables)
+                group=seg.group, dims=dims, pc=pc, kv_mode=kv_mode,
+                cache_layout=cache_layout, block_tables=block_tables)
     return x, caches
 
 
-def stack_cache_meta(cfg, segments, dims, *, batch, max_len, enc_len=0,
-                     dtype=torch.bfloat16):
+def stack_cache_meta(cfg, segments, dims, *, batch, max_len, kv_mode="heads",
+                     enc_len=0, dtype=torch.bfloat16):
     """Per segment, {entry name: (shape, dtype)} stacked to [count, ...];
     ``enc_len`` is the length of the cross-attention entries."""
     out = []
     for seg in segments:
         meta = B.group_cache_meta(cfg, seg.group, dims, batch=batch,
-                                  max_len=max_len, enc_len=enc_len,
-                                  dtype=dtype)
+                                  max_len=max_len, kv_mode=kv_mode,
+                                  enc_len=enc_len, dtype=dtype)
         out.append({k: ((seg.count, *shp), dt) for k, (shp, dt) in meta.items()})
     return out

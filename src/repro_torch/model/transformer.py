@@ -76,16 +76,13 @@ class ModelStructure:
 def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
                     tp: int = 1) -> ModelStructure:
     """The static structure of ``cfg`` under ``plan`` at ``tp``-way tensor
-    parallelism. Above tp 1 the port serves the decoder-only families
-    (attention of every kind, Mamba and RG-LRU mixers, an MLP, a mixture of
-    experts or no FFN) and refuses an encoder, cross-attention and a
-    prefix-LM."""
+    parallelism: every family at every tp (attention of every kind, Mamba
+    and RG-LRU mixers, an MLP, a mixture of experts or no FFN, an encoder,
+    cross-attention and a prefix-LM)."""
     if tp < 1:
         raise ValueError(f"tp={tp}")
     plan = plan or EMPTY_PLAN
     groups = ST.make_groups(cfg, plan.pairs)
-    if tp > 1:
-        _check_tensor_parallel(cfg, tp)
     enc_segments: Tuple[ST.Segment, ...] = ()
     if cfg.enc_layers:
         # The encoder: bidirectional attention + MLP layers, never paired.
@@ -94,23 +91,6 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
         enc_segments = tuple(ST.make_segments(enc_groups))
     return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)),
                           enc_segments)
-
-
-def _check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
-    """Refuse, at tp > 1, what the port does not shard yet (ROADMAP item
-    10): an encoder, cross-attention and a prefix-LM."""
-    what = set()
-    if cfg.enc_layers:
-        what.add("an encoder")
-    if cfg.prefix_len:
-        what.add("a prefix-LM")
-    if any(spec.cross_attn for spec in cfg.layer_specs()):
-        what.add("cross-attention")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name} at tp={tp}: {', '.join(sorted(what))} under tensor "
-            "parallelism are not ported yet (ROADMAP item 10); the port "
-            "shards the decoder-only families")
 
 
 def model_template(ms: ModelStructure) -> Dict[str, Any]:
@@ -197,7 +177,9 @@ def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
     """The encoder on frame embeddings [B,T,D] (stub frontend): the
     ``enc_segments`` stack (bidirectional attention), then ``enc_norm``.
     Runs without sequence parallelism, so the output is full-length (the
-    decoder's cross-attention projects its k/v from it)."""
+    decoder's cross-attention projects its k/v from it). At tp > 1 each
+    layer runs the rank's heads and d_ff columns; its two phase exits are
+    one ``psum_tp`` each, so every rank holds the whole output."""
     params = as_tree(params)
     pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
     h, _, _ = ST.apply_stack_full(params["enc_segments"], frames,
@@ -214,8 +196,8 @@ def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
 
 def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
                  prefix_embed=None, enc_frames=None, emit_cache=False,
-                 max_len=0, attn_impl="auto", ctx_kv=None, start=0,
-                 remat=False, differentiable=False):
+                 max_len=0, kv_mode="heads", attn_impl="auto", ctx_kv=None,
+                 start=0, remat=False, differentiable=False):
     """tokens: [B, S_text] -> (local_logits [B, S_total, V/tp], aux, caches).
 
     prefix_embed (vlm): [B, P, D] patch embeddings, P = ``cfg.prefix_len``,
@@ -236,6 +218,10 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
     (bucketed radix-hit prefill; needs the pinned-tile impl or the flash
     kernel). The emitted cache covers only the suffix (length ``max_len``,
     local 0 == absolute ``start``).
+
+    ``kv_mode`` ("heads" | "seq"): the layout of the emitted ring cache
+    at tp > 1 (``blocks.seq_sharded_kind``: "seq" cuts the full-length
+    caches of replicated kv heads along the sequence, a shard a rank).
 
     ``differentiable`` (the train step only): every kernel site runs its
     torch version, on any device, so autograd sees the whole forward;
@@ -271,7 +257,8 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
         params["segments"], x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
         positions=positions, prefix_len=prefix_len, enc_out=enc_out,
         attn_impl=attn_impl, emit_cache=emit_cache, max_len=max_len or S,
-        ctx=ctx_kv, q0=start, remat=remat, differentiable=differentiable)
+        kv_mode=kv_mode, ctx=ctx_kv, q0=start, remat=remat,
+        differentiable=differentiable)
     x = pc.phase_in(x)
     logits = _head(params, x, cfg, pc)
     return logits, aux, caches
@@ -307,13 +294,14 @@ def loss_fn(params, batch, *, ms: ModelStructure, pc: ParallelContext,
 # ---------------------------------------------------------------------------
 
 def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
-               dtype=torch.bfloat16):
+               kv_mode="heads", dtype=torch.bfloat16):
     """Per segment, {entry name: (shape, dtype)} of this rank's decode
     cache (at tp > 1: the rank's share of split kv heads, or every stored
-    head when kv is replicated); the cross-attention entries of an
-    encoder-decoder hold ``cfg.enc_seq`` positions."""
+    head when kv is replicated, then with ``kv_mode="seq"`` the rank's
+    ``max_len / tp`` positions of a full-length ring); the cross-attention
+    entries of an encoder-decoder hold ``cfg.enc_seq`` positions."""
     return ST.stack_cache_meta(ms.cfg, ms.segments, ms.dims, batch=batch,
-                               max_len=max_len,
+                               max_len=max_len, kv_mode=kv_mode,
                                enc_len=ms.cfg.enc_seq if ms.enc_segments else 0,
                                dtype=dtype)
 
@@ -337,23 +325,26 @@ def cast_cache(caches, dtype):
 
 
 def prefill(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
-            max_len: int, prefix_embed=None, enc_frames=None, attn_impl="auto",
-            cache_dtype=torch.bfloat16):
+            max_len: int, prefix_embed=None, enc_frames=None, kv_mode="heads",
+            attn_impl="auto", cache_dtype=torch.bfloat16):
     """Returns (last-position local logits [B, V/tp], caches). The cache
     holds the prefix (when given) before the prompt, and the encoder's
-    keys and values (when frames are given) in ``xk``/``xv``."""
+    keys and values (when frames are given) in ``xk``/``xv``; its layout
+    is ``kv_mode``'s (``cache_meta``)."""
     logits, _, caches = forward_full(
         params, tokens, ms=ms, pc=pc, prefix_embed=prefix_embed,
         enc_frames=enc_frames, emit_cache=True, max_len=max_len,
-        attn_impl=attn_impl)
+        kv_mode=kv_mode, attn_impl=attn_impl)
     return logits[:, -1], cast_cache(caches, cache_dtype)
 
 
 def decode_step(params, tok, caches, t, *, ms: ModelStructure,
-                pc: ParallelContext, cache_layout="ring", block_tables=None):
+                pc: ParallelContext, kv_mode="heads", cache_layout="ring",
+                block_tables=None):
     """One decode step. tok: [B] ids; t: absolute position of ``tok`` in
     the stream. ``caches`` are updated in place. Returns (local logits
-    [B, V/tp], caches).
+    [B, V/tp], caches). ``kv_mode`` is the ring cache's layout, as
+    ``prefill`` emitted it.
 
     cache_layout="paged" (continuous batching, ``repro_torch.serve``):
     ``t`` is an int32 [B] tensor of per-slot positions on the device,
@@ -373,6 +364,7 @@ def decode_step(params, tok, caches, t, *, ms: ModelStructure,
     x = _embed(params, tok[:, None], cfg, dpc, positions=pos)
     x, caches = ST.apply_stack_decode(
         params["segments"], x, caches, t, ms.segments, cfg=cfg, dims=ms.dims,
-        pc=dpc, cache_layout=cache_layout, block_tables=block_tables)
+        pc=dpc, kv_mode=kv_mode, cache_layout=cache_layout,
+        block_tables=block_tables)
     logits = _head(params, x, cfg, dpc)
     return logits[:, 0], caches

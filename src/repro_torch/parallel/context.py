@@ -19,12 +19,14 @@ share one card). Nothing picks a backend for the caller.
 operation, as ``kernels.ops.LAUNCHES`` counts kernel launches: it moves
 only where a collective is issued (never at tp = 1, where every helper is
 the identity), so a caller can hold a step's count to LP's halving (an LP
-pair's phase syncs once where two layers sync twice). ``reset_all_reduces``
-sets it to zero.
+pair's phase syncs once where two layers sync twice). ``ALL_GATHERS``
+counts the ``all_gather_tp`` calls beside it (the sequence-sharded kv
+cache's q gather), so a gather's own all_reduce is not read as a phase
+sum. ``reset_all_reduces`` sets both to zero.
 
 Serving only: sequence parallelism (``sp=True``) at tp > 1 raises, and so
 does a collective on a tensor that autograd tracks (the sharded trainer is
-ROADMAP item 10).
+ROADMAP item 10.3).
 """
 from __future__ import annotations
 
@@ -38,11 +40,15 @@ BACKENDS = ("nccl", "gloo")
 
 #: all_reduce calls issued by the contexts of this process, by operation.
 ALL_REDUCES = {"sum": 0, "max": 0}
+#: all_gather_tp calls issued by the contexts of this process.
+ALL_GATHERS = {"gather": 0}
 
 
 def reset_all_reduces() -> None:
-    for op in ALL_REDUCES:
-        ALL_REDUCES[op] = 0
+    """Zero ``ALL_REDUCES`` and ``ALL_GATHERS``."""
+    for counts in (ALL_REDUCES, ALL_GATHERS):
+        for op in counts:
+            counts[op] = 0
 
 
 @dataclass(frozen=True)
@@ -59,7 +65,7 @@ class ParallelContext:
         if self.tp_size > 1 and self.sp:
             raise NotImplementedError(
                 "sequence parallelism (sp=True) at tp > 1 belongs to the "
-                "sharded trainer, which is not ported yet: ROADMAP item 10")
+                "sharded trainer, which is not ported yet: ROADMAP item 10.3")
 
     @property
     def tp(self) -> int:
@@ -72,7 +78,7 @@ class ParallelContext:
         return self.rank
 
     # -- collectives over the TP axis (identity at world size 1) --------
-    def _all_reduce(self, x: torch.Tensor, op, name: str) -> torch.Tensor:
+    def _check(self, x: torch.Tensor) -> None:
         if self.group is None:
             raise RuntimeError(
                 f"a tp_size={self.tp_size} context has no process group: "
@@ -81,7 +87,10 @@ class ParallelContext:
         if torch.is_grad_enabled() and x.requires_grad:
             raise NotImplementedError(
                 "a collective under autograd: the sharded trainer is not "
-                "ported yet (ROADMAP item 10); serve under torch.no_grad()")
+                "ported yet (ROADMAP item 10.3); serve under torch.no_grad()")
+
+    def _all_reduce(self, x: torch.Tensor, op, name: str) -> torch.Tensor:
+        self._check(x)
         y = x.contiguous().clone()   # in place on a copy: x stays as it was
         dist.all_reduce(y, op=op, group=self.group)
         ALL_REDUCES[name] += 1
@@ -96,6 +105,25 @@ class ParallelContext:
         if self.tp_size == 1:
             return x
         return self._all_reduce(x, dist.ReduceOp.MAX, "max")
+
+    def all_gather_tp(self, x, axis: int, *, tiled: bool = True):
+        """The ranks' ``x`` in rank order: concatenated along ``axis``
+        (``tiled``), or stacked on a new axis ``axis``, as JAX's
+        ``lax.all_gather``. Each rank writes its ``x`` into its block of a
+        zero buffer of the full size and one all_reduce(SUM) adds the
+        blocks, which is exact (x + 0 == x) and runs on every backend:
+        gloo's ``all_gather`` takes CPU tensors only, its all_reduce CUDA
+        ones too. Counted in ``ALL_GATHERS``, not ``ALL_REDUCES``."""
+        if self.tp_size == 1:
+            return x if tiled else x.unsqueeze(axis)
+        self._check(x)
+        buf = x.new_zeros((self.tp_size, *x.shape))
+        buf[self.rank] = x
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+        ALL_GATHERS["gather"] += 1
+        if not tiled:
+            return buf.movedim(0, axis)
+        return torch.cat(buf.unbind(0), dim=axis)
 
     # -- phase boundaries (the paper's sync points) ---------------------
     # A phase is one column-parallel -> local -> row-parallel region; an LP

@@ -78,13 +78,16 @@ size 1. The prefix-LM (paligemma) and encoder-decoder (whisper) models run
 through ``generate`` only, as in the JAX package: the paged pool refuses
 them (``paged_cache.validate_paged_support``).
 
-Tensor parallel serving (every family the pool pages: attention + MLP,
-Mamba, the RG-LRU hybrid, the mixtures of experts): one process per rank,
-each with its shard of the weights (``transformer.init_params(rank=)``,
+Tensor parallel serving (every family): one process per rank, each with
+its shard of the weights (``transformer.init_params(rank=)``,
 ``bridge.shard_from_numpy``) and its ``ParallelContext``, runs the same
-program: ``sharded_generate`` (the ring cache), or a ``PagedEngine`` given
-the rank's ``pc``. Every rank runs the same scheduler, prefix cache and
-bucket ladder on the same requests; the tokens come from the
+program: ``sharded_generate`` (the ring cache; every family, with a
+prefix-LM's patch embeddings or an encoder's frames), or a ``PagedEngine``
+given the rank's ``pc`` (every family the pool pages). The ring cache's
+``ServeConfig.kv_mode="seq"`` cuts the full-length rings of replicated kv
+heads along the sequence over the ranks (``blocks.seq_sharded_kind``);
+the pool pages kv heads only. Every rank runs the same scheduler, prefix
+cache and bucket ladder on the same requests; the tokens come from the
 vocab-parallel argmax and the finite flags are agreed over the ranks
 (``pmax_tp``), so the host decisions of all ranks agree. Each rank's pool
 holds its share of split kv heads, or every stored head when kv is
@@ -135,6 +138,10 @@ class ServeConfig:
     # Pinned-tile prefill attention (serve.bucketing): every prefill
     # consumer runs the same impl.
     attn_impl: str = BK.PREFILL_ATTN_IMPL
+    # The ring cache at tp > 1: "heads" (kv heads split, or replicated
+    # whole on every rank) or "seq" (replicated kv heads' full-length rings
+    # cut along the sequence, ``blocks.seq_sharded_kind``).
+    kv_mode: str = "heads"
 
 
 def make_prefill(ms: T.ModelStructure, pc: ParallelContext, sv: ServeConfig):
@@ -145,7 +152,8 @@ def make_prefill(ms: T.ModelStructure, pc: ParallelContext, sv: ServeConfig):
     def prefill_fn(params, tokens, prefix=None, frames=None):
         return T.prefill(params, tokens, ms=ms, pc=pc, max_len=sv.max_len,
                          prefix_embed=prefix, enc_frames=frames,
-                         attn_impl=sv.attn_impl, cache_dtype=sv.cache_dtype)
+                         kv_mode=sv.kv_mode, attn_impl=sv.attn_impl,
+                         cache_dtype=sv.cache_dtype)
     return prefill_fn
 
 
@@ -160,7 +168,8 @@ def make_serve_step(ms: T.ModelStructure, pc: ParallelContext, sv: ServeConfig):
     caches): embed -> stack -> head -> greedy or sampled choice. The caches
     are updated in place."""
     def serve_fn(params, tok, caches, t, generator=None):
-        logits, caches = T.decode_step(params, tok, caches, t, ms=ms, pc=pc)
+        logits, caches = T.decode_step(params, tok, caches, t, ms=ms, pc=pc,
+                                       kv_mode=sv.kv_mode)
         return _choose(logits, generator, sv, pc), caches
     return serve_fn
 
@@ -221,25 +230,26 @@ def generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
 
 def sharded_generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
                      pc: ParallelContext, sv: ServeConfig,
-                     timings: Optional[Dict[str, float]] = None):
+                     timings: Optional[Dict[str, float]] = None,
+                     prefix=None, frames=None):
     """One-shot greedy generation at tp > 1 on the ring cache: the tp > 1
     reference stream the sharded ``PagedEngine`` is held to. Each rank's
     process calls it with its own shard of the weights, its context and the
-    same ``prompts`` [B, S]; all ranks return the same [B, n_new] tokens
-    (the vocab-parallel argmax). It is ``generate`` under the rank's
-    context: where the JAX package runs the ranks under ``shard_map`` from
-    one process, every rank here runs the same host loop."""
+    same ``prompts`` [B, S] (and the same ``prefix`` patch embeddings or
+    encoder ``frames``, replicated, as ``generate`` takes them); all ranks
+    return the same [B, n_new] tokens (the vocab-parallel argmax). It is
+    ``generate`` under the rank's context: where the JAX package runs the
+    ranks under ``shard_map`` from one process, every rank here runs the
+    same host loop. (The JAX package's ``sharded_generate`` refuses the
+    prefix and the frames; its sharded prefill and serve step take them.)"""
     if pc.tp_size != ms.tp:
         raise ValueError(f"a tp_size={pc.tp_size} context for a tp={ms.tp} "
                          "structure")
     if sv.temperature != 0.0:
         raise ValueError("sharded generation is the greedy reference "
                          "(temperature 0)")
-    if ms.cfg.prefix_len or ms.enc_segments:
-        raise ValueError(f"{ms.cfg.name}: sharded one-shot generation does not "
-                         "take prefix/encoder extras")
     return generate(params, prompts, n_new, ms=ms, pc=pc, sv=sv,
-                    timings=timings)
+                    timings=timings, prefix=prefix, frames=frames)
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +666,7 @@ class PagedEngine:
                 "the port serves tensor parallel as one process per rank, "
                 "each with its shard and its ParallelContext (pc=); a mesh "
                 "and the launcher that would start its processes are not "
-                "ported: ROADMAP item 10")
+                "ported: ROADMAP item 10.4")
         self.pc = pc if pc is not None else ParallelContext()
         if self.pc.tp_size != ms.tp:
             raise ValueError(f"a tp_size={self.pc.tp_size} context for a "

@@ -155,7 +155,76 @@ def case_family(pc, args):
     return out
 
 
-CASES = {"serve": case_serve, "family": case_family}
+def extras_part(pc, ms, params, args):
+    """Per ring-cache layout of ``args["kv_modes"]``: ``sharded_generate``'s
+    greedy tokens of ``args["prompts"]`` with the replicated extras of the
+    pickle ``args["inputs"]`` (``{"prefix": [B, P, D]}`` or ``{"frames":
+    [B, T, D]}``; none when absent), fp32 ring cache; then the same stream
+    by hand (``make_prefill``, ``make_serve_step``): the prefill's local
+    last-position logits, the rank's ring cache after the ``n_new - 1``
+    steps, and the collectives of the first step by kind."""
+    import torch
+    from repro_torch.model import embedding as E
+    from repro_torch.parallel import context
+    from repro_torch.serve import (ServeConfig, make_prefill, make_serve_step,
+                                   sharded_generate)
+    extras = {}
+    if "inputs" in args:
+        extras = {k: torch.from_numpy(v)
+                  for k, v in pickle.loads(Path(args["inputs"]).read_bytes()).items()}
+    prompts = torch.tensor(args["prompts"])
+    t0 = prompts.shape[1] + (ms.cfg.prefix_len if "prefix" in extras else 0)
+    out = {}
+    for mode in args["kv_modes"]:
+        sv = ServeConfig(max_len=args["max_len"], cache_dtype=torch.float32,
+                         kv_mode=mode)
+        gen = sharded_generate(params, prompts, args["n_new"], ms=ms, pc=pc,
+                               sv=sv, **extras)
+        step = make_serve_step(ms, pc, sv)
+        with torch.no_grad():
+            logits, caches = make_prefill(ms, pc, sv)(params, prompts, **extras)
+            toks = [E.vocab_parallel_argmax(logits, pc)]
+            for i in range(args["n_new"] - 1):
+                context.reset_all_reduces()
+                tok, caches = step(params, toks[-1], caches, t0 + i)
+                if i == 0:
+                    counts = {**context.ALL_REDUCES, **context.ALL_GATHERS}
+                toks.append(tok)
+        assert torch.equal(torch.stack(toks, dim=1), gen), mode
+        out[mode] = {"logits": logits.numpy(), "generate": gen.numpy(),
+                     "caches": [{k: c.numpy() for k, c in seg.items()}
+                                for seg in caches],
+                     "collectives": counts}
+    return out
+
+
+def case_extras(pc, args):
+    _, ms, params = _model(args, pc.tp_size, pc.rank)
+    return extras_part(pc, ms, params, args)
+
+
+def case_gather(pc, args):
+    """``all_gather_tp`` of a rank-seeded fp32 [2, 3, 5] and bf16 [4, 6]
+    tensor along each axis, tiled and stacked, and the counters after."""
+    import torch
+    from repro_torch.parallel import context
+    context.reset_all_reduces()
+    g = torch.Generator().manual_seed(100 + pc.rank)
+    xs = {"fp32": torch.randn((2, 3, 5), generator=g),
+          "bf16": torch.randn((4, 6), generator=g).to(torch.bfloat16)}
+    out = {"inputs": {k: x.float().numpy() for k, x in xs.items()}, "gathered": {}}
+    for name, x in xs.items():
+        for axis in range(x.dim()):
+            for tiled in (True, False):
+                y = pc.all_gather_tp(x, axis, tiled=tiled)
+                assert y.dtype == x.dtype
+                out["gathered"][(name, axis, tiled)] = y.float().numpy()
+    out["counts"] = {**context.ALL_REDUCES, **context.ALL_GATHERS}
+    return out
+
+
+CASES = {"serve": case_serve, "family": case_family, "extras": case_extras,
+         "gather": case_gather}
 
 
 def main(spec):

@@ -13,7 +13,11 @@ over gloo (``tests/_tp_ranks.py``; file stores under ``tmp_path``).
   a rank's 2 q heads read 2 kv heads): the ranks' shards of the JAX
   package's global weights give the greedy tokens of JAX
   ``sharded_generate`` at tp = 4 (4 host devices) and, put together, its
-  prefill logits within 2e-5; the engine's streams equal them too.
+  prefill logits within 2e-5; the engine's streams equal them too;
+- tp = 2 (reduced tinyllama, the JAX package's weights with the zeros /
+  ones leaves moved): the port's staggered ``PagedEngine`` (prefix cache
+  on) gives every stream of JAX's ``PagedEngine(mesh=(1, 2))`` on 2 host
+  devices on the same traffic.
 
 Tolerance: 2e-5 in fp32 (tests/test_kernels.py), for logits summed over
 ranks in another order than on one process.
@@ -137,3 +141,46 @@ def test_tp4_replicated_and_per_head_equal_jax(tmp_path, heads):
                 tree=str(tmp_path / "tree.pkl"), **traffic)
     tokens = np.array(want["tokens"])
     _assert_ranks(got, tokens, list(tokens), np.array(want["logits"]))
+
+
+_JAX_ENGINE = r"""
+import json, pickle, jax, jax.numpy as jnp, numpy as np
+from repro.serve import PagedEngine, PagedServeConfig
+ms, tree, traffic = pickle.load(open(%r, "rb"))
+params = jax.tree.map(jnp.asarray, tree)
+mesh = jax.make_mesh((1, 2), ("data", "model"))
+psv = PagedServeConfig(n_slots=4, page_size=8, n_pages=33, max_len=traffic["max_len"],
+                       cache_dtype=jnp.float32, prefix_cache=True)
+eng = PagedEngine(params, ms, psv, mesh=mesh)
+reqs = [np.array(r, np.int32) for r in traffic["requests"]]
+rids = [eng.add_request(r, traffic["n_new"]) for r in reqs[:traffic["first"]]]
+eng.step()
+eng.step()
+rids += [eng.add_request(r, traffic["n_new"]) for r in reqs[traffic["first"]:]]
+eng.drain()
+print("RESULT " + json.dumps({"engine": [eng.results[r].tolist() for r in rids],
+                              "hits": int(eng.counters["prefix_hits"])}))
+"""
+
+
+def test_tp2_engine_equals_jax_engine(tmp_path):
+    """The ranks' shards of the JAX package's global weights (tp = 2
+    structure) through the port's engine, against JAX's engine on a (1, 2)
+    mesh: the same requests in the same steps."""
+    from test_torch_tp_families import filled
+    cfg = reduced_config(get_config("tinyllama-1.1b"), n_layers=4)
+    ms = JT.build_structure(cfg, plan=LPPlan(((0, 1),)), tp=2)
+    _, tms, _ = _model(dict(n_layers=4, pairs=[[0, 1]], seed=0), 2, 0)
+    tree = filled(jax.tree.map(np.asarray, JT.init_params(ms, jax.random.PRNGKey(3))),
+                  TT.model_template(tms), 8)
+    traffic = _traffic(cfg.vocab_size, 7)
+    (tmp_path / "jax.pkl").write_bytes(pickle.dumps((ms, tree, traffic)))
+    out = run_multidevice(_JAX_ENGINE % str(tmp_path / "jax.pkl"), n_devices=2)
+    want = json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT")][0][7:])
+    (tmp_path / "tree.pkl").write_bytes(pickle.dumps(tree))
+    got = spawn("serve", 2, tmp_path, n_layers=4, pairs=[[0, 1]],
+                tree=str(tmp_path / "tree.pkl"), **traffic)
+    assert want["hits"] > 0
+    for rank, r in enumerate(got):
+        assert r["hits"] == want["hits"], rank
+        assert [a.tolist() for a in r["engine"]] == want["engine"], rank

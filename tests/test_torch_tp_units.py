@@ -13,9 +13,10 @@
   shards of a global JAX tree (``bridge.shard_from_numpy``) against slicing
   it by those specs, and ``init_params(rank=)`` against the shard of the
   global weights;
-- the refusals at tp > 1: ``spec_k``, ``degrade_delta``, ``sp=True``, the
-  families outside the slice (the encoder-decoder and the prefix-LM), a
-  context without a group; the decoder-only families build at tp 2 and 8;
+- the refusals at tp > 1: ``spec_k``, ``degrade_delta``, ``sp=True``, a
+  context without a group; every family builds at tp 2 and 8 (the
+  encoder-decoder and the prefix-LM too, whose pool ``PagedEngine`` still
+  refuses, as JAX's);
 - the recurrent and MoE rank pieces: ``shard_slice`` over a split axis of
   two blocks (Mamba's ``w_in``), the recurrent state at the rank's width
   (``group_cache_meta``), and ``_moe_single``'s rank partials against tp
@@ -246,16 +247,24 @@ def _model_axis(spec):
 
 @pytest.mark.parametrize("arch", TC.ASSIGNED_ARCHS)
 def test_split_axes_match_jax_pspecs(arch):
-    """Every leaf of every architecture's template (tp 1, plan_range(0, 4)):
-    the port's split axis is the "model" entry of JAX's PartitionSpec."""
+    """Every leaf of every architecture's template (tp 1 and 2,
+    plan_range(0, 4)): the port's split axis is the "model" entry of JAX's
+    PartitionSpec; the encoder's, the cross-attention's and the learned
+    positions' leaves among them."""
     jcfg = reduced_config(get_config(arch), n_layers=4)
     tcfg = TC.reduced_config(TC.get_config(arch), n_layers=4)
-    jms = JT.build_structure(jcfg, plan=j_plan_range(jcfg, 0, 4))
-    tms = TT.build_structure(tcfg, plan=plan_range(tcfg, 0, 4))
-    jspecs = jax.tree.leaves(JT.param_pspecs(jms),
-                             is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-    tspecs = [ax for _, ax in tree_items(TT.param_pspecs(tms))]
-    assert tspecs == [_model_axis(s) for s in jspecs]
+    for tp in (1, 2):
+        jms = JT.build_structure(jcfg, plan=j_plan_range(jcfg, 0, 4), tp=tp)
+        tms = TT.build_structure(tcfg, plan=plan_range(tcfg, 0, 4), tp=tp)
+        jspecs = jax.tree.leaves(JT.param_pspecs(jms),
+                                 is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        items = tree_items(TT.param_pspecs(tms))
+        assert [ax for _, ax in items] == [_model_axis(s) for s in jspecs]
+        paths = [path for path, _ in items]
+        if tcfg.enc_layers:
+            assert any(p.startswith("enc_segments/") for p in paths)
+            assert "enc_norm/scale" in paths and "embed/pos" in paths
+            assert any("/xattn/" in p for p in paths)
 
 
 @pytest.mark.parametrize("nq,nkv,tp", LAYOUTS + [(4, 4, 4)])
@@ -345,26 +354,26 @@ def test_refusals_at_tp_above_one():
     TPG.validate_paged_support(TT.build_structure(c3, tp=4), 64)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium"])
-def test_families_outside_the_slice_refuse_tp(arch):
-    cfg = TC.reduced_config(TC.get_config(arch), n_layers=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        TT.build_structure(cfg, tp=2)
-    TT.build_structure(cfg, tp=1)
-
-
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "yi-6b", "minicpm-2b",
                                   "granite-34b", "falcon-mamba-7b",
                                   "recurrentgemma-9b", "dbrx-132b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "paligemma-3b",
+                                  "whisper-medium"])
 def test_families_build_at_tp(arch):
-    """The decoder-only families build at tp 2 and 8 at their published
-    widths, with the head layout JAX gives them, and their pools validate."""
+    """Every family builds at tp 2 and 8 at its published widths, with the
+    head layout and the encoder JAX gives it; the decoder-only families'
+    pools validate, and ``PagedEngine`` refuses the prefix-LM and the
+    encoder-decoder at every tp, as JAX's does."""
     for tp in (2, 8):
         jms = JT.build_structure(get_config(arch), tp=tp)
         tms = TT.build_structure(TC.get_config(arch), tp=tp)
         assert dataclasses.asdict(tms.dims) == dataclasses.asdict(jms.dims)
-        if not tms.dims.kv_sharded or TC.get_config(arch).n_kv_heads % tp == 0:
+        assert len(tms.enc_segments) == len(jms.enc_segments)
+        if arch in ("paligemma-3b", "whisper-medium"):
+            with pytest.raises(ValueError, match="prefix-LM|encoder"):
+                PagedEngine(None, tms, PagedServeConfig(max_len=256),
+                            pc=ParallelContext(tp_size=tp, rank=0))
+        elif not tms.dims.kv_sharded or TC.get_config(arch).n_kv_heads % tp == 0:
             TPG.validate_paged_support(tms, 256)
 
 
