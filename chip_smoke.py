@@ -223,7 +223,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      seed: each
      rank first checks that gloo takes CUDA tensors for all_reduce SUM and
      MAX (fp32, bf16, int64, int32), then ``sharded_generate`` (4 x 128,
-     16 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
+     10 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
      compute, held to tp = 1 in this process (near-tie rule), and timed
      bf16 runs whose launches reconcile and whose decode launches are held
      to their plain versions (``DecodeProbe``); (b) cut to 4 layers (one
@@ -240,7 +240,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``sharded_generate``; the engine under (0, 1)) at their published
      widths, bf16 random weights from the seed (``TP_FAMILIES``): each
      family's ``sharded_generate`` (4 x 128) and engine (``tp_traffic``),
-     16 new, in fp32 compute (the MoE models at capacity E/k) held to tp =
+     10 new, in fp32 compute (the MoE models at capacity E/k) held to tp =
      1 streams that this process made and freed before the ranks started;
      timed bf16 runs reconciled and probed as in (a) (the first flash and
      scan launch at each shape too); one decode step's all-reduces
@@ -252,7 +252,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      heads over its replicated kv head) behind 256 patch embeddings with
      prompts 4 x 128 and a cache of 512, once at kv_mode "heads" and once
      at "seq" (the ring cut along the sequence, 256 positions a rank),
-     ``sharded_generate`` (16 new) held the same way (``TP_ENCDEC``); the
+     ``sharded_generate`` (10 new) held the same way (``TP_ENCDEC``); the
      timed bf16 runs reconcile (the seq ring launches no decode kernel)
      and hold the first flash launch at each rank shape (bidirectional
      over 1500 frames, cross-attention at prefill and decode, the prefix
@@ -262,8 +262,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      along the sequence one gather, one max and one sum more. (e) in (b)'s
      ranks: tinyllama's ``sharded_generate`` at kv_mode "seq" (its 4 kv
      heads under 8 ranks), whose tokens equal the heads mode's and tp =
-     1's, its collectives counted as in (d). All ranks' tokens agree.
-     Times over gloo go through the host: correctness runs, not speed.
+     1's, its collectives counted as in (d). (f) in (b)'s ranks after (e):
+     the sharded trainer on the (pod 2, data 2, model 2) grid of the 8
+     ranks, tinyllama-1.1b at its published widths cut to 2 layers (pair
+     (0, 1)), fp32: 2 steps each of ZeRO, FSDP and int8 pod compression
+     (sequence parallel) on global 8 x 128 batches, held to a tp = 1 run
+     in this process (loss and grad_norm), every rank to rank 0, each
+     step's collectives to the count its leaf list predicts; then one eval
+     step whose flash and dual RMSNorm launches are held to their plain
+     versions and whose loss is held to the train forward's. All ranks'
+     tokens agree. Times over gloo go through the host: correctness runs,
+     not speed.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
 phases 9 to 15 after 7. The second-to-last line is the kernels JSON (with
@@ -432,8 +441,9 @@ HEAD_MAP_SHAPES = (
 # joined over gloo (NCCL refuses two ranks on one device). (a) tinyllama-1.1b
 # cut to 11 of its 22 layers (since phase 15 took (c); 22 until then) under
 # plan_for_depth(8) at tp = 2 (kv heads split):
-# sharded_generate (4 x 128, 16 new; 32 until (d) came) and the engine on half
-# of phase 6's traffic (``tp_traffic``: 4 requests of each wave, 16 new);
+# sharded_generate (4 x 128, 10 new: 16 until (f) came, 32 until (d)) and
+# the engine on half of phase 6's traffic (``tp_traffic``: 4 requests of
+# each wave, 10 new; the probes read decode step 8, so 10 is the least);
 # (b) cut to 4
 # layers under plan_for_depth(3) (one pair, two single layers) at tp = 8 (4
 # kv heads under 8 ranks: replicated, head map [rank // 2]), the same with 8
@@ -442,7 +452,7 @@ HEAD_MAP_SHAPES = (
 # MoE families at tp = 2, served by (a)'s rank processes after tinyllama, at
 # their published widths cut to a few layers: arch -> (layers kept,
 # generate's LP pairs, the engine's LP pairs); sharded_generate (4 x 128)
-# and the engine on ``tp_traffic``, 16 new tokens. llama4's generate pair
+# and the engine on ``tp_traffic``, 10 new tokens (16 until (f) came). llama4's generate pair
 # (2, 3) is chunked + global, which the pool refuses: its engine runs under
 # (0, 1) on weights made anew. (d) the encoder-decoder and the prefix-LM at
 # tp = 2 in (a)'s ranks after (c), through sharded_generate only (the pool
@@ -450,20 +460,37 @@ HEAD_MAP_SHAPES = (
 # [4, 1500, 1024] and prompts 4 x 32 (cache 128); paligemma-3b cut to 2
 # layers, a prefix of 256 before prompts 4 x 128 (cache 512), once at
 # kv_mode "heads" and once at "seq" (its one kv head, replicated, cut along
-# the sequence); decoder pair (0, 1), 16 new tokens: arch -> (decoder
-# layers, kv modes). (e) in (b)'s ranks: tinyllama's sharded_generate at
+# the sequence); decoder pair (0, 1), 10 new tokens (16 until (f) came):
+# arch -> (decoder layers, kv modes). (e) in (b)'s ranks: tinyllama's sharded_generate at
 # kv_mode "seq" (4 kv heads under 8 ranks). (b) and (e) take 8 new tokens
 # (16 until (e) came): a step over gloo at tp = 8 takes 0.2-0.5 s.
 TP_BACKEND, TP_TIMEOUT = "gloo", 420
-TP2, TP2_LAYERS, TP2_EFF_DEPTH, TP2_NEW = 2, 11, 8, 16
+TP2, TP2_LAYERS, TP2_EFF_DEPTH, TP2_NEW = 2, 11, 8, 10
 TP8, TP8_LAYERS, TP8_EFF_DEPTH, TP8_NEW = 8, 4, 3, 8
 TP_FAMILIES = {MAMBA: (4, ((0, 1),), ((0, 1),)),
                HYBRID: (3, ((0, 1),), ((0, 1),)),
                DBRX: (3, ((1, 2),), ((1, 2),)),
                LLAMA4: (4, ((0, 1), (2, 3)), ((0, 1),))}
-TP_FAMILY_NEW = 16
+TP_FAMILY_NEW = 10
 TP_ENCDEC = {WHISPER: (2, ("heads",)), PALI: (2, ("heads", "seq"))}
-TP_ENCDEC_NEW = 16
+TP_ENCDEC_NEW = 10
+# (f) in (b)'s ranks after (e): the sharded trainer on the (pod, data, model)
+# grid TP_TRAIN_GRID over the 8 ranks, tinyllama-1.1b at its published widths
+# cut to TP_TRAIN_LAYERS layers (LP pair (0, 1)), fp32 weights (TF32 off),
+# a global batch of TP_TRAIN_B x TP_TRAIN_S from data/synthetic per step,
+# TP_TRAIN_STEPS steps in each mode, then one eval step; held to tp = 1 in
+# the parent (TP_TRAIN_TOL, relative), compression to TP_TRAIN_COMPRESS_TOL
+# of the uncompressed loss after the last step and its first step's
+# grad_norm to TP_TRAIN_COMPRESS_NORM_TOL of tp = 1's, the eval to TP_TRAIN_EVAL_TOL of the train
+# forward. Over gloo: a correctness run, not a speed.
+TP_TRAIN_GRID, TP_TRAIN_LAYERS, TP_TRAIN_PAIRS = (2, 2, 2), 2, ((0, 1),)
+TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 8, 128, 2
+TP_TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=40)
+TP_TRAIN_MODES = {"zero": {}, "fsdp": {"fsdp": True}, "compress": {"compress_pod": True}}
+TP_TRAIN_TOL, TP_TRAIN_COMPRESS_TOL, TP_TRAIN_EVAL_TOL = 1e-4, 5e-2, 2e-3
+# the compressed run's step-1 grad_norm against tp = 1's, relative: read
+# 6.15905 against 6.15770 (2.2e-4) on an H100 80GB HBM3 at 700 W
+TP_TRAIN_COMPRESS_NORM_TOL = 2e-3
 TP_NCCL_NOT_RUN = [
     "init_context(backend='nccl'): one card per rank, every all_reduce of the "
     "tp = 2 and tp = 8 paths and of the four families' tp = 2 paths (Mamba's "
@@ -471,7 +498,10 @@ TP_NCCL_NOT_RUN = [
     "NCCL refuses two ranks on one device)",
     "the encoder's and the cross-attention's phase sums of whisper-medium, and "
     "the sequence-sharded cache's all_gather_tp (an all_reduce of zero-padded "
-    "blocks), max and packed sum of paligemma-3b and tinyllama over NCCL"]
+    "blocks), max and packed sum of paligemma-3b and tinyllama over NCCL",
+    "the sharded trainer's collectives (the sequence-parallel gathers and "
+    "scatters with their backwards, the dp sum-and-scatters and gathers, FSDP's "
+    "data gathers, the int8 pod sums) over NCCL, and a grid of one card per rank"]
 
 
 def log(msg):
@@ -4175,7 +4205,9 @@ def tp_case_tp8(pc):
     """Rank of (b): tinyllama-1.1b cut to ``TP8_LAYERS`` layers under
     plan_for_depth(``TP8_EFF_DEPTH``) at tp = 8: 4 kv heads under 8 ranks,
     replicated, each rank's 4 q heads reading stored head rank // 2 through
-    the paged kernels' head map."""
+    the paged kernels' head map; (e) the same at kv_mode "seq"; then (f),
+    the sharded trainer (``tp_train``)."""
+    import torch
     from repro_torch.model import attention as A
     cfg, ms, params = tp_model(pc, TP8_LAYERS, TP8_EFF_DEPTH)
     work = tp_traffic(cfg.vocab_size, TP8_NEW)
@@ -4190,8 +4222,222 @@ def tp_case_tp8(pc):
                          engine_too=False, kv_mode="seq")
     seq_collectives = tp_encdec_collectives(pc, ms, params, tp_prompts(cfg), {}, MAX_LEN,
                                             "seq")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f): the sharded trainer on the (2, 2, 2) grid of the same ranks
     return {"generate": gen, "engine": streams, "timed": timed, "head_map": list(hm),
-            "seq": {"generate": seq, "timed": seq_timed, "collectives": seq_collectives}}
+            "seq": {"generate": seq, "timed": seq_timed, "collectives": seq_collectives},
+            "train": tp_train(pc)}
+
+
+def tp_train_model(pc, fsdp=False):
+    """(cfg, ms) of (f): tinyllama-1.1b at its published widths cut to
+    ``TP_TRAIN_LAYERS`` layers under ``TP_TRAIN_PAIRS`` at the context's
+    tp, FSDP over its data ranks when asked."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=TP_TRAIN_LAYERS)
+    return cfg, T.build_structure(cfg, plan=LPPlan(TP_TRAIN_PAIRS), tp=pc.tp_size,
+                                  fsdp=fsdp, fsdp_data=pc.data_size if fsdp else 1)
+
+
+def tp_train_batch(cfg, step):
+    """Step ``step``'s GLOBAL batch from the port's synthetic source, on the card."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.data.synthetic import SynthConfig
+    src = make_source(DataConfig(seq_len=TP_TRAIN_S, global_batch=TP_TRAIN_B, seed=SEED),
+                      SynthConfig(vocab_size=cfg.vocab_size))
+    return {k: x.cuda() for k, x in src.batch_at(step).items()}
+
+
+def tp_train_steps(pc, mode):
+    """``TP_TRAIN_STEPS`` steps of ``make_sharded_train_step`` in ``mode``
+    (``TP_TRAIN_MODES``) from the seed's fp32 weights on the card: per step
+    the metrics, ms (synchronised) and collectives by kind. The training
+    forward must launch no kernel. Returns (state, ms, result)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import context
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import init_state, make_sharded_train_step
+    kw = TP_TRAIN_MODES[mode]
+    cfg, ms = tp_train_model(pc, kw.get("fsdp", False))
+    tc = TrainConfig(opt=OptConfig(**TP_TRAIN_OPT),
+                     compress_pod=kw.get("compress_pod", False))
+    state = init_state(ms, torch.Generator(device="cuda").manual_seed(SEED), pc, tc,
+                       device="cuda")
+    step = make_sharded_train_step(ms, pc, tc)
+    out = {"metrics": [], "step_ms": [], "collectives": []}
+    ops.reset_launches()
+    for i in range(TP_TRAIN_STEPS):
+        batch = tp_train_batch(cfg, i)
+        context.reset_all_reduces()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["collectives"].append({**context.ALL_REDUCES, **context.ALL_GATHERS,
+                                   **context.SCATTERS})
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"(f) {mode}: the training forward launched {ops.LAUNCHES}")
+    return state, ms, out
+
+
+def tp_train_collectives(ms, pc, tc):
+    """One step's collectives by kind, predicted from the leaf list (every
+    leaf trained; attention + MLP groups): the tp phases forward and
+    backward (sp: a gather in and a scatter out each way, the embedding's
+    slice gathered back; without: a sum out forward, a sum in backward),
+    the embedding's and the cross-entropy's sums and max, a tp sum per
+    replicated leaf, per regular leaf the dp reduction (with compression a
+    data scatter, a pod max and a pod sum) and gather, per FSDP group leaf
+    a data gather and its backward scatter and a pod sum (or max and sum),
+    the norm's two sums and the metrics' two means."""
+    from repro_torch.model import transformer as T
+    from repro_torch.train.trainer import leaf_infos
+    infos = leaf_infos(ms, tc)
+    n = {"sum": 0, "max": 0, "gather": 0, "scatter": 0}
+    if pc.tp_size > 1:
+        phases = 2 * sum(seg.count for seg in ms.segments)
+        if pc.sp:
+            n["gather"] += 2 * phases + 2
+            n["scatter"] += 2 * phases + 1
+            n["sum"] += 3
+        else:
+            n["sum"] += 2 * phases + 4
+        n["max"] += 1
+        n["sum"] += sum(li.tp_sum for li in infos) + 1
+    compress = tc.compress_pod and pc.pod_size > 1
+    if pc.dp_size > 1:
+        n["sum"] += 3
+        for li in infos:
+            if li.fsdp:
+                n["sum"] += pc.pod_size > 1
+                n["max"] += compress
+            else:
+                n["gather"] += 1
+                n["scatter"] += (pc.data_size > 1) if compress else 1
+                n["max"] += compress
+                n["sum"] += compress
+    if ms.fsdp and pc.data_size > 1:
+        group_leaves = sum(seg.count * len(meta.chunks)
+                           for seg, meta in zip(ms.segments, T.segment_metas(ms)))
+        n["gather"] += group_leaves
+        n["scatter"] += group_leaves
+    return n
+
+
+def tp_train(world_pc):
+    """(f), one rank: the grid over the world, each of ``TP_TRAIN_MODES``
+    (sp on), then one eval step of the ZeRO run's weights on the rank's
+    rows of step ``TP_TRAIN_STEPS``'s batch under ``DecodeProbe`` (flash
+    and dual RMSNorm launches against their plain versions) beside the
+    train forward's loss on the same rows."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import make_grid_context
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import batch_shard, make_eval_step
+    t = time.perf_counter()
+    pc = make_grid_context(*TP_TRAIN_GRID, sp=True)
+    out = {"grid_s": time.perf_counter() - t, "modes": {}}
+    for mode in TP_TRAIN_MODES:
+        state, ms, res = tp_train_steps(pc, mode)
+        tc = TrainConfig(opt=OptConfig(**TP_TRAIN_OPT),
+                         compress_pod=TP_TRAIN_MODES[mode].get("compress_pod", False))
+        res["predicted"] = tp_train_collectives(ms, pc, tc)
+        out["modes"][mode] = res
+        if mode == "zero":
+            params, zms = state["params"], ms
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = zms.cfg
+    rows = batch_shard(tp_train_batch(cfg, TP_TRAIN_STEPS), pc)
+    ops.reset_launches()
+    with DecodeProbe(zms, paged=False, steps=(), shapes=("flash_attention",
+                                                          "dual_rmsnorm")) as probe:
+        ev = make_eval_step(zms, pc)(params, rows)
+    out["eval_launches"] = dict(ops.LAUNCHES)
+    out["eval_path_max_abs_err"] = probe.check(f"(f) eval rank {world_pc.rank}")
+    with torch.no_grad():
+        tl = pc.pmean_dp(T.loss_fn(params, rows, ms=zms, pc=pc, differentiable=True)[0])
+    out["eval_loss"], out["train_forward_loss"] = float(ev["loss"]), float(tl)
+    n_groups, n_pairs = model_counts(zms)
+    out["eval_want"] = {"flash_attention": n_groups,
+                        "dual_rmsnorm": norm_launches(cfg, n_pairs)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_reference():
+    """(f)'s tp = 1 run in this process, first: the ZeRO mode's steps on the
+    same weights and batches (one rank: the whole batch)."""
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    state, _, res = tp_train_steps(ParallelContext(), "zero")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_train_held(ref, got):
+    """(f)'s checks over the ranks' results ``got``; returns the metrics."""
+    for rank, r in enumerate(got):
+        g = r["train"]
+        for mode, res in g["modes"].items():
+            if res["metrics"] != got[0]["train"]["modes"][mode]["metrics"]:
+                raise AssertionError(f"(f) {mode}: rank {rank}'s metrics differ from rank 0's")
+            for i, col in enumerate(res["collectives"]):
+                if col != res["predicted"]:
+                    raise AssertionError(f"(f) {mode} rank {rank} step {i}: collectives "
+                                         f"{col}, predicted {res['predicted']}")
+        if g["eval_launches"] != {**{k: 0 for k in g["eval_launches"]}, **g["eval_want"]}:
+            raise AssertionError(f"(f) eval rank {rank}: launches {g['eval_launches']}, "
+                                 f"want {g['eval_want']}")
+        if abs(g["eval_loss"] - g["train_forward_loss"]) > TP_TRAIN_EVAL_TOL:
+            raise AssertionError(f"(f) eval rank {rank}: loss {g['eval_loss']} vs the "
+                                 f"train forward's {g['train_forward_loss']}")
+    modes = got[0]["train"]["modes"]
+    errs = {}
+    for mode in ("zero", "fsdp"):
+        for i, (m, w) in enumerate(zip(modes[mode]["metrics"], ref["metrics"])):
+            for k in ("loss", "grad_norm"):
+                e = abs(m[k] - w[k]) / abs(w[k])
+                errs[f"{mode}_{k}_{i}"] = e
+                if e > TP_TRAIN_TOL:
+                    raise AssertionError(f"(f) {mode} step {i} {k}: {m[k]} vs tp = 1's "
+                                         f"{w[k]} (relative {e:.2e})")
+    c_err = abs(modes["compress"]["metrics"][-1]["loss"] - modes["zero"]["metrics"][-1]["loss"])
+    if c_err > TP_TRAIN_COMPRESS_TOL:
+        raise AssertionError(f"(f) compress_pod: loss {c_err} from the uncompressed run's")
+    # Adam hides a gradient off by a constant factor from the loss: hold the
+    # compressed run's first step to tp = 1's as well
+    c1, w1 = modes["compress"]["metrics"][0], ref["metrics"][0]
+    for k, tol in (("loss", TP_TRAIN_TOL), ("grad_norm", TP_TRAIN_COMPRESS_NORM_TOL)):
+        e = abs(c1[k] - w1[k]) / abs(w1[k])
+        errs[f"compress_{k}_0"] = e
+        if e > tol:
+            raise AssertionError(f"(f) compress_pod step 0 {k}: {c1[k]} vs tp = 1's "
+                                 f"{w1[k]} (relative {e:.2e}, tol {tol:g})")
+    return {"grid": list(TP_TRAIN_GRID), "layers": TP_TRAIN_LAYERS, "batch": TP_TRAIN_B,
+            "seq": TP_TRAIN_S, "tp1": ref, "rel_err_vs_tp1": errs,
+            "compress_loss_diff": c_err,
+            "modes": {mode: {k: res[k] for k in ("metrics", "step_ms", "collectives")}
+                      for mode, res in modes.items()},
+            "grid_s": got[0]["train"]["grid_s"],
+            "eval": {k: got[0]["train"][k] for k in (
+                "eval_loss", "train_forward_loss", "eval_launches",
+                "eval_path_max_abs_err")}}
 
 
 TP_CASES = {"tp2": tp_case_tp2, "tp8": tp_case_tp8}
@@ -4392,6 +4638,11 @@ def tp_path():
     cfg, ms, params, work, gen1, eng1 = tp_reference(TP8_NEW, TP8_LAYERS, TP8_EFF_DEPTH)
     ref_s = time.perf_counter() - t
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train_ref = tp_train_reference()        # (f)'s tp = 1 run, before the ranks
+    train_ref_s = time.perf_counter() - t
     t = time.perf_counter()
     got = tp_spawn("tp8", TP8)
     tp8_s = time.perf_counter() - t
@@ -4422,6 +4673,32 @@ def tp_path():
     log(f"[tp8] kv_mode='seq': sharded_generate tokens == the heads mode's == tp = 1's "
         f"on every rank; one serve step's collectives "
         f"{ {k: got[0]['seq']['collectives'][k] for k in ('sum', 'max', 'gather')} }")
+    # (f) the sharded trainer, from the same ranks
+    train = tp_train_held(train_ref, got)
+    train["tp1_reference_s"] = train_ref_s
+    by_path["tp8_train_eval"] = {k: sum(r["train"]["eval_launches"][k] for r in got)
+                                 for k in got[0]["train"]["eval_launches"]}
+    metrics["tp8_train"] = train
+    for mode, res in train["modes"].items():
+        log(f"[tp8] (f) {mode} on the (2, 2, 2) grid: loss per step "
+            f"{[m['loss'] for m in res['metrics']]}, grad_norm "
+            f"{[m['grad_norm'] for m in res['metrics']]}; ms per step over gloo "
+            f"(not a speed) {['%.1f' % x for x in res['step_ms']]}; collectives per "
+            f"step {res['collectives'][0]} (as predicted from the leaf list)")
+    log(f"[tp8] (f) tp = 1 loss {[m['loss'] for m in train_ref['metrics']]}, grad_norm "
+        f"{[m['grad_norm'] for m in train_ref['metrics']]}; largest relative error of "
+        f"zero and fsdp {max(e for k, e in train['rel_err_vs_tp1'].items() if not k.startswith('compress')):.3e} "
+        f"(tol {TP_TRAIN_TOL:g}); compressed step 1 loss "
+        f"{train['rel_err_vs_tp1']['compress_loss_0']:.3e} (tol {TP_TRAIN_TOL:g}) and "
+        f"grad_norm {train['rel_err_vs_tp1']['compress_grad_norm_0']:.3e} (tol "
+        f"{TP_TRAIN_COMPRESS_NORM_TOL:g}) from tp = 1's, loss after step "
+        f"{TP_TRAIN_STEPS} {train['compress_loss_diff']:.3e} from the uncompressed (tol "
+        f"{TP_TRAIN_COMPRESS_TOL:g}); every rank equal to rank 0")
+    log(f"[tp8] (f) eval step: loss {train['eval']['eval_loss']:.6f} (kernels) vs the "
+        f"train forward's {train['eval']['train_forward_loss']:.6f}; launches per rank "
+        f"{train['eval']['eval_launches']}, first launches within "
+        f"{train['eval']['eval_path_max_abs_err']:.3e} of plain; on all {TP8} ranks "
+        f"{by_path['tp8_train_eval']}")
     log(f"[tp8] {TP_BACKEND}, world {TP8}: tokens == tp = 1 (sharded_generate "
         f"{B} x {TP8_NEW}, engine {len(work)} streams); every rank launched both "
         f"paged kernels with its head map [rank // 2]; tp = 1 reference {ref_s:.1f} s, "

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.model.params import ModelParams, shard_tree, tree_map
+from repro_torch.model.params import ModelParams, shard_tree, tree_leaves, tree_map
 
 
 def _tensor(a, device, dtype):
@@ -51,3 +51,52 @@ def shard_from_numpy(tree, ms, rank: int, *, device="cuda",
     return params_from_numpy(shard_tree(tree, param_pspecs(ms), ms.tp, rank,
                                         param_parts(ms)),
                              device=device, dtype=dtype)
+
+
+def state_from_numpy(state, ms, pc, tc, *, device="cuda"):
+    """This rank's train state (``train.trainer``'s layout) from the JAX
+    package's GLOBAL train state as numpy arrays (``jax.tree.map(np.asarray,
+    state)`` of its ``init_state`` / a step's output at ``pc``'s grid, built
+    for ``ms``): the rank's tp shard of every regular param, its ``[dp_index,
+    tp_index]`` row of every flat (dp, tp, chunk) master, m and v leaf (at
+    dp = 1 in the leaf's own shape), its (count, 1, 1, chunk) view of every
+    FSDP (count, data, tp, chunk) leaf, its (pod, chunk) error feedback.
+    Pure data movement: no value changes; the params in ``tc.param_dtype``
+    with ``requires_grad`` on ``tc``'s trainable leaves
+    (``trainer.params_from_master``)."""
+    from repro_torch.model.params import tree_items
+    from repro_torch.model.transformer import model_template, param_parts, param_pspecs
+    from repro_torch.parallel.fsdp import rank_view
+    from repro_torch.train.trainer import leaf_infos, params_from_master
+    tmpl = model_template(ms)
+    if pc.tp_size > 1 and any(n > 1 for n in tree_leaves(param_parts(ms))):
+        raise NotImplementedError(
+            "a leaf whose split axis concatenates blocks (Mamba's w_in): the JAX "
+            "package's flat rows at tp > 1 cut it otherwise (ROADMAP §3)")
+    t, d, dp = pc.tp_index(), pc.data_index(), pc.dp_index()
+    is_fsdp = [ms.fsdp and path.startswith("segments/") for path, _ in tree_items(tmpl)]
+    params = shard_tree(state["params"], param_pspecs(ms), ms.tp, t, param_parts(ms))
+    if ms.fsdp:
+        params["segments"] = tree_map(lambda a: rank_view(a, d, t),
+                                      state["params"]["segments"])
+    shapes = [np.shape(a) for a in tree_leaves(params)]
+
+    def rank_part(tree, regular):
+        it = iter(zip(is_fsdp, shapes))
+
+        def one(a):
+            fsdp, shape = next(it)
+            return _tensor(rank_view(a, d, t) if fsdp else regular(a[dp, t], shape),
+                           device, None)
+        return tree_map(one, tree)
+
+    # at dp = 1 a row is the whole tp-local leaf (no padding): its own shape
+    row = (lambda r, shape: r.reshape(shape)) if pc.dp_size == 1 else (lambda r, _: r)
+    out = {"params": params_from_master(tree_map(lambda a: _tensor(a, device, None),
+                                                 params),
+                                        leaf_infos(ms, tc), tc.param_dtype),
+           **{key: rank_part(state[key], row) for key in ("master", "m", "v")},
+           "step": int(np.asarray(state["step"]))}
+    if "err" in state:
+        out["err"] = rank_part(state["err"], lambda r, _: r)
+    return out

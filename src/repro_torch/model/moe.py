@@ -100,12 +100,17 @@ def slot_positions(idx, cfg):
 
 def moe_forward(p, xn, cfg, pc, *, pair: bool):
     """xn: [B,S,D] or [2,B,S,D]. Returns (partial_out [B,S,D], aux_loss);
-    the caller runs phase_out."""
+    the caller runs phase_out. The aux loss, which every rank computes
+    alike from the router, leaves the phase without a sum: under autograd
+    its gradient is split over the ranks (``split_grad_tp``), as the
+    router's other gradients (through the rank's experts) are."""
     if pair:
         out_a, aux_a = _moe_single(tree_map(lambda v: v[0], p), xn[0], cfg, pc)
         out_b, aux_b = _moe_single(tree_map(lambda v: v[1], p), xn[1], cfg, pc)
-        return out_a + out_b, 0.5 * (aux_a + aux_b)
-    return _moe_single(p, xn, cfg, pc)
+        out, aux = out_a + out_b, 0.5 * (aux_a + aux_b)
+    else:
+        out, aux = _moe_single(p, xn, cfg, pc)
+    return out, pc.split_grad_tp(aux)
 
 
 def _moe_single(p, xn, cfg, pc):

@@ -118,8 +118,9 @@ def ssm_mix(p, xn, cfg, pc: ParallelContext, *, state=None,
                              device=xn.device)
     xc = F.silu(xc.float()).to(xc.dtype)
 
-    # x_proj: ONE stacked reduction for all paths.
-    bcd = pc.psum_tp(_pmm(xc, p["w_x"].to(xc.dtype)).float())
+    # x_proj: ONE stacked reduction for all paths. Each rank then uses
+    # dt/B/C for its own channels, so under autograd the backward sums too.
+    bcd = pc.psum_tp_local(_pmm(xc, p["w_x"].to(xc.dtype)).float())
     R = cfg.dt_rank
     dt_raw, Bt, Ct = bcd[..., :R], bcd[..., R:R + N], bcd[..., R + N:]
 

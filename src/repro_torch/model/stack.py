@@ -103,7 +103,7 @@ def _group_params(sp, seg: Segment, c: int):
 def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
                      prefix_len=0, enc_out=None, attn_impl="auto",
                      emit_cache=False, max_len=0, kv_mode="heads", ctx=None,
-                     q0=0, remat=False, differentiable=False):
+                     q0=0, remat=False, differentiable=False, gather_fns=None):
     """Run all segments over the full sequence. Returns (x, aux, caches):
     caches is a list (one tree per segment, entries stacked to
     [count, ...]) when emit_cache, else None.
@@ -121,22 +121,29 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
     torch versions of the kernel sites, so autograd sees the whole stack.
     ``remat`` checkpoints each group (``torch.utils.checkpoint``, not
     reentrant): the backward pass recomputes a group's activations instead
-    of keeping them, as the JAX package's ``jax.checkpoint`` per group."""
+    of keeping them, as the JAX package's ``jax.checkpoint`` per group.
+
+    ``gather_fns`` (FSDP): one function per segment mapping a group's flat
+    shards (the segment's leaves are (count, chunk)) to its full tp-local
+    weights, called inside the group's body: under ``remat`` the backward
+    gathers again instead of keeping the full weights."""
     caches = [] if emit_cache else None
     aux = 0.0
     ctx = ctx if ctx is not None else [None] * len(segments)
-    for sp, seg, ctx_seg in zip(seg_params, segments, ctx):
+    gather_fns = gather_fns or [None] * len(segments)
+    for sp, seg, ctx_seg, gather in zip(seg_params, segments, ctx, gather_fns):
         seg_caches = []
         for c in range(seg.count):
             ctx_g = (None if ctx_seg is None
                      else {name: e[c] for name, e in ctx_seg.items()})
             body = functools.partial(
-                B.apply_group_full, cfg=cfg, group=seg.group,
+                _gathered_group, gather=gather, cfg=cfg, group=seg.group,
                 dims=dims, pc=pc, positions=positions, prefix_len=prefix_len,
                 enc_out=enc_out, attn_impl=attn_impl, emit_cache=emit_cache,
                 max_len=max_len, kv_mode=kv_mode, ctx_kv=ctx_g, q0=q0,
                 differentiable=differentiable)
-            gp = _group_params(sp, seg, c)
+            gp = (tree_map(lambda v: v[c], sp) if gather is not None
+                  else _group_params(sp, seg, c))
             if remat:
                 x, a, cache = torch.utils.checkpoint.checkpoint(
                     body, gp, x, use_reentrant=False)
@@ -148,6 +155,12 @@ def apply_stack_full(seg_params, x, segments, *, cfg, dims, pc, positions,
             caches.append({name: torch.stack([sc[name] for sc in seg_caches])
                            for name in seg_caches[0]})
     return x, aux, caches
+
+
+def _gathered_group(gp, x, *, gather, **kw):
+    """``blocks.apply_group_full`` on a group's weights, gathered first
+    when ``gather`` is given (FSDP)."""
+    return B.apply_group_full(gp if gather is None else gather(gp), x, **kw)
 
 
 def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,

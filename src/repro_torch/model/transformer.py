@@ -33,6 +33,7 @@ package's trainer runs).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -47,8 +48,9 @@ from repro_torch.model import embedding as E
 from repro_torch.model import stack as ST
 from repro_torch.model.norms import apply_norm
 from repro_torch.model.params import (ModelParams, as_tree, init_tree,
-                                      parts_tree, split_tree, tree_leaves,
-                                      tree_map)
+                                      parts_tree, shard_tree, split_tree,
+                                      tree_leaves, tree_map)
+from repro_torch.parallel import fsdp as F
 from repro_torch.parallel.context import ParallelContext
 
 
@@ -63,6 +65,8 @@ class ModelStructure:
     tp: int
     segments: Tuple[ST.Segment, ...]
     enc_segments: Tuple[ST.Segment, ...] = ()
+    fsdp: bool = False        # decoder segments as flat FSDP shards
+    fsdp_data: int = 1        # the data ranks those shards split over
 
     @property
     def dims(self) -> A.AttnDims:
@@ -74,13 +78,16 @@ class ModelStructure:
 
 
 def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
-                    tp: int = 1) -> ModelStructure:
+                    tp: int = 1, fsdp: bool = False,
+                    fsdp_data: int = 1) -> ModelStructure:
     """The static structure of ``cfg`` under ``plan`` at ``tp``-way tensor
     parallelism: every family at every tp (attention of every kind, Mamba
     and RG-LRU mixers, an MLP, a mixture of experts or no FFN, an encoder,
-    cross-attention and a prefix-LM)."""
-    if tp < 1:
-        raise ValueError(f"tp={tp}")
+    cross-attention and a prefix-LM). ``fsdp``: the decoder segments are
+    stored as flat shards over ``fsdp_data`` data ranks (``parallel/
+    fsdp.py``; training and the full forward only: decode refuses them)."""
+    if tp < 1 or fsdp_data < 1:
+        raise ValueError(f"tp={tp}, fsdp_data={fsdp_data}")
     plan = plan or EMPTY_PLAN
     groups = ST.make_groups(cfg, plan.pairs)
     enc_segments: Tuple[ST.Segment, ...] = ()
@@ -90,14 +97,31 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
         enc_groups = ST.make_groups(cfg, (), specs=[enc_spec] * cfg.enc_layers)
         enc_segments = tuple(ST.make_segments(enc_groups))
     return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)),
-                          enc_segments)
+                          enc_segments, fsdp, fsdp_data)
+
+
+def regular_structure(ms: ModelStructure) -> ModelStructure:
+    """The non-FSDP twin of ``ms`` (param-shaped segment leaves)."""
+    return dataclasses.replace(ms, fsdp=False, fsdp_data=1) if ms.fsdp else ms
+
+
+def segment_metas(ms: ModelStructure):
+    """FSDP flat-layout metadata per decoder segment."""
+    return [F.segment_meta(ST.group_template(ms.cfg, seg.group, ms.tp),
+                           seg.count, tp=ms.tp, data=ms.fsdp_data)
+            for seg in ms.segments]
 
 
 def model_template(ms: ModelStructure) -> Dict[str, Any]:
     cfg, tp = ms.cfg, ms.tp
+    if ms.fsdp:
+        segs = [F.flat_segment_pds(meta, data=ms.fsdp_data, tp=tp)
+                for meta in segment_metas(ms)]
+    else:
+        segs = ST.stack_template(cfg, ms.segments, tp)
     t = {
         "embed": E.embed_template(cfg, tp),
-        "segments": ST.stack_template(cfg, ms.segments, tp),
+        "segments": segs,
         "final_norm": B._norm_tmpl(cfg),
     }
     if ms.enc_segments:
@@ -108,18 +132,57 @@ def model_template(ms: ModelStructure) -> Dict[str, Any]:
 
 def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
                 dtype=torch.float32, device="cuda",
-                rank: Optional[int] = None) -> ModelParams:
+                rank: Optional[int] = None, data_index: int = 0) -> ModelParams:
     """Random weights from ``generator`` (normal * fan_in^-0.5, zeros,
     ones), made on ``device`` — the card unless the caller asks for "cpu".
     Without a generator, one seeded with 0 on ``device`` is used. At
     ``ms.tp`` > 1, rank ``rank``'s shard of the global weights (every rank
-    draws the same global weights from the same seed and keeps its own)."""
+    draws the same global weights from the same seed and keeps its own).
+
+    FSDP: the regular structure's global weights are drawn (the same ones),
+    each segment packed (``fsdp.pack_segment``) and the rank's (count, 1, 1,
+    chunk) view kept, at data index ``data_index``."""
     if (ms.tp > 1) != (rank is not None):
         raise ValueError(f"tp={ms.tp}: give the rank at tp > 1, and only there")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return ModelParams(init_tree(model_template(ms), generator, dtype, device,
-                                 tp=ms.tp, rank=rank or 0))
+    if not ms.fsdp:
+        return ModelParams(init_tree(model_template(ms), generator, dtype, device,
+                                     tp=ms.tp, rank=rank or 0))
+    reg = regular_structure(ms)
+    full = init_tree(model_template(reg), generator, dtype, device)
+    tree = tree_map(lambda x: x.clone(), shard_tree(
+        full, param_pspecs(reg), ms.tp, rank or 0, param_parts(reg)))
+    tree["segments"] = pack_rank_segments(full["segments"], ms, rank or 0,
+                                          data_index, dtype)
+    return ModelParams(tree)
+
+
+def pack_rank_segments(segments, ms: ModelStructure, tp_index: int,
+                       data_index: int, dtype=torch.float32):
+    """GLOBAL regular segment trees (count-stacked) -> the rank's (count, 1,
+    1, chunk) parts of their FSDP packing (copies)."""
+    out = []
+    for sp, seg, meta in zip(segments, ms.segments, segment_metas(ms)):
+        groups = ([tree_map(lambda v: v[i], sp) for i in range(seg.count)]
+                  if seg.count > 1 else [sp])
+        flat = F.pack_segment(groups, meta, data=ms.fsdp_data, tp=ms.tp, dtype=dtype)
+        out.append(tree_map(lambda x: F.rank_view(x, data_index, tp_index).clone(),
+                            flat))
+    return out
+
+
+def stack_params_and_gathers(params, ms: ModelStructure, pc: ParallelContext):
+    """(segment param trees, gather_fns) for the stack apply. FSDP leaves
+    arrive as the rank-local (count, 1, 1, chunk) view -> (count, chunk)."""
+    if not ms.fsdp:
+        return params["segments"], None
+    if pc.data_size != ms.fsdp_data:
+        raise ValueError(f"FSDP shards over {ms.fsdp_data} data ranks, the "
+                         f"context has {pc.data_size}")
+    segs = [tree_map(lambda v: v.reshape(v.shape[0], v.shape[-1]), sp)
+            for sp in params["segments"]]
+    return segs, [F.make_gather_fn(meta, pc) for meta in segment_metas(ms)]
 
 
 def param_pspecs(ms: ModelStructure):
@@ -181,13 +244,17 @@ def _encoder(params, frames, ms: ModelStructure, pc: ParallelContext,
     layer runs the rank's heads and d_ff columns; its two phase exits are
     one ``psum_tp`` each, so every rank holds the whole output."""
     params = as_tree(params)
+    enc_pc = pc.with_sp(False)
     pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
     h, _, _ = ST.apply_stack_full(params["enc_segments"], frames,
                                   ms.enc_segments, cfg=ms.cfg, dims=ms.dims,
-                                  pc=pc.with_sp(False), positions=pos,
+                                  pc=enc_pc, positions=pos,
                                   attn_impl=attn_impl,
                                   differentiable=differentiable)
-    return apply_norm(h, params["enc_norm"], ms.cfg)
+    # The output enters the decoder's cross-attention phases, as the
+    # residual stream enters the head: the identity forward, and under
+    # autograd the backward sums the ranks' parts of its gradient.
+    return apply_norm(enc_pc.phase_in(h), params["enc_norm"], ms.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -253,13 +320,14 @@ def forward_full(params, tokens, *, ms: ModelStructure, pc: ParallelContext,
         enc_out = _encoder(params, enc_frames, ms, pc, attn_impl=attn_impl,
                            differentiable=differentiable)
     x = pc.shard_seq(x)
+    seg_params, gather_fns = stack_params_and_gathers(params, ms, pc)
     x, aux, caches = ST.apply_stack_full(
-        params["segments"], x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
+        seg_params, x, ms.segments, cfg=cfg, dims=ms.dims, pc=pc,
         positions=positions, prefix_len=prefix_len, enc_out=enc_out,
         attn_impl=attn_impl, emit_cache=emit_cache, max_len=max_len or S,
         kv_mode=kv_mode, ctx=ctx_kv, q0=start, remat=remat,
-        differentiable=differentiable)
-    x = pc.phase_in(x)
+        differentiable=differentiable, gather_fns=gather_fns)
+    x = pc.phase_in(x)  # SP: re-gather the sequence before the LM head
     logits = _head(params, x, cfg, pc)
     return logits, aux, caches
 
@@ -292,6 +360,13 @@ def loss_fn(params, batch, *, ms: ModelStructure, pc: ParallelContext,
 # ---------------------------------------------------------------------------
 # Prefill + decode (serving)
 # ---------------------------------------------------------------------------
+
+def refuse_fsdp(ms: ModelStructure, what: str) -> None:
+    if ms.fsdp:
+        raise NotImplementedError(
+            f"{what} of an FSDP structure (decode's per-group gathers and the "
+            "int8 serving shards) is not ported: ROADMAP item 10.3")
+
 
 def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
                kv_mode="heads", dtype=torch.bfloat16):
@@ -352,6 +427,7 @@ def decode_step(params, tok, caches, t, *, ms: ModelStructure,
     ``block_tables`` [B, n_pg] int32 maps each slot to its pages."""
     params = as_tree(params)
     cfg = ms.cfg
+    refuse_fsdp(ms, "decode")
     dpc = pc.with_sp(False)  # decode never uses sequence parallelism
     if cache_layout == "paged":
         if block_tables is None or not torch.is_tensor(t) or t.dim() != 1:

@@ -667,6 +667,7 @@ class PagedEngine:
                 "each with its shard and its ParallelContext (pc=); a mesh "
                 "and the launcher that would start its processes are not "
                 "ported: ROADMAP item 10.4")
+        T.refuse_fsdp(ms, "PagedEngine")
         self.pc = pc if pc is not None else ParallelContext()
         if self.pc.tp_size != ms.tp:
             raise ValueError(f"a tp_size={self.pc.tp_size} context for a "

@@ -1,11 +1,12 @@
-"""Single-process training: AdamW, the train and eval steps, checkpoints.
-The JAX package's ``repro.train`` at world size 1 (its sharded step,
-ZeRO flat shards, FSDP leaves and gradient compression need ranks)."""
+"""Training: AdamW, the train and eval steps of one rank of a (pod, data,
+model) grid (the JAX package's ``repro.train``: ZeRO flat state, FSDP
+leaves, int8 pod compression, the sharded step), checkpoints."""
 from repro_torch.train.optimizer import OptConfig, schedule_lr  # noqa: F401
 from repro_torch.train.trainer import (  # noqa: F401
     TrainConfig,
     init_state,
     make_eval_step,
+    make_sharded_train_step,
     make_train_step,
     state_from_params,
 )

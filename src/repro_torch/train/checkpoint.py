@@ -2,7 +2,11 @@
 
 A checkpoint stores the master weights and AdamW moments in their PARAM
 shapes (fp32) plus the step counter: the logical state, which does not
-depend on how a run lays its optimizer state out. The format is the JAX
+depend on how a run lays its optimizer state out. ``state_to_logical``
+gathers it from the ranks of any grid (flat ZeRO rows, FSDP segments);
+``logical_to_state`` re-flattens it for any other (an elastic re-scale, a
+change into or out of FSDP); at one rank without FSDP the state is the
+logical tree already. The format is the JAX
 package's, so each package reads the other's checkpoints with numpy alone:
 
   <dir>/step_NNNNNNNN/arr_KKKKK.npy   one ``np.save`` file per leaf
@@ -35,38 +39,106 @@ import numpy as np
 import torch
 
 from repro_torch.model import transformer as T
-from repro_torch.model.params import tree_items, tree_map
+from repro_torch.model.params import (local_shape, shard_slice, stack_trees,
+                                      tree_items, tree_map)
+from repro_torch.parallel import fsdp as F
 from repro_torch.parallel.context import ParallelContext
-from repro_torch.train.trainer import (TrainConfig, leaf_infos,
-                                       params_from_master)
+from repro_torch.train.trainer import (TrainConfig, err_init, from_flat_global,
+                                       leaf_infos, params_from_master,
+                                       to_flat_global)
 
 
 def logical_like(ms: T.ModelStructure) -> Dict[str, Any]:
     """The tree ``restore`` fills with a checkpoint of ``ms``'s state:
-    the logical structure, with the model's parameter descriptors as its
-    leaves."""
-    tmpl = T.model_template(ms)
+    the logical structure (param-shaped, whatever the layout of ``ms``'s
+    segments), with the model's parameter descriptors as its leaves."""
+    tmpl = T.model_template(T.regular_structure(ms))
     return {"master": tmpl, "m": tmpl, "v": tmpl, "step": 0}
+
+
+def _global_leaf(row, pd, pc: ParallelContext):
+    """A regular leaf's GLOBAL fp32 tensor from the ranks' rows: gathered
+    into the flat (dp, tp, chunk) layout (over tp only where the leaf is
+    split), then ``from_flat_global``."""
+    flat = pc.all_gather_dp(row.reshape(1, -1), axis=0)
+    flat = (pc.all_gather_tp(flat, axis=1, tiled=False) if pd.split is not None
+            else flat.unsqueeze(1).expand(-1, pc.tp_size, -1))
+    return from_flat_global(flat, pd.shape, pd.split, pc, pd.parts)
+
+
+def _seg_to_regular(flat_seg, seg, meta, ms: T.ModelStructure, pc: ParallelContext):
+    """A rank's FSDP views of one segment -> its GLOBAL regular stacked
+    tree (count, ...): gathered over data and tp, then unpacked."""
+    full = tree_map(lambda x: pc.all_gather_tp(pc.all_gather_data(x, axis=1), axis=2),
+                    flat_seg)
+    groups = F.unpack_segment(full, meta, data=ms.fsdp_data, tp=ms.tp)
+    return groups[0] if seg.count == 1 else stack_trees(groups)
+
+
+@torch.no_grad()
+def gather_logical(tree, ms: T.ModelStructure, pc: ParallelContext):
+    """A tree in the layout of a rank's ``state["master"]`` (its rows and
+    FSDP views) -> the GLOBAL param-shaped fp32 tree, the same on every
+    rank. Every rank of the grid calls it (its collectives run on all of
+    them)."""
+    tmpl = T.model_template(ms)
+    out = {k: tree_map(lambda r, pd: _global_leaf(r, pd, pc), tree[k], tmpl[k])
+           for k in tree if not (ms.fsdp and k == "segments")}
+    if ms.fsdp:
+        out["segments"] = [_seg_to_regular(fs, seg, meta, ms, pc)
+                           for fs, seg, meta in zip(tree["segments"], ms.segments,
+                                                    T.segment_metas(ms))]
+    return out
+
+
+def state_to_logical(state: Dict[str, Any], ms: T.ModelStructure,
+                     pc: ParallelContext) -> Dict[str, Any]:
+    """This rank's train state -> {"master", "m", "v": GLOBAL param-shaped
+    fp32 trees, "step"}, the same on every rank (``gather_logical``)."""
+    return {**{k: gather_logical(state[k], ms, pc)
+               for k in ("master", "m", "v")}, "step": state["step"]}
 
 
 def logical_to_state(logical: Dict[str, Any], ms: T.ModelStructure,
                      pc: ParallelContext, tc: TrainConfig, *,
                      device="cuda") -> Dict[str, Any]:
-    """The train state of a restored checkpoint, on ``device`` (the card
-    unless the caller asks for "cpu"), with ``params`` cast from the master
-    weights."""
-    def put(x):
-        return torch.as_tensor(x).to(device=device, dtype=torch.float32,
-                                     copy=True)
+    """This rank's train state of a restored checkpoint (GLOBAL param-shaped
+    trees, from any grid) on ``device`` (the card unless the caller asks
+    for "cpu"): re-flattened under ``pc``'s grid and ``ms``'s layout, with
+    ``params`` cast from the master weights. No collective."""
+    infos = leaf_infos(ms, tc)
+    reg_tmpl = T.model_template(T.regular_structure(ms))
+    t = pc.tp_index()
 
-    master = tree_map(put, logical["master"])
-    return {
-        "params": params_from_master(master, leaf_infos(ms, tc), tc.param_dtype),
-        "master": master,
-        "m": tree_map(put, logical["m"]),
-        "v": tree_map(put, logical["v"]),
+    def full(tree):
+        return tree_map(lambda x: torch.as_tensor(x).to(
+            device=device, dtype=torch.float32, copy=True), tree)
+
+    def rank_part(tree, regular_leaf):
+        out = {k: tree_map(regular_leaf, tree[k], reg_tmpl[k])
+               for k in tree if not (ms.fsdp and k == "segments")}
+        if ms.fsdp:
+            out["segments"] = T.pack_rank_segments(tree["segments"], ms, t,
+                                                   pc.data_index())
+        return out
+
+    def shard(x, pd):
+        return x[shard_slice(x.shape, pd.split, ms.tp, t, pd.parts)]
+
+    def row(x, pd):
+        r = to_flat_global(x, pd.split, pc, pd.parts)[pc.dp_index(), t]
+        # at dp = 1 the row is the whole tp-local leaf: kept in its shape
+        return (r.reshape(local_shape(pd, ms.tp)) if pc.dp_size == 1 else r).clone()
+
+    params = rank_part(full(logical["master"]), shard)
+    state = {
+        "params": params_from_master(params, infos, tc.param_dtype),
+        **{k: rank_part(full(logical[k]), row) for k in ("master", "m", "v")},
         "step": int(logical["step"]),
     }
+    if tc.compress_pod:
+        state["err"] = err_init(params, infos, pc)   # EF restarts at zero
+    return state
 
 
 def _to_numpy(x) -> np.ndarray:

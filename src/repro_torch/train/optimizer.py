@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterable
 
 import torch
 
@@ -73,19 +72,12 @@ def adamw_update(g, m, v, p, step, opt: OptConfig, *, lr, wd_mask=1.0):
     return p - lr * upd, m, v
 
 
-def clip_by_global_norm(grads, max_norm: float, *, pre_sum=None):
-    """Scale a list of grads by min(1, max_norm / global L2 norm). Returns
-    (clipped grads, norm). ``pre_sum``: an already reduced sum of squares."""
-    if pre_sum is None:
-        pre_sum = global_sq_norm(grads)
-    norm = torch.sqrt(pre_sum)
+def clip_by_global_norm_(grads, max_norm: float, sq_sum) -> torch.Tensor:
+    """Scale the fp32 grads IN PLACE by min(1, max_norm / global L2 norm),
+    where ``sq_sum`` is their sum of squares, already reduced over every
+    rank that holds a part. Returns the norm."""
+    norm = torch.sqrt(sq_sum)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
-    return [g * scale.to(g.dtype) for g in grads], norm
-
-
-def global_sq_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """Sum of squares of every element, in fp32, leaf by leaf in order."""
-    total = torch.zeros((), dtype=torch.float32)
     for g in grads:
-        total = total.to(g.device) + torch.sum(torch.square(g.float()))
-    return total
+        g.mul_(scale)
+    return norm

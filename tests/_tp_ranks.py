@@ -6,6 +6,7 @@ test workers never share a port), runs ``CASES[case]`` in each and returns
 their results in rank order; a rank that fails fails the call. The ranks
 import the port only (no JAX), with one torch thread each.
 """
+import copy
 import json
 import os
 import pickle
@@ -223,8 +224,128 @@ def case_gather(pc, args):
     return out
 
 
+def _grid_model(run, pc):
+    """(ms, the rank's fp32 weights) of ``run``: the reduced arch of
+    ``run["arch"]`` (``n_layers``, ``pairs``, ``replace``) at the context's
+    tp, FSDP over its data ranks when ``run["fsdp"]``, cut from the global
+    numpy tree pickled at ``run["tree"]``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import shard_tree, tree_map
+    cfg = reduced_config(get_config(run.get("arch", "tinyllama-1.1b")),
+                         n_layers=run["n_layers"])
+    cfg = dataclasses.replace(cfg, **run.get("replace", {}))
+    ms = T.build_structure(cfg, plan=LPPlan(tuple(map(tuple, run["pairs"]))),
+                           tp=pc.tp_size, fsdp=run.get("fsdp", False),
+                           fsdp_data=pc.data_size if run.get("fsdp") else 1)
+    tree = tree_map(torch.from_numpy, pickle.loads(Path(run["tree"]).read_bytes()))
+    reg = T.regular_structure(ms)
+    params = shard_tree(tree, T.param_pspecs(reg), ms.tp, pc.tp_index(),
+                        T.param_parts(reg))
+    if ms.fsdp:
+        params["segments"] = T.pack_rank_segments(tree["segments"], ms, pc.tp_index(),
+                                                  pc.data_index())
+    return ms, params
+
+
+def grads_tree(state, shards, infos):
+    """A tree like ``state["master"]`` holding ``make_grad_fn``'s shards
+    of the trainable leaves, zeros for the frozen ones."""
+    from repro_torch.model.params import tree_leaves, tree_map
+    out = tree_map(lambda x: x.new_zeros(x.shape), state["master"])
+    it = iter(shards)
+    for g, li in zip(tree_leaves(out), infos):
+        if li.trainable:
+            g.view(-1).copy_(next(it))
+    return out
+
+
+def train_run(pc, run):
+    """``run["steps"]`` steps of ``make_sharded_train_step`` on the global
+    batch pickled at ``run["batch"]`` from the weights of ``_grid_model``
+    (or, with ``run["jax_state"]``, the JAX package's global train state
+    carried in by ``bridge.state_from_numpy``): each step's metrics and
+    collectives by kind; the gathered gradients of the first step and the
+    gathered logical state after the last (rank 0 only); whether the frozen
+    leaves kept their bits; with ``run["ckpt"]`` the logical state saved
+    (rank 0) and restored into the FSDP layout on this grid, gathered
+    back: bit for bit?"""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.model.params import tree_leaves, tree_map
+    from repro_torch.parallel import context
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train.trainer import (batch_shard, leaf_infos, make_grad_fn,
+                                           make_sharded_train_step, state_from_params)
+    ms, params = _grid_model(run, pc)
+    tc = TrainConfig(opt=OptConfig(**run["opt"]), **run.get("tc", {}))
+    if "jax_state" in run:
+        state = state_from_numpy(pickle.loads(Path(run["jax_state"]).read_bytes()),
+                                 ms, pc, tc, device="cpu")
+    else:
+        state = state_from_params(params, ms, pc, tc)
+    batch = {k: torch.from_numpy(v) for k, v in
+             pickle.loads(Path(run["batch"]).read_bytes()).items()}
+    infos = leaf_infos(ms, tc)
+    frozen_before = [(p.clone(), m.clone()) for p, m, li in zip(
+        tree_leaves(state["params"].tree()), tree_leaves(state["master"]), infos)
+        if not li.trainable]
+    step = make_sharded_train_step(ms, pc, tc)
+    out = {"metrics": [], "collectives": []}
+    def numpy(tree):    # world rank 0 returns the gathered trees
+        if pc.rank or pc.dp_index():
+            return None
+        return tree_map(lambda x: x.numpy() if torch.is_tensor(x) else x, tree)
+    # The first step's reduced gradients, before the clip, from the step's
+    # own gradient function; its update then takes the same state on.
+    grads = grads_tree(state, make_grad_fn(ms, pc, tc)(
+        copy.deepcopy(state), batch_shard(batch, pc))[2], infos)
+    out["grads"] = numpy(CK.gather_logical(grads, ms, pc))
+    for i in range(run["steps"]):
+        context.reset_all_reduces()
+        state, metrics = step(state, batch)
+        out["collectives"].append({**context.ALL_REDUCES, **context.ALL_GATHERS,
+                                   **context.SCATTERS})
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    logical = CK.state_to_logical(state, ms, pc)
+    out["logical"] = numpy(logical)
+    frozen_after = [(p, m) for p, m, li in zip(
+        tree_leaves(state["params"].tree()), tree_leaves(state["master"]), infos)
+        if not li.trainable]
+    out["frozen_kept"] = all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d)
+                             in zip(frozen_before, frozen_after))
+    out["n_frozen"] = len(frozen_before)
+    if run.get("ckpt"):
+        if dist.get_rank() == 0:
+            CK.save(run["ckpt"], logical, state["step"])
+        dist.barrier()
+        back = CK.restore(run["ckpt"], CK.logical_like(ms))
+        ms_f, _ = _grid_model({**run, "fsdp": True}, pc)
+        state_f = CK.logical_to_state(back, ms_f, pc, tc, device="cpu")
+        again = CK.state_to_logical(state_f, ms_f, pc)
+        out["ckpt_fsdp_bitwise"] = all(
+            torch.equal(a, b) for key in ("master", "m", "v")
+            for a, b in zip(tree_leaves(again[key]), tree_leaves(logical[key])))
+    return out
+
+
+def case_train(pc, args):
+    """The grid ``args["grid"]`` (pod, data, model) over the world, then
+    ``train_run`` for each of ``args["runs"]`` (its ``sp`` on the grid's
+    context)."""
+    from repro_torch.parallel.context import make_grid_context
+    grid = make_grid_context(*args["grid"])
+    return {run["name"]: train_run(grid.with_sp(run.get("sp", False)), run)
+            for run in args["runs"]}
+
+
 CASES = {"serve": case_serve, "family": case_family, "extras": case_extras,
-         "gather": case_gather}
+         "gather": case_gather, "train": case_train}
 
 
 def main(spec):

@@ -243,10 +243,20 @@ with tempfile.TemporaryDirectory() as d:
                            pc=pc, sv=ServeConfig(max_len=16))
     assert out.shape == (2, 3)
     torch.distributed.destroy_process_group()
+from repro_torch.train import TrainConfig
+from repro_torch.train.trainer import init_state, make_sharded_train_step
+msf = T.build_structure(cfg, plan=plan_for_depth(cfg, 3), fsdp=True)
+st = init_state(msf, torch.Generator().manual_seed(0), ParallelContext(),
+                TrainConfig(compress_pod=True), device="cpu")
+toks = torch.zeros((2, 8), dtype=torch.int64)
+st, m = make_sharded_train_step(msf, ParallelContext(), TrainConfig(compress_pod=True))(
+    st, {"tokens": toks, "labels": toks})
+assert st["step"] == 1 and bool(torch.isfinite(m["loss"]))
 for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
              "train.checkpoint", "launch.train", "launch.elastic", "launch.serve",
              "launch.dryrun", "launch.specs", "analysis.roofline", "analysis.report",
-             "configs.shapes", "parallel.context", "bridge"):
+             "configs.shapes", "parallel.context", "parallel.zero", "parallel.compress",
+             "parallel.fsdp", "bridge"):
     assert "repro_torch." + name in sys.modules, name
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules

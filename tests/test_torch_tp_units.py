@@ -13,7 +13,7 @@
   shards of a global JAX tree (``bridge.shard_from_numpy``) against slicing
   it by those specs, and ``init_params(rank=)`` against the shard of the
   global weights;
-- the refusals at tp > 1: ``spec_k``, ``degrade_delta``, ``sp=True``, a
+- the refusals at tp > 1: ``spec_k``, ``degrade_delta``, a
   context without a group; every family builds at tp 2 and 8 (the
   encoder-decoder and the prefix-LM too, whose pool ``PagedEngine`` still
   refuses, as JAX's);
@@ -330,10 +330,8 @@ def test_refusals_at_tp_above_one():
         PagedEngine(params, tms, PagedServeConfig(**base))   # no rank context
     with pytest.raises(NotImplementedError, match="item 10"):
         PagedEngine(params, tms, PagedServeConfig(**base), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pc.with_sp(True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ParallelContext(tp_size=4, rank=1, sp=True)
+    # sequence parallelism at tp > 1 is the sharded trainer's, ported
+    assert pc.with_sp(True).sp and ParallelContext(tp_size=4, rank=1, sp=True).sp
     with pytest.raises(RuntimeError, match="no process group"):
         pc.psum_tp(torch.ones(2))
     with pytest.raises(ValueError, match="rank"):
@@ -344,9 +342,10 @@ def test_refusals_at_tp_above_one():
     if not torch.distributed.is_initialized():
         with pytest.raises(RuntimeError, match="initialised"):
             make_context()
+    # a collective without a backward refuses a tensor autograd tracks
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="sharded trainer"):
-        ParallelContext(tp_size=2, rank=0, group=object()).psum_tp(x)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ParallelContext(tp_size=2, rank=0, group=object()).pmax_tp(x)
     # paged pool: 3 kv heads do not split over 2 ranks (replicated at 4 do)
     _, c3 = _cfgs(4, 3)
     with pytest.raises(ValueError, match="does not divide"):
