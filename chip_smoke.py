@@ -270,9 +270,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      in this process (loss and grad_norm), every rank to rank 0, each
      step's collectives to the count its leaf list predicts; then one eval
      step whose flash and dual RMSNorm launches are held to their plain
-     versions and whose loss is held to the train forward's. All ranks'
-     tokens agree. Times over gloo go through the host: correctness runs,
-     not speed.
+     versions and whose loss is held to the train forward's. (g) in
+     (b)'s ranks after (f): FSDP serving on the same grid, tinyllama-1.1b
+     at its published widths cut to 3 layers (pair (0, 1), a single layer
+     2), its segments flat shards over the 2 data ranks gathered one
+     group at a time in every prefill and decode step: ``sharded_generate``
+     (2 x 32, 4 new, cache 64) in fp32 compute on bf16 shards, held to tp
+     = 1 on the same weights, and on int8 shards (block-128 scales), held
+     to tp = 1 on the dequantised weights; ``PagedEngine`` of the bf16
+     shards on 4 requests (the two prompts twice), held to the FSDP
+     streams; launches reconciled, and one serve step's collectives held
+     to the leaf list (a gather per leaf per group, two with int8). (h)
+     after (g): the 8 ranks as the stages of a GPipe pipeline
+     (``parallel/pp.py``): tinyllama-1.1b at its published widths, 16
+     layers in 8 LP pairs, one pair a stage (``stack.apply_stack_full``:
+     flash and the dual RMSNorm inside each stage), 4 microbatches of [1,
+     64] fp32 hidden states, held to the unstaged forward of the same 16
+     layers in this process within ``TP_PIPE_TOL``. All ranks' tokens
+     agree. Times over gloo go through the host: correctness runs, not
+     speed.
 
 Phase 8 runs between 6 and 7, while the tinyllama weights are loaded, and
 phases 9 to 15 after 7. The second-to-last line is the kernels JSON (with
@@ -491,6 +507,25 @@ TP_TRAIN_TOL, TP_TRAIN_COMPRESS_TOL, TP_TRAIN_EVAL_TOL = 1e-4, 5e-2, 2e-3
 # the compressed run's step-1 grad_norm against tp = 1's, relative: read
 # 6.15905 against 6.15770 (2.2e-4) on an H100 80GB HBM3 at 700 W
 TP_TRAIN_COMPRESS_NORM_TOL = 2e-3
+# (g) in (b)'s ranks after (f): FSDP serving on the same grid. tinyllama-1.1b
+# at its published widths cut to TP_FSDP_LAYERS layers (pair (0, 1) and a
+# single layer, so both ring decode forms launch), fsdp_data = 2: bf16 and
+# int8 shards through sharded_generate (TP_FSDP_B x TP_FSDP_S, TP_FSDP_NEW
+# new, a ring of TP_FSDP_MAX_LEN), the bf16 shards through PagedEngine on
+# the same prompts twice. Every forward gathers a group's weights through
+# gloo (about 130 MB a rank in bf16), so the runs are short; the MoE models'
+# FSDP serving is held on the CPU (tests/test_torch_fsdp_serve.py).
+TP_FSDP_LAYERS, TP_FSDP_PAIRS = 3, ((0, 1),)
+TP_FSDP_B, TP_FSDP_S, TP_FSDP_NEW, TP_FSDP_MAX_LEN = 2, 32, 4, 64
+# The wrappers whose first launch at each shape (g) and (h) hold against
+# their plain versions, beside (g)'s ring and paged decode launches.
+TP_FSDP_SHAPES = ("flash_attention", "dual_rmsnorm")
+# (h) after (g): GPipe stages over the 8 ranks, tinyllama-1.1b at its
+# published widths, TP_PIPE_LAYERS layers in LP pairs, one pair a stage,
+# TP_PIPE_MICRO microbatches of [1, TP_PIPE_S] fp32 hidden states; held to
+# the unstaged forward within TP_PIPE_TOL (fp32, TF32 off).
+TP_PIPE_LAYERS, TP_PIPE_MICRO, TP_PIPE_S, TP_PIPE_TOL = 16, 4, 64, 2e-5
+TP_PIPE_REF = ROOT / "build" / "tp" / "pipe_ref.pt"   # the unstaged output
 TP_NCCL_NOT_RUN = [
     "init_context(backend='nccl'): one card per rank, every all_reduce of the "
     "tp = 2 and tp = 8 paths and of the four families' tp = 2 paths (Mamba's "
@@ -501,7 +536,9 @@ TP_NCCL_NOT_RUN = [
     "blocks), max and packed sum of paligemma-3b and tinyllama over NCCL",
     "the sharded trainer's collectives (the sequence-parallel gathers and "
     "scatters with their backwards, the dp sum-and-scatters and gathers, FSDP's "
-    "data gathers, the int8 pod sums) over NCCL, and a grid of one card per rank"]
+    "data gathers, the int8 pod sums) over NCCL, and a grid of one card per rank",
+    "FSDP serving's per-group data gathers (bf16 and int8 shards) and the "
+    "pipeline's hops and final sum over NCCL"]
 
 
 def log(msg):
@@ -1493,10 +1530,12 @@ def full_width_cut(name, n_layers, prompt_len, *, prefix=False):
     if ms.plan.pairs != ((0, 1),):
         raise AssertionError(f"{name} at {n_layers} layers: pairs {ms.plan.pairs}")
     what = f"{name} {n_layers} layers"
-    p_cpu = fill_biases(T.init_params(ms, torch.Generator().manual_seed(SEED),
-                                      torch.float32, device="cpu"), SEED + 6,
+    # Drawn on the card and copied to the CPU: the CPU generator would
+    # take ~10 s for recurrentgemma's 2.7 B values.
+    p_gpu = fill_biases(T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
+                                      torch.float32, device="cuda"), SEED + 6,
                         plus_one=prefix)
-    p_gpu = ModelParams(tree_map(lambda x: x.to("cuda"), p_cpu.tree()))
+    p_cpu = ModelParams(tree_map(lambda x: x.cpu(), p_gpu.tree()))
     n_params = sum(v.numel() for v in p_cpu.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                             generator=torch.Generator().manual_seed(SEED + 1))
@@ -1850,16 +1889,18 @@ class DecodeProbe:
     launches on the model's own tensors, and no launch is added for the
     copy. ``check`` then holds each copy against the kernel's plain version
     on the same inputs (BF16_TOL in bf16), so a wrong body at the model's
-    head shape fails the timed run itself."""
+    head shape fails the timed run itself. ``skip``: {wrapper of ``shapes``:
+    launches passed over before the first one kept} (a pipeline stage's
+    ticks before its first microbatch run on zeros)."""
 
-    def __init__(self, ms, paged, steps=(0, 40), shapes=(), kv_mode="heads"):
+    def __init__(self, ms, paged, steps=(0, 40), shapes=(), kv_mode="heads", skip=None):
         n_single, n_pair, _ = mixer_counts(ms) if paged else ring_decode_counts(
             ms, kv_mode)
         kind = "_paged" if paged else ""
         self.per_step = {name: per for name, per in (
             (f"decode_attention_pair{kind}", n_pair),
             (f"decode_attention{kind}", n_single)) if per}
-        self.steps, self.shapes = steps, shapes
+        self.steps, self.shapes, self.skip = steps, shapes, dict(skip or {})
         self.kept, self.firsts, self.seen, self.orig = [], {}, {}, {}
 
     def __enter__(self):
@@ -1884,6 +1925,9 @@ class DecodeProbe:
 
             def first(*args, name=name, fn=fn, **kw):
                 out = fn(*args, **kw)
+                if self.skip.get(name, 0) > 0:
+                    self.skip[name] -= 1
+                    return out
                 key = (name, kw.get("kind"), *(
                     (tuple(a.shape), a.dtype) for a in args if hasattr(a, "shape")))
                 if key not in self.firsts:
@@ -2239,13 +2283,18 @@ MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_rec", "w_out"
             "router")
 
 
-def set_compute_dtype(params, dtype):
+def set_compute_dtype(params, dtype, segments=True):
     """Every weight but the layers' matrices (embeddings, norms, biases) to
     ``dtype``, in place. With fp32 the activations, caches and kernels run
     in fp32 on the bf16 model's own weights (each matrix widened at its
     GEMM: the matrices stay bf16 in memory); bf16 then restores the model
-    exactly, since every value was a bf16 value."""
+    exactly, since every value was a bf16 value. ``segments=False`` leaves
+    the decoder's segments as they are (int8 FSDP shards: their values and
+    scales keep their types, and the gather makes bf16 weights, widened
+    at their use)."""
     for name, p in params.named_parameters():
+        if not segments and name.startswith("segments."):
+            continue
         if name.rsplit(".", 1)[-1] not in MATRICES:
             p.data = p.data.to(dtype)
 
@@ -4113,7 +4162,9 @@ def tp_encdec_collectives(pc, ms, params, prompts, extras, max_len, kv_mode):
     each group (self-attention, cross-attention where the layers have it,
     FFN) and the embedding's, the vocab-parallel argmax's 2 max, and per
     attention phase whose ring ``kv_mode`` cuts along the sequence one
-    gather (q), one max and one sum more."""
+    gather (q), one max and one sum more; an FSDP structure adds one
+    gather per leaf of each group over the data ranks (two with int8
+    shards: the values and the scales)."""
     import torch
     from repro_torch.model import embedding as E
     from repro_torch.parallel import context
@@ -4130,14 +4181,27 @@ def tp_encdec_collectives(pc, ms, params, prompts, extras, max_len, kv_mode):
     groups = model_counts(ms)[0]
     n_cross = sum(seg.count for seg in ms.segments if seg.group.specs[0].cross_attn)
     n_seq = ring_decode_counts(ms, kv_mode)[2]
-    want = {"sum": 1 + 2 * groups + n_cross + n_seq, "max": 2 + n_seq, "gather": n_seq}
+    want = {"sum": 1 + 2 * groups + n_cross + n_seq, "max": 2 + n_seq,
+            "gather": n_seq + fsdp_gathers(ms, pc)}
     if got != want:
         raise AssertionError(f"{ms.cfg.name} tp={pc.tp_size} kv_mode={kv_mode}: one "
                              f"decode step made {got} collectives, want {want}")
     log(f"[tp] rank {pc.rank} {ms.cfg.name} kv_mode={kv_mode}: one serve step, "
         f"{groups} groups ({n_cross} with cross-attention, {n_seq} attention phases "
-        f"cut along the sequence): collectives {got}")
+        f"cut along the sequence, FSDP {ms.fsdp}, int8 {ms.quant}): collectives {got}")
     return {"groups": groups, "cross": n_cross, "seq_phases": n_seq, **got}
+
+
+def fsdp_gathers(ms, pc):
+    """Data gathers of one forward of an FSDP structure: one per leaf of
+    each group (the leaf list of ``segment_metas``), two with int8 shards;
+    none at one data rank or without FSDP."""
+    from repro_torch.model import transformer as T
+    if not ms.fsdp or pc.data_size == 1:
+        return 0
+    leaves = sum(seg.count * len(meta.chunks)
+                 for seg, meta in zip(ms.segments, T.segment_metas(ms)))
+    return leaves * (2 if ms.quant else 1)
 
 
 def tp_encdec(pc, name, *, timed, modes=None):
@@ -4206,7 +4270,8 @@ def tp_case_tp8(pc):
     plan_for_depth(``TP8_EFF_DEPTH``) at tp = 8: 4 kv heads under 8 ranks,
     replicated, each rank's 4 q heads reading stored head rank // 2 through
     the paged kernels' head map; (e) the same at kv_mode "seq"; then (f),
-    the sharded trainer (``tp_train``)."""
+    the sharded trainer (``tp_train``), (g), FSDP serving (``tp_fsdp``),
+    and (h), the pipeline (``tp_pipe``)."""
     import torch
     from repro_torch.model import attention as A
     cfg, ms, params = tp_model(pc, TP8_LAYERS, TP8_EFF_DEPTH)
@@ -4225,10 +4290,11 @@ def tp_case_tp8(pc):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    # (f): the sharded trainer on the (2, 2, 2) grid of the same ranks
+    # (f): the sharded trainer on the (2, 2, 2) grid of the same ranks, (g)
+    # FSDP serving on it, (h) the ranks as pipeline stages
     return {"generate": gen, "engine": streams, "timed": timed, "head_map": list(hm),
             "seq": {"generate": seq, "timed": seq_timed, "collectives": seq_collectives},
-            "train": tp_train(pc)}
+            "train": tp_train(pc), "fsdp": tp_fsdp(), "pipe": tp_pipe(pc)}
 
 
 def tp_train_model(pc, fsdp=False):
@@ -4440,6 +4506,430 @@ def tp_train_held(ref, got):
                 "eval_path_max_abs_err")}}
 
 
+def tp_fsdp_model(pc, quant=False, tp1=False):
+    """(cfg, ms, params) of (g): tinyllama-1.1b at its published widths cut
+    to ``TP_FSDP_LAYERS`` layers under ``TP_FSDP_PAIRS``, bf16 weights from
+    the seed made on the card: FSDP over the context's data ranks at its tp
+    (int8 shards with ``quant``), the rank's view at its tp and data index;
+    with ``tp1`` the regular structure at tp = 1 on the same global
+    weights."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=TP_FSDP_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if tp1:
+        ms = T.build_structure(cfg, plan=LPPlan(TP_FSDP_PAIRS))
+        return cfg, ms, T.init_params(ms, gen, torch.bfloat16, device="cuda")
+    ms = T.build_structure(cfg, plan=LPPlan(TP_FSDP_PAIRS), tp=pc.tp_size, fsdp=True,
+                           fsdp_data=pc.data_size, quant=quant)
+    return cfg, ms, T.init_params(ms, gen, torch.bfloat16, device="cuda",
+                                  rank=pc.tp_index() if pc.tp_size > 1 else None,
+                                  data_index=pc.data_index())
+
+
+def tp_fsdp_prompts(cfg):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (TP_FSDP_B, TP_FSDP_S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 9))
+
+
+def tp_fsdp_work(cfg):
+    """(g)'s engine traffic: the two prompts at step 0, again at step 2."""
+    prompts = tp_fsdp_prompts(cfg).cpu().numpy()
+    return [(step, p, TP_FSDP_NEW) for step in (0, 2) for p in prompts]
+
+
+def int8_round_trip(x):
+    """x [..., c] through int8 and back in fp32, per block of 128 values
+    of each last-axis row (the last block short): scale = max(|block| /
+    127, 1e-12), q = round(x / scale) within +-127, q * scale. Written out
+    here, apart from the port's ``parallel/fsdp.py``, so a fault there
+    does not reach the reference."""
+    import torch
+    x = x.float()
+    c = x.shape[-1]
+    block = torch.arange(c, device=x.device) // 128          # each value's block
+    amax = torch.zeros(*x.shape[:-1], -(-c // 128), device=x.device).scatter_reduce(
+        -1, block.expand_as(x), x.abs(), "amax")
+    scale = (amax / 127).clamp_min(1e-12)[..., block]
+    return torch.round(x / scale).clamp(-127, 127) * scale
+
+
+def tp_fsdp_dequantised(params, ms):
+    """The tp = 1 weights ``params`` (bf16) as (g)'s int8 ranks see them:
+    each segment packed at the grid's (data, tp) (the layout the bf16
+    shards' streams hold to tp = 1), each rank's chunk through int8 and
+    back (``int8_round_trip``) and rounded to bf16, as the int8 gather
+    serves it, unpacked. Returns new ``ModelParams``."""
+    import torch
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import ModelParams, stack_trees, tree_map
+    from repro_torch.parallel import fsdp as F
+    tree = params.tree()
+    _, data, tp = TP_TRAIN_GRID
+    msq = T.build_structure(ms.cfg, plan=ms.plan, tp=tp, fsdp=True, fsdp_data=data,
+                            quant=True)
+    segs = []
+    for sp, seg, meta in zip(tree["segments"], ms.segments, T.segment_metas(msq)):
+        groups = ([tree_map(lambda v: v[i], sp) for i in range(seg.count)]
+                  if seg.count > 1 else [sp])
+        deq = tree_map(lambda v: int8_round_trip(v).to(torch.bfloat16),
+                       F.pack_segment(groups, meta, data=msq.fsdp_data, tp=msq.tp,
+                                      dtype=torch.bfloat16))
+        back = F.unpack_segment(deq, meta, data=msq.fsdp_data, tp=msq.tp,
+                                dtype=torch.bfloat16)
+        segs.append(stack_trees(back) if seg.count > 1 else back[0])
+    return ModelParams(dict(tree, segments=segs))
+
+
+def tp_fsdp_generate(pc, cfg, ms, params, what):
+    """``sharded_generate`` of (g)'s prompts in fp32 compute (fp32 ring):
+    tokens, launches reconciled (per forward a flash launch per group and
+    2 dual RMSNorms per pair; per decode step a ring launch per group, the
+    pair's form for the pair) and held against their plain versions
+    (``DecodeProbe``: the ring launches of the first and last decode step,
+    the first flash and dual RMSNorm launch at each shape), ms per step
+    over gloo, one serve step's collectives."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, sharded_generate
+    set_compute_dtype(params, torch.float32, segments=not ms.quant)
+    sv = ServeConfig(max_len=TP_FSDP_MAX_LEN, cache_dtype=torch.float32)
+    prompts = tp_fsdp_prompts(cfg)
+    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    d_single, d_pair, _ = ring_decode_counts(ms)
+    steps = TP_FSDP_NEW - 1
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    timings = {}
+    with DecodeProbe(ms, paged=False, steps=(0, steps - 1), shapes=TP_FSDP_SHAPES) as probe:
+        toks = sharded_generate(params, prompts, TP_FSDP_NEW, ms=ms, pc=pc, sv=sv,
+                                timings=timings)
+    launches = dict(ops.LAUNCHES)
+    err = probe.check(f"(g) rank {pc.rank} {what} sharded_generate")
+    reconcile(f"(g) rank {pc.rank} {what} sharded_generate", launches, {
+        "flash_attention": n_single + n_attn_pairs,
+        "dual_rmsnorm": norm_launches(cfg, len(ms.plan.pairs)) * (1 + steps),
+        "decode_attention": steps * d_single, "decode_attention_pair": steps * d_pair,
+        "decode_attention_paged": 0, "decode_attention_pair_paged": 0, "ssm_scan": 0})
+    set_compute_dtype(params, torch.bfloat16, segments=not ms.quant)
+    col = tp_encdec_collectives(pc, ms, params, prompts, {}, TP_FSDP_MAX_LEN, "heads")
+    return {"tokens": toks.cpu().tolist(), "launches": launches, "collectives": col,
+            "path_max_abs_err": err, "prefill_ms": timings["prefill_s"] * 1e3,
+            "decode_ms_per_step": timings["decode_s"] / steps * 1e3}
+
+
+def tp_fsdp_engine(pc, cfg, ms, params):
+    """``PagedEngine`` of (g)'s bf16 FSDP structure on ``tp_fsdp_work`` in
+    fp32 compute (fp32 pool): streams, launches reconciled from the
+    engine's counters and held against their plain versions (the paged
+    launches of decode launches 0 and 2, the first flash and dual RMSNorm
+    launch at each shape), wall and decode ms over gloo."""
+    import torch
+    from repro_torch.serve import PagedEngine, PagedServeConfig
+    set_compute_dtype(params, torch.float32)
+    psv = PagedServeConfig(n_slots=4, page_size=PS, max_len=TP_FSDP_MAX_LEN,
+                           n_pages=4 * TP_FSDP_MAX_LEN // PS + 1, prefix_cache=True,
+                           cache_dtype=torch.float32)
+    eng = PagedEngine(params, ms, psv, pc=pc)
+    with DecodeProbe(ms, paged=True, steps=(0, 2), shapes=TP_FSDP_SHAPES) as probe:
+        launches, wall_s, steps, streams = timed_serve(eng, tp_fsdp_work(cfg))
+    err = probe.check(f"(g) rank {pc.rank} engine")
+    set_compute_dtype(params, torch.bfloat16)
+    c = eng.counters
+    n_single, n_attn_pairs, _ = mixer_counts(ms)
+    prefill_launches = c["bucket_groups"] + (c["full_prefills"] + c["suffix_prefills"]
+                                             - c["bucket_prefills"])
+    decode_launches = sum(1 for _, st in steps if st["decoded"])
+    reconcile(f"(g) rank {pc.rank} engine", launches, {
+        "dual_rmsnorm": norm_launches(cfg, len(ms.plan.pairs))
+        * (prefill_launches + decode_launches),
+        "decode_attention": 0, "decode_attention_pair": 0,
+        "decode_attention_paged": n_single * decode_launches,
+        "decode_attention_pair_paged": n_attn_pairs * decode_launches,
+        "flash_attention": (n_single + n_attn_pairs) * prefill_launches, "ssm_scan": 0})
+    eng.prefix.evict(eng.prefix.resident_pages, eng.pool)
+    eng.pool.check_balance()
+    if eng.pool.live:
+        raise AssertionError(f"(g) rank {pc.rank}: pages still held after drain")
+    return {"streams": [x.tolist() for x in streams], "launches": launches,
+            "path_max_abs_err": err,
+            "prefix_hits": c["prefix_hits"], "suffix_prefills": c["suffix_prefills"],
+            "wall_ms": wall_s * 1e3, "steps": len(steps)}
+
+
+def tp_fsdp():
+    """(g), one rank: the (pod, data, model) grid over the world, then the
+    bf16 shards through ``sharded_generate`` and the engine, and the int8
+    shards through ``sharded_generate``, each model made from the seed
+    and freed after its runs."""
+    import torch
+    from repro_torch.parallel.context import make_grid_context
+    pc = make_grid_context(*TP_TRAIN_GRID)
+    out = {}
+    for quant in (False, True):
+        cfg, ms, params = tp_fsdp_model(pc, quant)
+        key = "int8" if quant else "bf16"
+        out[key] = tp_fsdp_generate(pc, cfg, ms, params, key)
+        if not quant:
+            out["engine"] = tp_fsdp_engine(pc, cfg, ms, params)
+        out[key]["rank_shard_bytes"] = sum(p.numel() * p.element_size() for n, p
+                                           in params.named_parameters()
+                                           if n.startswith("segments."))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_fsdp_reference():
+    """(g)'s tp = 1 streams in this process, before the ranks: fp32 compute
+    on the regular structure's bf16 weights and on their dequantised int8
+    copy. Returns (streams, streams on the dequantised weights)."""
+    import torch
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serve import ServeConfig, generate
+    cfg, ms, params = tp_fsdp_model(None, tp1=True)
+    deq = tp_fsdp_dequantised(params, ms)
+    sv = ServeConfig(max_len=TP_FSDP_MAX_LEN, cache_dtype=torch.float32)
+    out = []
+    for p in (params, deq):
+        set_compute_dtype(p, torch.float32)
+        out.append(generate(p, tp_fsdp_prompts(cfg), TP_FSDP_NEW, ms=ms,
+                            pc=ParallelContext(), sv=sv).cpu().tolist())
+    del params, deq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_fsdp_held(ref, got):
+    """(g)'s checks over the ranks' results: every rank equal to rank 0;
+    the bf16 shards' streams to tp = 1's, the int8 shards' to tp = 1's on
+    the dequantised weights, the engine's to the FSDP ``sharded_generate``
+    streams of the same prompts (equal, or leaving at a near-tie of tp =
+    1's logits; tp = 1's model is made anew only where a stream differs).
+    Returns the metrics."""
+    import numpy as np
+    import torch
+    for rank, r in enumerate(got):
+        g = r["fsdp"]
+        for key in ("bf16", "int8"):
+            if g[key]["tokens"] != got[0]["fsdp"][key]["tokens"]:
+                raise AssertionError(f"(g) {key}: rank {rank}'s tokens differ from rank 0's")
+        if g["engine"]["streams"] != got[0]["fsdp"]["engine"]["streams"]:
+            raise AssertionError(f"(g) engine: rank {rank}'s streams differ from rank 0's")
+    g = got[0]["fsdp"]
+    eng_want = [g["bf16"]["tokens"][i % TP_FSDP_B] for i in range(2 * TP_FSDP_B)]
+    held = {}
+    checks = (("bf16", g["bf16"]["tokens"], ref[0], False),
+              ("int8", g["int8"]["tokens"], ref[1], True),
+              ("engine", g["engine"]["streams"], eng_want, False))
+    for what, have, want, deq in checks:
+        if have == want:
+            held[what] = (len(want), len(want))
+            continue
+        cfg, ms, params = tp_fsdp_model(None, tp1=True)
+        if deq:
+            params = tp_fsdp_dequantised(params, ms)
+        set_compute_dtype(params, torch.float32)
+        work = [(0, p, TP_FSDP_NEW) for p in tp_fsdp_prompts(cfg).cpu().numpy()]
+        work = (work * 2)[:len(want)]
+        held[what] = (held_to(f"(g) {what}", [(params, ms)] * len(work), work,
+                              [np.array(x) for x in have], [np.array(x) for x in want],
+                              max_len=TP_FSDP_MAX_LEN), len(want))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"grid": list(TP_TRAIN_GRID), "layers": TP_FSDP_LAYERS,
+            "pairs": [list(p) for p in TP_FSDP_PAIRS], "equal_streams": held,
+            "rank0": {k: {m: v for m, v in g[k].items()
+                          if m not in ("tokens", "streams", "rank_shard_bytes")}
+                      for k in ("bf16", "int8", "engine")},
+            "rank_shard_bytes": {k: g[k]["rank_shard_bytes"] for k in ("bf16", "int8")}}
+
+
+def tp_pipe_structure():
+    """(cfg, ms) of (h): tinyllama-1.1b at its published widths,
+    ``TP_PIPE_LAYERS`` layers in consecutive LP pairs (one segment)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=TP_PIPE_LAYERS)
+    return cfg, T.build_structure(cfg, plan=LPPlan(tuple(
+        (i, i + 1) for i in range(0, TP_PIPE_LAYERS, 2))))
+
+
+def tp_pipe_pair(cfg, ms, pair):
+    """LP pair ``pair``'s fp32 weights, drawn from the seed + 100 + pair on
+    the card (so a stage draws its own pair only)."""
+    import torch
+    from repro_torch.model import stack as ST
+    from repro_torch.model.params import init_tree
+    return init_tree(ST.group_template(cfg, ms.segments[0].group, 1),
+                     torch.Generator(device="cuda").manual_seed(SEED + 100 + pair),
+                     torch.float32, "cuda")
+
+
+def tp_pipe_inputs(cfg):
+    """(h)'s microbatches [TP_PIPE_MICRO, 1, TP_PIPE_S, D] fp32 and positions."""
+    import torch
+    x = torch.randn((TP_PIPE_MICRO, 1, TP_PIPE_S, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED + 11))
+    return x, torch.arange(TP_PIPE_S, device="cuda")[None]
+
+
+def tp_pipe_stage_fn(cfg, ms, positions):
+    """A stage: ``stack.apply_stack_full`` over one LP pair (one group)."""
+    from repro_torch.model import stack as ST
+    from repro_torch.parallel.context import ParallelContext
+    seg = [ST.Segment(ms.segments[0].group, 1)]
+
+    def stage_fn(params, x):
+        return ST.apply_stack_full([params], x, seg, cfg=cfg, dims=ms.dims,
+                                   pc=ParallelContext(), positions=positions)[0]
+    return stage_fn
+
+
+def tp_pipe_reference():
+    """(h)'s unstaged forward in this process: the 16 layers (8 pairs, one
+    segment) over each microbatch; saved for the ranks under build/tp."""
+    import torch
+    from repro_torch.model import stack as ST
+    from repro_torch.model.params import stack_trees
+    from repro_torch.parallel.context import ParallelContext
+    cfg, ms = tp_pipe_structure()
+    n_pairs = ms.segments[0].count
+    seg = stack_trees([tp_pipe_pair(cfg, ms, i) for i in range(n_pairs)])
+    x, positions = tp_pipe_inputs(cfg)
+    t = time.perf_counter()
+    with torch.no_grad():
+        y = torch.stack([ST.apply_stack_full([seg], xm, ms.segments, cfg=cfg,
+                                             dims=ms.dims, pc=ParallelContext(),
+                                             positions=positions)[0] for xm in x])
+    torch.cuda.synchronize()
+    ms_ = (time.perf_counter() - t) * 1e3
+    TP_PIPE_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(y.cpu(), TP_PIPE_REF)
+    del seg, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"unstaged_ms": ms_}
+
+
+def tp_pipe(world_pc):
+    """(h), one rank: the world as the pipe, this rank's stage its LP pair
+    (``stage_slice``), ``pipeline_apply`` over the microbatches; launches
+    reconciled (per tick a flash launch and 2 dual RMSNorms) and the first
+    of each on the stage's first microbatch (tick ``stage``: the ticks
+    before it run on zeros) held against its plain version, the output
+    against the unstaged forward's, collectives counted (a gather per tick,
+    one sum)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import context
+    from repro_torch.parallel.pp import pipe_group, pipeline_apply, stage_slice
+    cfg, ms = tp_pipe_structure()
+    group, stage = pipe_group()
+    n_stages = world_pc.tp_size
+    lo, hi = stage_slice(TP_PIPE_LAYERS, n_stages, stage)
+    if (lo, hi) != (2 * stage, 2 * stage + 2):
+        raise AssertionError(f"(h) stage {stage}: layers [{lo}, {hi}), want one LP pair")
+    params = tp_pipe_pair(cfg, ms, stage)
+    x, positions = tp_pipe_inputs(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    context.reset_all_reduces()
+    per_tick = {"flash_attention": 1, "dual_rmsnorm": norm_launches(cfg, 1)}
+    t = time.perf_counter()
+    with torch.no_grad(), DecodeProbe(ms, paged=False, steps=(), shapes=TP_FSDP_SHAPES, skip={
+            name: n * stage for name, n in per_tick.items()}) as probe:
+        y = pipeline_apply(tp_pipe_stage_fn(cfg, ms, positions), params, x, group=group,
+                           stage=stage, n_stages=n_stages)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    ticks = TP_PIPE_MICRO + n_stages - 1
+    launches = dict(ops.LAUNCHES)
+    err_kernels = probe.check(f"(h) stage {stage}")
+    reconcile(f"(h) stage {stage}", launches, {
+        "flash_attention": ticks, "dual_rmsnorm": per_tick["dual_rmsnorm"] * ticks,
+        "decode_attention": 0, "decode_attention_pair": 0, "decode_attention_paged": 0,
+        "decode_attention_pair_paged": 0, "ssm_scan": 0})
+    col = {**context.ALL_REDUCES, **context.ALL_GATHERS}
+    if col != {"sum": 1, "max": 0, "gather": ticks}:
+        raise AssertionError(f"(h) stage {stage}: collectives {col}, want a gather per "
+                             f"tick ({ticks}) and one sum")
+    want = torch.load(TP_PIPE_REF).cuda()
+    err = float((y - want).abs().max())
+    return {"stage": stage, "layers": [lo, hi], "launches": launches, "collectives": col,
+            "max_abs_err": err, "bitwise": bool(torch.equal(y, want)), "wall_ms": wall_ms,
+            "ticks": ticks, "path_max_abs_err": err_kernels}
+
+
+def tp_fsdp_pipe_held(got, fsdp_ref, pipe_ref):
+    """(g)'s and (h)'s checks over the tp8 ranks' results ``got``, against
+    (g)'s tp = 1 streams and (h)'s unstaged forward (``pipe_ref``: its
+    metrics; the output is in ``TP_PIPE_REF``). Returns ({path: launches
+    summed over the ranks}, metrics)."""
+    fsdp = tp_fsdp_held(fsdp_ref, got)
+    by_path, metrics = {}, {}
+    for path, key in (("tp8_fsdp_generate", "bf16"), ("tp8_fsdp_int8_generate", "int8"),
+                      ("tp8_fsdp_engine", "engine")):
+        by_path[path] = {k: sum(r["fsdp"][key]["launches"][k] for r in got)
+                         for k in got[0]["fsdp"][key]["launches"]}
+    fsdp["path_max_abs_err"] = {key: max(r["fsdp"][key]["path_max_abs_err"] for r in got)
+                                for key in ("bf16", "int8", "engine")}
+    metrics["tp8_fsdp"] = fsdp
+    for key in ("bf16", "int8"):
+        r0 = fsdp["rank0"][key]
+        log(f"[tp8] (g) FSDP {key} shards on the (2, 2, 2) grid: sharded_generate "
+            f"{fsdp['equal_streams'][key][0]}/{fsdp['equal_streams'][key][1]} streams "
+            f"equal to tp = 1{' on the dequantised weights' if key == 'int8' else ''} "
+            f"(fp32 compute; the rest at near-ties), every rank equal to rank 0; "
+            f"prefill {r0['prefill_ms']:.1f} ms, decode {r0['decode_ms_per_step']:.1f} ms "
+            f"per step over gloo (not a speed); launches on every rank within "
+            f"{fsdp['path_max_abs_err'][key]:.3e} of their plain versions; a rank's shards "
+            f"{fsdp['rank_shard_bytes'][key]} bytes; one serve step's collectives "
+            f"{ {k: r0['collectives'][k] for k in ('sum', 'max', 'gather')} } (the "
+            f"gathers from the leaf list)")
+    e0 = fsdp["rank0"]["engine"]
+    log(f"[tp8] (g) FSDP engine: {fsdp['equal_streams']['engine'][0]}/"
+        f"{fsdp['equal_streams']['engine'][1]} streams equal to the FSDP sharded_generate's, "
+        f"prefix hits {e0['prefix_hits']}, suffix prefills {e0['suffix_prefills']}, "
+        f"launches within {fsdp['path_max_abs_err']['engine']:.3e} of plain, "
+        f"{e0['steps']} steps in {e0['wall_ms']:.1f} ms over gloo; launches on all {TP8} "
+        f"ranks {by_path['tp8_fsdp_engine']}")
+    # (h) the pipeline, from the same ranks
+    pipe = [r["pipe"] for r in got]
+    for rank, r in enumerate(pipe):
+        if r["stage"] != rank or r["max_abs_err"] > TP_PIPE_TOL:
+            raise AssertionError(f"(h) rank {rank}: stage {r['stage']}, output "
+                                 f"{r['max_abs_err']:.3e} from the unstaged forward's "
+                                 f"(tol {TP_PIPE_TOL:g})")
+    by_path["tp8_pipeline"] = {k: sum(r["launches"][k] for r in pipe)
+                               for k in pipe[0]["launches"]}
+    metrics["tp8_pipeline"] = {
+        "layers": TP_PIPE_LAYERS, "stages": TP8, "microbatches": TP_PIPE_MICRO,
+        "seq": TP_PIPE_S, "max_abs_err": max(r["max_abs_err"] for r in pipe),
+        "bitwise": all(r["bitwise"] for r in pipe), "wall_ms": [r["wall_ms"] for r in pipe],
+        "path_max_abs_err": max(r["path_max_abs_err"] for r in pipe),
+        "collectives": pipe[0]["collectives"], **pipe_ref}
+    log(f"[tp8] (h) pipeline of {TP8} stages, {TP_PIPE_LAYERS} layers (one LP pair a "
+        f"stage), {TP_PIPE_MICRO} microbatches of [1, {TP_PIPE_S}]: output within "
+        f"{metrics['tp8_pipeline']['max_abs_err']:.3e} of the unstaged forward (tol "
+        f"{TP_PIPE_TOL:g}; bit for bit: {metrics['tp8_pipeline']['bitwise']}); each "
+        f"stage's first flash and dual RMSNorm launch on its first microbatch within "
+        f"{metrics['tp8_pipeline']['path_max_abs_err']:.3e} of plain; "
+        f"{pipe[0]['ticks']} ticks, collectives per stage {pipe[0]['collectives']}; "
+        f"rank 0 {pipe[0]['wall_ms']:.1f} ms over gloo, the unstaged forward "
+        f"{pipe_ref['unstaged_ms']:.1f} ms; launches on all ranks {by_path['tp8_pipeline']}")
+    return by_path, metrics
+
+
 TP_CASES = {"tp2": tp_case_tp2, "tp8": tp_case_tp8}
 
 
@@ -4644,6 +5134,10 @@ def tp_path():
     train_ref = tp_train_reference()        # (f)'s tp = 1 run, before the ranks
     train_ref_s = time.perf_counter() - t
     t = time.perf_counter()
+    fsdp_ref = tp_fsdp_reference()          # (g)'s tp = 1 streams
+    pipe_ref = tp_pipe_reference()          # (h)'s unstaged forward
+    gh_ref_s = time.perf_counter() - t
+    t = time.perf_counter()
     got = tp_spawn("tp8", TP8)
     tp8_s = time.perf_counter() - t
     tp_check_ranks("tp=8", got)
@@ -4699,6 +5193,11 @@ def tp_path():
         f"{train['eval']['eval_launches']}, first launches within "
         f"{train['eval']['eval_path_max_abs_err']:.3e} of plain; on all {TP8} ranks "
         f"{by_path['tp8_train_eval']}")
+    # (g) FSDP serving and (h) the pipeline, from the same ranks
+    gh_paths, gh = tp_fsdp_pipe_held(got, fsdp_ref, pipe_ref)
+    gh["tp8_fsdp"]["tp1_references_s"] = gh_ref_s
+    by_path.update(gh_paths)
+    metrics.update(gh)
     log(f"[tp8] {TP_BACKEND}, world {TP8}: tokens == tp = 1 (sharded_generate "
         f"{B} x {TP8_NEW}, engine {len(work)} streams); every rank launched both "
         f"paged kernels with its head map [rank // 2]; tp = 1 reference {ref_s:.1f} s, "
@@ -4879,6 +5378,15 @@ def main() -> int:
                                         "decode_attention_pair_paged")),
                         ("tp8_engine", ("decode_attention_paged",
                                         "decode_attention_pair_paged"))):
+        for name in names + ("flash_attention", "dual_rmsnorm"):
+            if not by_path[path][name]:
+                raise AssertionError(f"{name} was not launched on {path}")
+    # (g) and (h): flash and the dual RMSNorm on every FSDP path and in the
+    # pipeline's stages, the pair's ring and paged decode forms on FSDP's
+    for path, names in (("tp8_fsdp_generate", ("decode_attention_pair",)),
+                        ("tp8_fsdp_int8_generate", ("decode_attention_pair",)),
+                        ("tp8_fsdp_engine", ("decode_attention_pair_paged",)),
+                        ("tp8_pipeline", ())):
         for name in names + ("flash_attention", "dual_rmsnorm"):
             if not by_path[path][name]:
                 raise AssertionError(f"{name} was not launched on {path}")

@@ -42,15 +42,30 @@ def params_from_numpy(tree, *, device="cuda",
     return ModelParams(tree_map(lambda a: _tensor(a, device, dtype), tree))
 
 
-def shard_from_numpy(tree, ms, rank: int, *, device="cuda",
+def shard_from_numpy(tree, ms, rank: int, *, data_index: int = 0, device="cuda",
                      dtype: Optional[torch.dtype] = None) -> ModelParams:
     """Rank ``rank``'s shard of a GLOBAL numpy param tree of the structure
     ``ms`` (built at its tp, as the JAX package's ``init_params`` makes
-    it), as ``ModelParams`` on ``device``."""
+    it), as ``ModelParams`` on ``device``; ``rank`` is the rank's tp index.
+
+    FSDP (``ms.fsdp``): every segment leaf, a flat (count, data, tp, chunk)
+    one or, with ``ms.quant``, an int8 value or fp32 scale leaf of the same
+    layout, becomes the rank's (count, 1, 1, chunk) view at data index
+    ``data_index``; int8 shards keep their types (``dtype`` casts the other
+    leaves)."""
     from repro_torch.model.transformer import param_parts, param_pspecs
-    return params_from_numpy(shard_tree(tree, param_pspecs(ms), ms.tp, rank,
-                                        param_parts(ms)),
-                             device=device, dtype=dtype)
+    from repro_torch.parallel.fsdp import rank_view
+    specs, parts = param_pspecs(ms), param_parts(ms)
+    keys = [k for k in tree if not (ms.fsdp and k == "segments")]
+    out = params_from_numpy(shard_tree({k: tree[k] for k in keys},
+                                       {k: specs[k] for k in keys}, ms.tp, rank,
+                                       {k: parts[k] for k in keys}),
+                            device=device, dtype=dtype).tree()
+    if ms.fsdp:
+        out["segments"] = tree_map(
+            lambda a: _tensor(rank_view(a, data_index, rank), device,
+                              None if ms.quant else dtype), tree["segments"])
+    return ModelParams(out)
 
 
 def state_from_numpy(state, ms, pc, tc, *, device="cuda"):

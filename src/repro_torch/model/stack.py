@@ -165,18 +165,25 @@ def _gathered_group(gp, x, *, gather, **kw):
 
 def apply_stack_decode(seg_params, x, caches, t, segments, *, cfg, dims,
                        pc, kv_mode="heads", cache_layout="ring",
-                       block_tables=None):
+                       block_tables=None, gather_fns=None):
     """One decode step through all segments. ``caches`` (one stacked tree
     per segment, in ``kv_mode``'s layout) are updated in place and
     returned.
 
     cache_layout="paged": the entries are page pools indirected through
-    ``block_tables`` and ``t`` is the per-slot position tensor."""
-    for sp, cache, seg in zip(seg_params, caches, segments):
+    ``block_tables`` and ``t`` is the per-slot position tensor.
+
+    ``gather_fns`` (FSDP): as ``apply_stack_full`` takes them, called in
+    the group's turn, so one group's full tp-local weights are alive at a
+    time."""
+    gather_fns = gather_fns or [None] * len(segments)
+    for sp, cache, seg, gather in zip(seg_params, caches, segments, gather_fns):
         for c in range(seg.count):
             view = {name: entry[c] for name, entry in cache.items()}
+            gp = (_group_params(sp, seg, c) if gather is None
+                  else gather(tree_map(lambda v: v[c], sp)))
             x, _ = B.apply_group_decode(
-                _group_params(sp, seg, c), x, view, t, cfg=cfg,
+                gp, x, view, t, cfg=cfg,
                 group=seg.group, dims=dims, pc=pc, kv_mode=kv_mode,
                 cache_layout=cache_layout, block_tables=block_tables)
     return x, caches

@@ -67,6 +67,7 @@ class ModelStructure:
     enc_segments: Tuple[ST.Segment, ...] = ()
     fsdp: bool = False        # decoder segments as flat FSDP shards
     fsdp_data: int = 1        # the data ranks those shards split over
+    quant: bool = False       # int8 FSDP shards (serving only)
 
     @property
     def dims(self) -> A.AttnDims:
@@ -79,15 +80,18 @@ class ModelStructure:
 
 def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
                     tp: int = 1, fsdp: bool = False,
-                    fsdp_data: int = 1) -> ModelStructure:
+                    fsdp_data: int = 1, quant: bool = False) -> ModelStructure:
     """The static structure of ``cfg`` under ``plan`` at ``tp``-way tensor
     parallelism: every family at every tp (attention of every kind, Mamba
     and RG-LRU mixers, an MLP, a mixture of experts or no FFN, an encoder,
     cross-attention and a prefix-LM). ``fsdp``: the decoder segments are
     stored as flat shards over ``fsdp_data`` data ranks (``parallel/
-    fsdp.py``; training and the full forward only: decode refuses them)."""
+    fsdp.py``), gathered one group at a time wherever the stack runs;
+    ``quant`` keeps those shards as int8 with block scales (serving)."""
     if tp < 1 or fsdp_data < 1:
         raise ValueError(f"tp={tp}, fsdp_data={fsdp_data}")
+    if quant and not fsdp:
+        raise ValueError("int8 weight shards (quant) need the FSDP layout (fsdp)")
     plan = plan or EMPTY_PLAN
     groups = ST.make_groups(cfg, plan.pairs)
     enc_segments: Tuple[ST.Segment, ...] = ()
@@ -97,12 +101,13 @@ def build_structure(cfg: ArchConfig, *, plan: Optional[LPPlan] = None,
         enc_groups = ST.make_groups(cfg, (), specs=[enc_spec] * cfg.enc_layers)
         enc_segments = tuple(ST.make_segments(enc_groups))
     return ModelStructure(cfg, plan, tp, tuple(ST.make_segments(groups)),
-                          enc_segments, fsdp, fsdp_data)
+                          enc_segments, fsdp, fsdp_data, quant)
 
 
 def regular_structure(ms: ModelStructure) -> ModelStructure:
     """The non-FSDP twin of ``ms`` (param-shaped segment leaves)."""
-    return dataclasses.replace(ms, fsdp=False, fsdp_data=1) if ms.fsdp else ms
+    return (dataclasses.replace(ms, fsdp=False, fsdp_data=1, quant=False)
+            if ms.fsdp else ms)
 
 
 def segment_metas(ms: ModelStructure):
@@ -117,6 +122,13 @@ def model_template(ms: ModelStructure) -> Dict[str, Any]:
     if ms.fsdp:
         segs = [F.flat_segment_pds(meta, data=ms.fsdp_data, tp=tp)
                 for meta in segment_metas(ms)]
+        if ms.quant:   # int8 values and one fp32 scale per block of a chunk
+            segs = [{"q": tree_map(lambda pd: dataclasses.replace(
+                        pd, dtype=torch.int8), t),
+                     "scale": tree_map(lambda pd: dataclasses.replace(
+                         pd, shape=(*pd.shape[:-1], -(-pd.shape[-1] // F.QBLOCK)),
+                         dtype=torch.float32), t)}
+                    for t in segs]
     else:
         segs = ST.stack_template(cfg, ms.segments, tp)
     t = {
@@ -141,7 +153,9 @@ def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
 
     FSDP: the regular structure's global weights are drawn (the same ones),
     each segment packed (``fsdp.pack_segment``) and the rank's (count, 1, 1,
-    chunk) view kept, at data index ``data_index``."""
+    chunk) view kept, at data index ``data_index``; with ``ms.quant`` that
+    view quantised (``fsdp.quantize_segment``: per block of the rank's
+    chunk, as the JAX package quantises the global packing)."""
     if (ms.tp > 1) != (rank is not None):
         raise ValueError(f"tp={ms.tp}: give the rank at tp > 1, and only there")
     if generator is None:
@@ -155,6 +169,8 @@ def init_params(ms: ModelStructure, generator: Optional[torch.Generator] = None,
         full, param_pspecs(reg), ms.tp, rank or 0, param_parts(reg)))
     tree["segments"] = pack_rank_segments(full["segments"], ms, rank or 0,
                                           data_index, dtype)
+    if ms.quant:
+        tree["segments"] = [F.quantize_segment(seg) for seg in tree["segments"]]
     return ModelParams(tree)
 
 
@@ -174,7 +190,11 @@ def pack_rank_segments(segments, ms: ModelStructure, tp_index: int,
 
 def stack_params_and_gathers(params, ms: ModelStructure, pc: ParallelContext):
     """(segment param trees, gather_fns) for the stack apply. FSDP leaves
-    arrive as the rank-local (count, 1, 1, chunk) view -> (count, chunk)."""
+    arrive as the rank-local (count, 1, 1, chunk) view -> (count, chunk)
+    (int8 values and their scales alike); each gather function makes one
+    group's tp-local weights from them (``fsdp.make_gather_fn``, or
+    ``make_gather_fn_q`` for int8 shards: bf16 weights, as the JAX
+    package serves them, in the model's compute type, its embedding's)."""
     if not ms.fsdp:
         return params["segments"], None
     if pc.data_size != ms.fsdp_data:
@@ -182,7 +202,13 @@ def stack_params_and_gathers(params, ms: ModelStructure, pc: ParallelContext):
                          f"context has {pc.data_size}")
     segs = [tree_map(lambda v: v.reshape(v.shape[0], v.shape[-1]), sp)
             for sp in params["segments"]]
-    return segs, [F.make_gather_fn(meta, pc) for meta in segment_metas(ms)]
+    if not ms.quant:
+        return segs, [F.make_gather_fn(meta, pc) for meta in segment_metas(ms)]
+    compute = params["embed"]["tok"].dtype
+
+    def widened(gather):     # under fp32 compute, fp32 copies of bf16 values
+        return lambda tree: tree_map(lambda w: w.to(compute), gather(tree))
+    return segs, [widened(F.make_gather_fn_q(meta, pc)) for meta in segment_metas(ms)]
 
 
 def param_pspecs(ms: ModelStructure):
@@ -361,13 +387,6 @@ def loss_fn(params, batch, *, ms: ModelStructure, pc: ParallelContext,
 # Prefill + decode (serving)
 # ---------------------------------------------------------------------------
 
-def refuse_fsdp(ms: ModelStructure, what: str) -> None:
-    if ms.fsdp:
-        raise NotImplementedError(
-            f"{what} of an FSDP structure (decode's per-group gathers and the "
-            "int8 serving shards) is not ported: ROADMAP item 10.3")
-
-
 def cache_meta(ms: ModelStructure, *, batch: int, max_len: int,
                kv_mode="heads", dtype=torch.bfloat16):
     """Per segment, {entry name: (shape, dtype)} of this rank's decode
@@ -424,10 +443,12 @@ def decode_step(params, tok, caches, t, *, ms: ModelStructure,
     cache_layout="paged" (continuous batching, ``repro_torch.serve``):
     ``t`` is an int32 [B] tensor of per-slot positions on the device,
     ``caches`` is the page pool tree (serve.paged_cache) and
-    ``block_tables`` [B, n_pg] int32 maps each slot to its pages."""
+    ``block_tables`` [B, n_pg] int32 maps each slot to its pages.
+
+    An FSDP structure gathers each group's weights over the data ranks
+    inside the group's step (``stack_params_and_gathers``), every step."""
     params = as_tree(params)
     cfg = ms.cfg
-    refuse_fsdp(ms, "decode")
     dpc = pc.with_sp(False)  # decode never uses sequence parallelism
     if cache_layout == "paged":
         if block_tables is None or not torch.is_tensor(t) or t.dim() != 1:
@@ -438,9 +459,10 @@ def decode_step(params, tok, caches, t, *, ms: ModelStructure,
         pos = torch.full((tok.shape[0], 1), t, dtype=torch.int64,
                          device=tok.device)
     x = _embed(params, tok[:, None], cfg, dpc, positions=pos)
+    seg_params, gather_fns = stack_params_and_gathers(params, ms, dpc)
     x, caches = ST.apply_stack_decode(
-        params["segments"], x, caches, t, ms.segments, cfg=cfg, dims=ms.dims,
+        seg_params, x, caches, t, ms.segments, cfg=cfg, dims=ms.dims,
         pc=dpc, kv_mode=kv_mode, cache_layout=cache_layout,
-        block_tables=block_tables)
+        block_tables=block_tables, gather_fns=gather_fns)
     logits = _head(params, x, cfg, dpc)
     return logits[:, 0], caches

@@ -59,8 +59,8 @@ which the trainer sums over the tp group; the embedding's, used before the
 first phase, is whole already. ``pmax_tp`` and the dp helpers have no
 backward: on a tensor that autograd tracks they raise.
 
-Still refused: the pipeline axis (``parallel/pp.py``) is not ported (ROADMAP
-item 10.3).
+The pipeline axis is no field of the context, as in the JAX package: GPipe
+stages (``parallel/pp.py``) take a group of stage ranks of their own.
 """
 from __future__ import annotations
 

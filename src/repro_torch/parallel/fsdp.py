@@ -17,8 +17,16 @@ with chunk = ceil(prod(tp-local group-leaf shape) / data); a rank holds
 its (count, 1, 1, chunk) view. The gather runs over ``data`` only, never
 across pods: across pods the shards are replicated and their gradients
 summed (optionally int8-compressed). The JAX package's ``parallel/
-fsdp.py``, less its int8 serving shards (``quantize_segment``,
-``make_gather_fn_q``: FSDP serving is ROADMAP item 10.3).
+fsdp.py``.
+
+Serving may keep the shards as int8 (``quantize_segment``): one fp32 scale
+per block of ``QBLOCK`` values of a rank's chunk, so the per-token gathers
+of FSDP decode move half the bytes and the resident shards take half the
+memory. ``make_gather_fn_q`` gathers the int8 values and the scales and
+dequantises each rank's chunk with that rank's own scales. (The JAX
+package's gather dequantises blocks of the concatenated chunks, so where a
+chunk is not a whole number of blocks, the blocks after the first rank's
+chunk read another rank's scale: ROADMAP §3.)
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as NF
 
 from repro_torch.model.params import PD, local_shape, shard_slice, tree_leaves, tree_map
 from repro_torch.parallel.context import ParallelContext
@@ -149,6 +158,65 @@ def make_gather_fn(meta: SegMeta, pc: ParallelContext,
         for x, loc in zip(tree_leaves(flat_tree), meta.local_shapes):
             y = pc.all_gather_data(x, axis=0)[:math.prod(loc)].reshape(loc)
             out.append(y if dtype is None else y.to(dtype))
+        return meta.unflatten(out)
+
+    return gather
+
+
+# ---------------------------------------------------------------------------
+# int8 serving shards
+# ---------------------------------------------------------------------------
+
+QBLOCK = 128
+
+
+def quantize(x: torch.Tensor):
+    """x [..., c] -> (q int8 [..., c], scale fp32 [..., ceil(c / QBLOCK)]):
+    symmetric per block of ``QBLOCK`` values along the last axis (the last
+    block zero-padded), scale = max(|block| / 127, 1e-12), q = round(x /
+    scale) clipped to +-127, in fp32."""
+    c = x.shape[-1]
+    nb = -(-c // QBLOCK)
+    xb = NF.pad(x.float(), (0, nb * QBLOCK - c)).reshape(*x.shape[:-1], nb, QBLOCK)
+    scale = (xb.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(xb / scale).clamp(-127, 127).to(torch.int8)
+    return q.reshape(*x.shape[:-1], nb * QBLOCK)[..., :c], scale[..., 0]
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor):
+    """Inverse of ``quantize`` up to its rounding: q [..., c] x scale [...,
+    ceil(c / QBLOCK)] -> fp32 [..., c], each block by its own scale."""
+    c, nb = q.shape[-1], scale.shape[-1]
+    qb = NF.pad(q.float(), (0, nb * QBLOCK - c)).reshape(*q.shape[:-1], nb, QBLOCK)
+    return (qb * scale[..., None].float()).reshape(*q.shape[:-1], nb * QBLOCK)[..., :c]
+
+
+def quantize_segment(flat):
+    """A bf16/fp32 flat segment (global (count, data, tp, chunk) leaves, or
+    a rank's (count, 1, 1, chunk) view) -> {"q": int8 tree, "scale": fp32
+    tree}, blocks along each chunk (``quantize``)."""
+    qs = iter([quantize(x) for x in tree_leaves(flat)])
+    pairs = tree_map(lambda _: next(qs), flat)     # leaves: (q, scale) tuples
+    return {"q": tree_map(lambda _, p: p[0], flat, pairs),
+            "scale": tree_map(lambda _, p: p[1], flat, pairs)}
+
+
+def make_gather_fn_q(meta: SegMeta, pc: ParallelContext,
+                     dtype=torch.bfloat16) -> Callable[[Any], Any]:
+    """Gather one group's int8 shards and scales -> full tp-local tensors in
+    ``dtype`` (the JAX package's serving type by default). One gather of
+    the int8 chunks and one of the scales over the data ranks, then each
+    rank's chunk dequantised with its own scales, in fp32. Serving only:
+    the int8 values have no gradient."""
+
+    def gather(tree):
+        out = []
+        for q, sc, loc in zip(tree_leaves(tree["q"]), tree_leaves(tree["scale"]),
+                              meta.local_shapes):
+            q = pc.all_gather_data(q, axis=0).view(pc.data_size, -1)
+            sc = pc.all_gather_data(sc, axis=0).view(pc.data_size, -1)
+            deq = dequantize(q, sc).reshape(-1)[:math.prod(loc)]
+            out.append(deq.reshape(loc).to(dtype))
         return meta.unflatten(out)
 
     return gather

@@ -96,6 +96,14 @@ map), and its channels of the recurrent slot state. The recurrent and MoE
 families prefill every admission exactly at tp > 1 too (no prefix cache,
 no buckets). ``spec_k`` and ``degrade_delta`` are tp=1-only, as in the JAX
 package.
+
+FSDP serving: on a (pod, data, model) grid of rank processes
+(``parallel.context.make_grid_context``) a structure built with ``fsdp``
+(and ``quant`` for int8 shards) keeps each rank's flat shards of the
+segments and gathers one group's weights over the data ranks in the
+group's turn of every prefill and decode step; the batch and the pool are
+replicated over the pod and data ranks. ``spec_k`` and ``degrade_delta``
+re-pair the segments and refuse such a structure.
 """
 from __future__ import annotations
 
@@ -241,7 +249,13 @@ def sharded_generate(params, prompts, n_new: int, *, ms: T.ModelStructure,
     ``generate`` under the rank's context: where the JAX package runs the
     ranks under ``shard_map`` from one process, every rank here runs the
     same host loop. (The JAX package's ``sharded_generate`` refuses the
-    prefix and the frames; its sharded prefill and serve step take them.)"""
+    prefix and the frames; its sharded prefill and serve step take them.)
+
+    On a grid context (``make_grid_context``) the batch is replicated over
+    the pod and data ranks, as the JAX package's sharded decode keeps it
+    (``shard_batch=False``); an FSDP structure (``ms.fsdp``, with bf16/fp32
+    or int8 shards) gathers each group's weights over the context's data
+    ranks, of which it must have ``ms.fsdp_data``."""
     if pc.tp_size != ms.tp:
         raise ValueError(f"a tp_size={pc.tp_size} context for a tp={ms.tp} "
                          "structure")
@@ -640,7 +654,9 @@ class PagedEngine:
 
     ``pc``: this rank's context at tp > 1 (``ms`` built at its tp_size,
     ``params`` the rank's shard); every rank builds its engine alike and
-    submits the same requests in the same steps.
+    submits the same requests in the same steps. An FSDP structure serves
+    on a grid context whose data ranks hold its shards: every prefill and
+    decode launch gathers each group's weights in the group's turn.
     """
 
     #: Every monotone engine counter, pre-registered at 0. Per-step
@@ -667,12 +683,16 @@ class PagedEngine:
                 "each with its shard and its ParallelContext (pc=); a mesh "
                 "and the launcher that would start its processes are not "
                 "ported: ROADMAP item 10.4")
-        T.refuse_fsdp(ms, "PagedEngine")
         self.pc = pc if pc is not None else ParallelContext()
         if self.pc.tp_size != ms.tp:
             raise ValueError(f"a tp_size={self.pc.tp_size} context for a "
                              f"tp={ms.tp} structure")
         psv.validate(tp_size=ms.tp)
+        if ms.fsdp and (psv.spec_k or psv.degrade_delta):
+            raise ValueError(
+                "spec_k and degrade_delta re-pair the segments' weights, and "
+                "an FSDP structure holds them as flat shards: serve it with "
+                "neither")
         PG.validate_paged_support(ms, psv.max_len)
         self.ms = ms
         self.psv = psv

@@ -56,7 +56,9 @@ update at all. The JAX package masks the gradients only and still applies
 the weight decay to every leaf, so its frozen leaves shrink by (1 - lr·wd)
 each step (ROADMAP §3); the port does not copy that.
 
-Not ported: the pipeline axis (``parallel/pp.py``, ROADMAP item 10.3).
+The grid has no pipeline axis, as the JAX package's has none: its GPipe
+stages (``parallel/pp.py``) run a forward over a group of stage ranks of
+their own, and no trainer differentiates them.
 """
 from __future__ import annotations
 

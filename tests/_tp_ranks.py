@@ -344,8 +344,116 @@ def case_train(pc, args):
             for run in args["runs"]}
 
 
+def serve_step_collectives(pc, ms, params, args):
+    """The context's collectives, by kind, in one ``make_serve_step`` call
+    after the prefill of ``args["prompts"]``."""
+    import torch
+    from repro_torch.model import embedding as E
+    from repro_torch.parallel import context
+    from repro_torch.serve import ServeConfig, make_prefill, make_serve_step
+    sv = ServeConfig(max_len=args["max_len"], cache_dtype=torch.float32)
+    prompts = torch.tensor(args["prompts"])
+    with torch.no_grad():
+        logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+        tok = E.vocab_parallel_argmax(logits, pc)
+        context.reset_all_reduces()
+        make_serve_step(ms, pc, sv)(params, tok, caches, prompts.shape[1])
+    return {**context.ALL_REDUCES, **context.ALL_GATHERS}
+
+
+def _fsdp_structure(pc, run):
+    """The FSDP structure of ``run`` (reduced ``arch``, ``n_layers``,
+    ``pairs``, ``replace``, ``quant``) on the grid context ``pc``."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = dataclasses.replace(reduced_config(get_config(run["arch"]),
+                                             n_layers=run["n_layers"]),
+                              **run.get("replace", {}))
+    return T.build_structure(cfg, plan=LPPlan(tuple(map(tuple, run["pairs"]))),
+                             tp=pc.tp_size, fsdp=True, fsdp_data=pc.data_size,
+                             quant=run["quant"])
+
+
+def case_fsdp(pc, args):
+    """FSDP serving on the grid ``args["grid"]``: per entry of
+    ``args["runs"]`` the rank's view of the global numpy tree pickled at its
+    ``tree`` (``bridge.shard_from_numpy`` at the rank's tp and data index),
+    then ``generate_part``, ``engine_part`` and one serve step's
+    collectives. Then, on the grid ``args["fault"]["grid"]``, the int8
+    gather (``make_gather_fn_q``, fp32) of the first group of the segment
+    pickled at ``args["fault"]["tree"]``."""
+    import torch
+    from repro_torch.bridge import shard_from_numpy
+    from repro_torch.model import transformer as T
+    from repro_torch.model.params import tree_items, tree_map
+    from repro_torch.parallel import fsdp as F
+    from repro_torch.parallel.context import make_grid_context
+    grid = make_grid_context(*args["grid"])
+    out = {}
+    for run in args["runs"]:
+        ms = _fsdp_structure(grid, run)
+        tree = pickle.loads(Path(run["tree"]).read_bytes())
+        params = shard_from_numpy(tree, ms, grid.tp_index(),
+                                  data_index=grid.data_index(), device="cpu")
+        out[run["name"]] = {**generate_part(grid, ms, params, args),
+                            **engine_part(grid, ms, params, args),
+                            "collectives": serve_step_collectives(grid, ms, params, args)}
+    fault = args["fault"]
+    fpc = make_grid_context(*fault["grid"])
+    ms = _fsdp_structure(fpc, fault)
+    seg = pickle.loads(Path(fault["tree"]).read_bytes())
+    group = tree_map(lambda a: torch.from_numpy(
+        np.ascontiguousarray(F.rank_view(a, fpc.data_index(), 0)[0, 0, 0])), seg)
+    gathered = F.make_gather_fn_q(T.segment_metas(ms)[0], fpc, dtype=torch.float32)(group)
+    out["fault"] = {path: x.numpy() for path, x in tree_items(gathered)}
+    return out
+
+
+def case_pipe(pc, args):
+    """``pipeline_apply`` of the tanh layers of weights ``args["ws"]`` on
+    the microbatches ``args["x"]`` over pipes of the world: for each entry of
+    ``args["pipes"]`` (world ranks in stage order; None: the world), the
+    output, the collectives it issued, and whether it refused weights that
+    autograd tracks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import context
+    from repro_torch.parallel.pp import pipe_group, pipeline_apply, stage_slice
+    ws = torch.tensor(args["ws"])
+    x = torch.tensor(args["x"])
+
+    def stage_fn(params, h):
+        for w in params:
+            h = torch.tanh(h @ w)
+        return h
+
+    out = []
+    for ranks in args["pipes"]:
+        group, stage = pipe_group(ranks)
+        if stage < 0:           # not in this pipe
+            out.append(None)
+            continue
+        n = len(ranks) if ranks is not None else dist.get_world_size()
+        lo, hi = stage_slice(len(ws), n, stage)
+        context.reset_all_reduces()
+        y = pipeline_apply(stage_fn, ws[lo:hi], x, group=group, stage=stage, n_stages=n)
+        counts = {**context.ALL_REDUCES, **context.ALL_GATHERS}
+        try:
+            pipeline_apply(stage_fn, ws[lo:hi].clone().requires_grad_(), x, group=group,
+                           stage=stage, n_stages=n)
+            refused = False
+        except NotImplementedError:
+            refused = True
+        out.append({"stage": stage, "y": y.numpy(), "counts": counts,
+                    "refused_tracked": refused})
+    return out
+
+
 CASES = {"serve": case_serve, "family": case_family, "extras": case_extras,
-         "gather": case_gather, "train": case_train}
+         "gather": case_gather, "train": case_train, "fsdp": case_fsdp,
+         "pipe": case_pipe}
 
 
 def main(spec):

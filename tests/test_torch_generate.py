@@ -252,11 +252,20 @@ toks = torch.zeros((2, 8), dtype=torch.int64)
 st, m = make_sharded_train_step(msf, ParallelContext(), TrainConfig(compress_pod=True))(
     st, {"tokens": toks, "labels": toks})
 assert st["step"] == 1 and bool(torch.isfinite(m["loss"]))
+msq = T.build_structure(cfg, plan=plan_for_depth(cfg, 3), fsdp=True, quant=True)
+pq = T.init_params(msq, torch.Generator().manual_seed(0), device="cpu")
+out = generate(pq, torch.zeros((2, 5), dtype=torch.int64), 3, ms=msq,
+               pc=ParallelContext(), sv=ServeConfig(max_len=16))
+assert out.shape == (2, 3)
+from repro_torch.parallel import pp
+y = pp.pipeline_apply(lambda w, h: torch.tanh(h @ w), torch.eye(4), torch.ones(3, 2, 4),
+                      group=None, stage=0, n_stages=1)
+assert y.shape == (3, 2, 4)
 for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
              "train.checkpoint", "launch.train", "launch.elastic", "launch.serve",
              "launch.dryrun", "launch.specs", "analysis.roofline", "analysis.report",
              "configs.shapes", "parallel.context", "parallel.zero", "parallel.compress",
-             "parallel.fsdp", "bridge"):
+             "parallel.fsdp", "parallel.pp", "bridge"):
     assert "repro_torch." + name in sys.modules, name
 assert "repro_torch.model.rglru" in sys.modules
 assert "repro_torch.model.moe" in sys.modules

@@ -12,9 +12,10 @@ the CPU, bit for bit where they only move data:
   model 2), regular, FSDP and with ``compress_pod``, carried into each of
   the eight ranks' states, equal to the port's own packing of the same
   weights (``state_from_params``, ``transformer.pack_rank_segments``);
-- the grid's numbering, the context's dp fields, ``batch_shard`` and the
-  refusals (decode and ``PagedEngine`` of an FSDP structure, the bridge's
-  block-split leaves at tp > 1).
+- the grid's numbering, the context's dp fields and ``batch_shard``; an
+  FSDP structure at one rank serving as the regular one, bit for bit; the
+  refusals (int8 shards without FSDP, the bridge's block-split leaves at
+  tp > 1).
 
 The collectives themselves run in ``tests/test_torch_tp_train.py``.
 """
@@ -242,22 +243,40 @@ def test_grid_numbering_and_batch_rows():
 
 
 def test_fsdp_refusals():
+    """At one rank an FSDP structure serves as the regular one, bit for bit
+    (its gathers are views): the forward, ``decode_step`` and
+    ``PagedEngine``; int8 shards without the FSDP layout raise."""
     _, tms = _structures(tp=1, fsdp=True, fsdp_data=1)
     params = TT.init_params(tms, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10.3"):
-        PagedEngine(params, tms, PagedServeConfig(n_slots=2, page_size=8, n_pages=9,
-                                                  max_len=32))
-    with pytest.raises(NotImplementedError, match="item 10.3"):
-        TT.decode_step(params, torch.zeros(1, dtype=torch.long), [], 0, ms=tms,
-                       pc=ParallelContext())
-    # the FSDP forward at one rank == the regular one (gathers are views)
     reg = TT.regular_structure(tms)
     rparams = TT.init_params(reg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.randint(0, tms.cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    pc = ParallelContext()
     with torch.no_grad():
-        a, _, _ = TT.forward_full(params, toks, ms=tms, pc=ParallelContext())
-        b, _, _ = TT.forward_full(rparams, toks, ms=reg, pc=ParallelContext())
-    assert torch.equal(a, b)
+        a, _, _ = TT.forward_full(params, toks, ms=tms, pc=pc)
+        b, _, _ = TT.forward_full(rparams, toks, ms=reg, pc=pc)
+        assert torch.equal(a, b)
+        steps = []
+        for p, ms in ((params, tms), (rparams, reg)):
+            logits, caches = TT.prefill(p, toks, ms=ms, pc=pc, max_len=16,
+                                        cache_dtype=torch.float32)
+            tok = logits.argmax(-1)
+            for t in range(8, 11):
+                logits, caches = TT.decode_step(p, tok, caches, t, ms=ms, pc=pc)
+                tok = logits.argmax(-1)
+            steps.append(logits)
+    assert torch.equal(*steps)
+    psv = PagedServeConfig(n_slots=2, page_size=8, n_pages=9, max_len=32,
+                           cache_dtype=torch.float32)
+    streams = []
+    for p, ms in ((params, tms), (rparams, reg)):
+        eng = PagedEngine(p, ms, psv)
+        rids = [eng.add_request(row.numpy(), 4) for row in toks]
+        eng.drain()
+        streams.append([eng.results[r].tolist() for r in rids])
+    assert streams[0] == streams[1]
+    with pytest.raises(ValueError, match="need the FSDP layout"):
+        TT.build_structure(tms.cfg, plan=tms.plan, quant=True)
     # Mamba's block-split w_in: JAX's flat rows at tp > 1 are another cut
     _, mms = _structures("falcon-mamba-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
