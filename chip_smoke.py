@@ -214,7 +214,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      within 5% of ``torch.cuda.memory_allocated``;
      ``examples/quickstart_torch.py``. Every run's decode launches at two
      steps, and its first flash and dual RMSNorm launch at each shape, are
-     held against their plain versions on the same inputs.
+     held against their plain versions on the same inputs. (d) The same
+     command at ``--mesh 1x2 --backend gloo`` (``MESH_ARGV``: 8 new
+     tokens, fp32 weights), one-shot and then continuous (8 requests): the command line
+     starts its two rank processes on the card (``launch.mesh.
+     spawn_ranks``); every rank launches flash, the dual RMSNorm and its
+     decode kernels, and rank 0's streams are held to the command at
+     ``--mesh 1x1`` under the near-tie rule. (e) The dry run at the JAX
+     package's grids, ``--mesh 16x16`` and ``--multi-pod``, for three
+     cells (``DRY_GRID_CELLS``): rank 0's step on meta tensors, each
+     collective recorded; no record may hold an error, and the card's
+     memory must not move.
  15. tensor parallel: serving at tp > 1 with every rank a process of its
      own on the one card, joined over gloo (NCCL refuses two ranks on one
      device; the NCCL paths stay unrun and are printed). (a) tinyllama-1.1b
@@ -222,11 +232,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      heads split, 2 a rank), the ranks' shards of bf16 weights from the
      seed: each
      rank first checks that gloo takes CUDA tensors for all_reduce SUM and
-     MAX (fp32, bf16, int64, int32), then ``sharded_generate`` (4 x 128,
-     10 new) and ``PagedEngine`` on half of phase 6's traffic in fp32
-     compute, held to tp = 1 in this process (near-tie rule), and timed
-     bf16 runs whose launches reconcile and whose decode launches are held
-     to their plain versions (``DecodeProbe``); (b) cut to 4 layers (one
+     MAX (fp32, bf16, int64, int32), then records the collectives of a
+     prefill (4 x 128) and one serve step, held in this process to the
+     dry run's record of the same structure, rank and step
+     (``make_dry_context``: kinds, bytes, group sizes, order), and runs
+     ``sharded_generate`` (10 new) and ``PagedEngine`` on half of phase
+     6's traffic as timed bf16 runs whose launches reconcile and whose
+     decode launches are held to their plain versions (``DecodeProbe``).
+     Its fp32 streams against tp = 1 are cut: phase 14 (d) holds the
+     full model's streams at tp = 2 to tp = 1. (b) cut to 4 layers (one
      pair, two single layers) at tp = 8: 4 kv heads under 8 ranks are
      replicated and rank r's q heads read stored head r // 2 through the
      paged kernels' head map; its tokens (fp32 compute, 8 new) equal tp =
@@ -436,6 +450,19 @@ SERVE_REQUESTS = 16
 SERVE_MODE_REQUESTS, SERVE_MODE_NEW = 8, 16
 SERVE_STEPS = {"continuous": (0, 100), "spec": (0, 16), "degraded": (0, 24)}
 MEM_TOL = 0.05      # the dry run's weights + page pool against memory_allocated
+# Phase 14 (d): the serve command at --mesh 1x2 over gloo, both ranks on the
+# one card, one-shot (4 x 128) and continuous (8 requests), 8 new tokens,
+# fp32 weights, each held to the same command at --mesh 1x1.
+MESH_NEW, MESH_REQUESTS = 8, 8
+MESH_ARGV = SERVE_ARGV[:SERVE_ARGV.index("--new-tokens")] + ["--new-tokens", str(MESH_NEW)]
+MESH_RANKS = ["--mesh", "1x2", "--backend", "gloo"]
+# Phase 14 (e): the dry run at the JAX package's production grids, one rank's
+# step on meta tensors: yi-6b decode (4 kv heads under 16 ranks: the seq
+# ring), dbrx-132b decode (FSDP gathers), tinyllama train (the ZeRO
+# reduction, accum 4 / 2).
+DRY_GRID_CELLS = (("yi-6b", "decode_32k"), ("dbrx-132b", "decode_32k"),
+                  ("tinyllama-1.1b", "train_4k"))
+DRY_GRIDS = {"16x16": ["--mesh", "16x16"], "mp": ["--multi-pod"]}
 # Paged decode with a head map (phase 3): (model, q's kv heads H, g, hd,
 # stored heads of the pool, {map name: head map}). tinyllama's rank shape at
 # tp = 8 (4 q heads of one replicated kv head: g = 4, map [rank // 2]) and
@@ -3764,7 +3791,110 @@ def tools_path(smi):
         f"{tuple(toks.shape)}; launches {by_path['quickstart']}")
     if toks.device.type != "cuda" or not by_path["quickstart"]["flash_attention"]:
         raise AssertionError("the quickstart did not run on the card")
+    del mod, toks
+    # (d) the serve command's ranks at --mesh 1x2, (e) the grid dry runs
+    mesh_paths, out["mesh"] = serve_mesh()
+    by_path.update(mesh_paths)
+    out["dryrun_grids"] = dryrun_grids()
     return by_path, out
+
+
+def serve_mesh():
+    """Phase 14 (d): ``launch.serve.main(MESH_ARGV + MESH_RANKS)``, the
+    command line's own launch of two rank processes over gloo on the card
+    (``launch.mesh.spawn_ranks``), one-shot and then continuous. Every rank
+    must launch flash, the dual RMSNorm and a decode kernel (the ring forms
+    one-shot, the paged forms continuous); rank 0's streams are held to the
+    same command at --mesh 1x1 in this process under ``held_to``'s
+    near-tie rule, both in fp32 weights (``main(dtype=)``: tp = 2 and tp =
+    1 then differ only in the order of the sums). Returns ({path: launches summed over the ranks},
+    metrics)."""
+    import torch
+    from repro_torch.launch import serve
+
+    by_path, out = {}, {}
+    for mode, extra in (("oneshot", []),
+                        ("continuous", ["--continuous", "--requests", str(MESH_REQUESTS)])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = serve.main(MESH_ARGV + extra, dtype=torch.float32)
+        t = time.perf_counter()
+        got = serve.main(MESH_ARGV + extra + MESH_RANKS, dtype=torch.float32)
+        run_s = time.perf_counter() - t
+        decode = (("decode_attention_paged", "decode_attention_pair_paged")
+                  if extra else ("decode_attention", "decode_attention_pair"))
+        for rank, launches in enumerate(got["rank_launches"]):
+            if not (launches["flash_attention"] and launches["dual_rmsnorm"]
+                    and sum(launches[k] for k in decode)):
+                raise AssertionError(f"serve --mesh 1x2 {mode}: rank {rank} launched "
+                                     f"{launches}")
+        prompts, ms, params = ref["prompts"], ref["ms"], ref["params"]
+        if extra:
+            work = [(0, prompt, MESH_NEW) for prompt in prompts]
+            want = [ref["results"][r] for r in sorted(ref["results"])]
+            streams = [got["results"][r] for r in sorted(got["results"])]
+            max_len = ref["engine"].psv.max_len
+            pool = got["pool"]
+            if pool["allocated"] != pool["freed"] or pool["live"] != pool["resident"]:
+                raise AssertionError(f"serve --mesh 1x2 continuous: pool {pool}")
+        else:
+            work = [(0, prompt, MESH_NEW) for prompt in prompts.numpy()]
+            want, streams = ref["tokens"].cpu().numpy(), got["tokens"].numpy()
+            max_len = prompts.shape[1] + MESH_NEW + 8
+        n_equal = held_to(f"serve --mesh 1x2 {mode}", [(params, ms)] * len(work), work,
+                          list(streams), list(want), max_len=max_len)
+        by_path[f"serve_mesh_{mode}"] = {
+            k: sum(r[k] for r in got["rank_launches"]) for k in got["rank_launches"][0]}
+        out[mode] = {"run_s": run_s, "rank0_run_s": got["run_s"],
+                     "rank_launches": got["rank_launches"],
+                     "streams_equal_to_1x1": n_equal, "streams": len(work)}
+        log(f"[tools] serve --mesh 1x2 --backend gloo {mode}: {n_equal}/{len(work)} "
+            f"streams of rank 0 equal to --mesh 1x1 (fp32; the rest at near-ties); "
+            f"launches per rank {got['rank_launches']}; command {run_s:.1f} s, rank 0's "
+            f"run {got['run_s']:.3f} s")
+        del ref, got, params
+    return by_path, out
+
+
+def dryrun_grids():
+    """Phase 14 (e): the dry run of ``DRY_GRID_CELLS`` at ``--mesh 16x16``
+    and ``--multi-pod``: rank 0's step on meta tensors, collectives
+    recorded, no process started and nothing allocated on the card. No
+    record may hold an error; each must have recorded collectives over its
+    grid's axes. Returns {grid: {cell: record summary}, "s": seconds}."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import dryrun
+    build = ROOT / "build"
+    t = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    out = {}
+    for name, argv in DRY_GRIDS.items():
+        path = build / f"dryrun_torch_grid_{name}.json"
+        path.unlink(missing_ok=True)
+        for arch, shape in DRY_GRID_CELLS:
+            with contextlib.redirect_stdout(io.StringIO()):
+                dryrun.main(["--arch", arch, "--shape", shape, *argv, "--out", str(path)])
+        recs = json.loads(path.read_text())
+        out[name] = {}
+        for k, r in recs.items():
+            if "error" in r or not r["coll"].get("total"):
+                raise AssertionError(f"dry run {name} {k}: {r.get('error', r['coll'])}")
+            out[name][k] = {"chips": r["chips"], "fsdp": r["fsdp"], "kv_mode": r["kv_mode"],
+                            "accum": r["accum"], "peak_gb": r["memory"]["peak_gb"],
+                            "coll": r["coll"], "s": r["compile_s"]}
+            log(f"[tools] dry run {name} {k}: {r['chips']} ranks, kv {r['kv_mode']}, "
+                f"fsdp {r['fsdp']}, accum {r['accum']}: rank 0 holds >= "
+                f"{r['memory']['peak_gb']:.2f} GiB, its step's collectives "
+                f"{r['coll']['n_ops']:.0f} all_reduce, {r['coll']['total'] / 1e9:.4f} GB "
+                f"on the wire ({ {a: round(v / 1e9, 4) for a, v in r['coll'].items() if a.startswith('axis:')} } GB)")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("the dry run allocated memory on the card")
+    out["s"] = time.perf_counter() - t
+    log(f"[tools] dry run of {len(DRY_GRID_CELLS)} cells at {list(DRY_GRIDS)}: "
+        f"{out['s']:.1f} s")
+    return out
 
 # ---------------------------------------------------------------------------
 # phase 15: tensor-parallel serving, the ranks as processes on one card
@@ -3862,18 +3992,24 @@ def tp_probe(got):
     return sorted(got[0]["probe"])
 
 
-def tp_model(pc, n_layers=TP2_LAYERS, eff_depth=TP2_EFF_DEPTH):
-    """tinyllama-1.1b at its published widths cut to its first
-    ``n_layers`` layers under plan_for_depth(``eff_depth``) at the
-    context's tp, bf16 random weights from the seed made on the card: the
-    rank's shard of the weights tp = 1 makes (``init_params(rank=)``)."""
+def tp_structure(tp, n_layers=TP2_LAYERS, eff_depth=TP2_EFF_DEPTH):
+    """(cfg, ms): tinyllama-1.1b at its published widths cut to its first
+    ``n_layers`` layers under plan_for_depth(``eff_depth``) at ``tp``."""
     import dataclasses
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.core.lp import plan_for_depth
     from repro_torch.model import transformer as T
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=n_layers)
-    ms = T.build_structure(cfg, plan=plan_for_depth(cfg, eff_depth), tp=pc.tp_size)
+    return cfg, T.build_structure(cfg, plan=plan_for_depth(cfg, eff_depth), tp=tp)
+
+
+def tp_model(pc, n_layers=TP2_LAYERS, eff_depth=TP2_EFF_DEPTH):
+    """``tp_structure`` at the context's tp, bf16 random weights from the
+    seed made on the card: the rank's shard of the weights tp = 1 makes
+    (``init_params(rank=)``)."""
+    import torch
+    from repro_torch.model import transformer as T
+    cfg, ms = tp_structure(pc.tp_size, n_layers, eff_depth)
     params = T.init_params(ms, torch.Generator(device="cuda").manual_seed(SEED),
                            torch.bfloat16, device="cuda",
                            rank=pc.rank if pc.tp_size > 1 else None)
@@ -4016,6 +4152,48 @@ def tp_timed(pc, cfg, ms, params, work, n_new, *, generate_too, engine_too=True,
                      "bucket_groups": c["bucket_groups"],
                      "decode_path_max_abs_err": err}
     return out
+
+
+def tp_step_records(pc, ms, params, prompts):
+    """The collectives, as ``parallel.context.COLLECTIVES`` records them, of
+    a prefill of ``prompts`` with its argmax and of one ``make_serve_step``
+    decode step after it (bf16 ring cache): {"prefill": [...], "decode":
+    [...]}. Under ``make_dry_context`` on meta tensors it is the dry run's
+    record of the same step."""
+    import torch
+    from repro_torch.model import embedding as E
+    from repro_torch.parallel import context
+    from repro_torch.serve import ServeConfig, make_prefill, make_serve_step
+    sv = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+    with torch.no_grad():
+        context.reset_all_reduces()
+        logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+        tok = E.vocab_parallel_argmax(logits, pc)
+        prefill = context.recorded()
+        context.reset_all_reduces()
+        make_serve_step(ms, pc, sv)(params, tok, caches, prompts.shape[1])
+        decode = context.recorded()
+    context.reset_all_reduces()
+    return {"prefill": prefill, "decode": decode}
+
+
+def tp_records_held(ms, got):
+    """Phase 15 (a): each rank's real record (``tp_step_records`` over
+    gloo) equal to the dry run's for the same structure, rank and step
+    (``make_dry_context``, meta weights and prompts): kinds, bytes, group
+    sizes, axes and order. Returns the dry record's collective bytes."""
+    import torch
+    from repro_torch.analysis.roofline import collective_bytes
+    from repro_torch.model import transformer as T
+    from repro_torch.parallel.context import make_dry_context
+    for rank, r in enumerate(got):
+        dry = tp_step_records(make_dry_context(1, 1, ms.tp, rank=rank), ms,
+                              T.abstract_params(ms, torch.bfloat16, rank=rank),
+                              torch.empty((B, S), dtype=torch.int64, device="meta"))
+        if dry != r["records"]:
+            raise AssertionError(f"tp={ms.tp} rank {rank}: the real collectives differ "
+                                 f"from the dry run's:\n{r['records']}\n{dry}")
+    return {part: collective_bytes(recs) for part, recs in got[0]["records"].items()}
 
 
 def tp_decode_all_reduces(pc, ms, params, work):
@@ -4243,15 +4421,16 @@ def tp_encdec(pc, name, *, timed, modes=None):
 def tp_case_tp2(pc):
     """Rank of (a): first the probe (``tp_case_probe``), then tinyllama-1.1b,
     ``TP2_LAYERS`` layers, plan_for_depth(``TP2_EFF_DEPTH``), at tp = 2 (kv
-    heads split: 2 of the 4 a rank); then (c), the families, and (d), the
-    encoder-decoder and the prefix-LM."""
+    heads split: 2 of the 4 a rank): the collectives of a prefill and a
+    serve step (``tp_step_records``), the timed runs, a decode step's
+    all_reduce count; then (c), the families, and (d), the encoder-decoder
+    and the prefix-LM."""
     import torch
     probe = tp_case_probe(pc)
     cfg, ms, params = tp_model(pc)
     work = tp_traffic(cfg.vocab_size, TP2_NEW)
     log(f"[tp2] rank {pc.rank}: {ms.dims}")
-    gen, streams = tp_streams(pc, cfg, ms, params, work, TP2_NEW)
-    out = {"probe": probe, "generate": gen, "engine": streams,
+    out = {"probe": probe, "records": tp_step_records(pc, ms, params, tp_prompts(cfg)),
            "timed": tp_timed(pc, cfg, ms, params, work, TP2_NEW, generate_too=True),
            "all_reduces": tp_decode_all_reduces(pc, ms, params, work),
            "weights_bytes": sum(p.numel() * p.element_size() for p in params.parameters())}
@@ -5022,13 +5201,13 @@ def tp_encdec_held(name, want, got):
 def tp_path():
     """Phase 15: tensor-parallel serving over ``TP_BACKEND``, every rank a
     process on the one card. (a) tp = 2, tinyllama at ``TP2_LAYERS`` layers:
-    streams in fp32 compute held to tp = 1 (near-tie rule), timed bf16 runs
-    probed; (c) the four families and (d) whisper and paligemma (both kv
-    modes) in (a)'s ranks, held the same way; (b) tp = 8 at ``TP8_LAYERS``
+    the collectives of a prefill and a serve step held to the dry run's
+    record, timed bf16 runs probed; (c) the four families and (d) whisper
+    and paligemma (both kv modes) in (a)'s ranks, held to tp = 1 (near-tie
+    rule); (b) tp = 8 at ``TP8_LAYERS``
     layers: the head-mapped paged kernels on every rank, tokens == tp = 1,
     and (e) the sequence-sharded ring: tokens == the heads mode's == tp =
     1's. Returns ({path: launches}, metrics)."""
-    import numpy as np
     import torch
     by_path = {}
 
@@ -5045,37 +5224,28 @@ def tp_path():
         t1 = time.perf_counter()
         fam_ref[name] = tp_encdec(ParallelContext(), name, timed=False, modes=("heads",))
         fam_ref_s[name] = time.perf_counter() - t1
-    cfg, ms, params, work, gen1, eng1 = tp_reference(TP2_NEW)
+    cfg, ms = tp_structure(TP2)
     ref_s = time.perf_counter() - t
     t = time.perf_counter()
     got = tp_spawn("tp2", TP2)
     tp2_s = time.perf_counter() - t
     metrics = {"backend": TP_BACKEND, "probe_dtypes": tp_probe(got),
                "nccl_not_run": TP_NCCL_NOT_RUN}
-    tp_check_ranks("tp=2", got)
-    gen_work = [(0, p, TP2_NEW) for p in tp_prompts(cfg).cpu().numpy()]
-    models = [(params, ms)] * len(work)
-    set_compute_dtype(params, torch.float32)
-    n_gen = held_to("tp2 sharded_generate", models[:B], gen_work,
-                    [np.array(x) for x in got[0]["generate"]], [np.array(x) for x in gen1])
-    n_eng = held_to("tp2 engine", models, work, [np.array(x) for x in got[0]["engine"]],
-                    [np.array(x) for x in eng1])
-    set_compute_dtype(params, torch.bfloat16)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    # (a)'s streams are the serve command's at --mesh 1x2 (phase 14 (d));
+    # here the ranks' collectives are held to the dry run's
+    coll = tp_records_held(ms, got)
     for path, launches in tp_launches([r["timed"] for r in got]).items():
         by_path[f"tp2_{path}"] = launches
     metrics["tp2"] = {"world": TP2, "layers": cfg.n_layers, "groups": model_counts(ms)[0],
                       "tp1_reference_s": ref_s, "run_s": tp2_s,
-                      "generate_equal": n_gen, "generate_streams": B,
-                      "engine_equal": n_eng, "engine_streams": len(work),
+                      "records_equal_dry": True, "collective_bytes": coll,
                       "rank0": got[0]["timed"], "rank_weights_bytes": got[0]["weights_bytes"],
                       "all_reduces": got[0]["all_reduces"]}
-    log(f"[tp2] {TP_BACKEND}, world {TP2}: sharded_generate {n_gen}/{B} and engine "
-        f"{n_eng}/{len(work)} streams equal to tp = 1 (fp32 compute; the rest at "
-        f"near-ties); tp = 1 references (with (c)'s) {ref_s:.1f} s, ranks (with "
-        f"(c)) {tp2_s:.1f} s")
+    log(f"[tp2] {TP_BACKEND}, world {TP2}: every rank's collectives of a prefill "
+        f"({coll['prefill']['n_ops']:.0f} all_reduce, {coll['prefill']['total']:.0f} B) and "
+        f"a serve step ({coll['decode']['n_ops']:.0f}, {coll['decode']['total']:.0f} B on "
+        f"the wire) equal the dry run's record (kinds, bytes, groups, axes, order); "
+        f"tp = 1 references of (c) and (d) {ref_s:.1f} s, ranks (with (c)) {tp2_s:.1f} s")
 
     # (c) the families, from the same ranks
     metrics["tp2_families"] = {}

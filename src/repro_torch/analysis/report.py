@@ -1,4 +1,6 @@
-"""Render the one-card dry run's JSON (``launch/dryrun.py``) as tables.
+"""Render the dry run's JSON (``launch/dryrun.py``) as tables: one card,
+LP on and off, and rank 0 of the single-pod and multi-pod grids, as the
+JAX package's ``report.main`` renders its dry runs.
 
     PYTHONPATH=src python -m repro_torch.analysis.report [--results DIR]
 """
@@ -12,6 +14,12 @@ from repro_torch.analysis.roofline import HBM_BYTES
 from repro_torch.launch.dryrun import RESULTS
 
 TITLE = "one NVIDIA H100 80GB HBM3 (700 W), tp = 1"
+TABLES = (("dryrun_torch", f"{TITLE}, LP (default plan)"),
+          ("dryrun_torch_nolp", f"{TITLE}, no LP"),
+          ("dryrun_torch_16x16", "Single pod — (data=16, model=16), 256 H100s, "
+                                 "rank 0, LP"),
+          ("dryrun_torch_mp", "Multi-pod — (pod=2, data=16, model=16), 512 H100s, "
+                              "rank 0, LP"))
 
 
 def load(results: Path, name: str):
@@ -22,23 +30,23 @@ def load(results: Path, name: str):
 def roofline_table(d, *, title):
     lines = [f"### {title}", "",
              "| cell | bneck | t_comp (s) | t_mem (s) | t_coll (s) | "
-             "coll ops | peak GiB (≥) | MF/HF | roofline |",
-             "|---|---|---|---|---|---|---|---|---|"]
+             "coll ops | coll GB | peak GiB (≥) | MF/HF | roofline |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
     for k in sorted(d):
         v = d[k]
         if "skipped" in v:
-            lines.append(f"| {k} | — | — | — | — | — | — | — | "
+            lines.append(f"| {k} | — | — | — | — | — | — | — | — | "
                          f"skip: {v['skipped'][:40]} |")
             continue
         if "error" in v:
-            lines.append(f"| {k} | ERROR {v['error'][:60]} | | | | | | | |")
+            lines.append(f"| {k} | ERROR {v['error'][:60]} | | | | | | | | |")
             continue
         r = v["roofline"]
         m = v["memory"]["peak_gb"]
         lines.append(
             f"| {k} | {r['bottleneck']} | {r['t_compute_s']:.4f} | "
             f"{r['t_memory_s']:.4f} | {r['t_collective_s']:.4f} | "
-            f"{int(r.get('coll_ops', 0))} | {m:.2f} | "
+            f"{int(r.get('coll_ops', 0))} | {r['coll_gbytes']:.3f} | {m:.2f} | "
             f"{r['useful_fraction']:.3f} | {r['roofline_fraction']:.3f} |")
     return "\n".join(lines)
 
@@ -56,13 +64,12 @@ def summary_stats(d):
 
 def render(results: Path) -> str:
     out = []
-    for name, label in (("dryrun_torch", "LP (default plan)"),
-                        ("dryrun_torch_nolp", "no LP")):
+    for name, title in TABLES:
         d = load(results, name)
         if not d:
             out.append(f"[{name}: no results yet]\n")
             continue
-        out += [roofline_table(d, title=f"{TITLE}, {label}"), "",
+        out += [roofline_table(d, title=title), "",
                 f"**Summary:** {summary_stats(d)}", ""]
     return "\n".join(out)
 

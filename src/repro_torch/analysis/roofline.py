@@ -15,10 +15,12 @@ The three terms (seconds, per device, per step):
     memory     = bytes accessed / HBM_BW
     collective = wire bytes / LINK_BW + COLL_LAT per collective
 
-At tp = 1 there is no collective, and the term is 0. The counterparts of
-the JAX package's HLO parsing (``collective_bytes``) and its jaxpr launch
-counter wait for tensor parallelism; the port counts kernel launches in
-its wrappers (``kernels.ops.LAUNCHES``).
+At tp = 1 there is no collective, and the term is 0. Above it,
+``collective_bytes`` prices the collectives a rank's step issued, as
+``parallel.context.COLLECTIVES`` records them (the dry run's record, or a
+real rank's), where the JAX package parses them from the partitioned HLO.
+The port counts kernel launches in its wrappers (``kernels.ops.LAUNCHES``)
+where the JAX package counts ``pallas_call`` in a jaxpr.
 """
 from __future__ import annotations
 
@@ -30,6 +32,40 @@ HBM_BW = 3.35e12          # bytes/s
 HBM_BYTES = 80e9          # bytes of device memory
 LINK_BW = 450e9           # bytes/s, NVLink, each way
 COLL_LAT = 1e-6           # per-collective launch + hop latency
+
+
+def collective_bytes(records) -> Dict[str, float]:
+    """Per-rank wire bytes of a record of collectives
+    (``parallel.context.COLLECTIVES``), in the JAX package's dict:
+    ``all-reduce`` and ``total`` (bytes), ``count:all-reduce`` and
+    ``n_ops``.
+
+    The JAX package's ring model, with n the group's size and R the
+    buffer's bytes: an all-reduce moves 2 (n - 1) / n R. Every port
+    collective issues one all-reduce, so it is priced by what it issues:
+    a gather of n blocks of |x| reduces a buffer of n |x| and moves 2 (n -
+    1) |x|, twice what an all-gather moves (XLA's); a sum-and-scatter
+    moves 2 (n - 1) / n |x| where a reduce-scatter moves (n - 1) / n |x|.
+    ``computed:<kind>`` keeps the bytes of each kind the records compute
+    (sum, max, gather, scatter; ``count:computed:<kind>`` their number)
+    and ``axis:<axis>`` the bytes over each axis (tp, dp, data, pod), so
+    the difference shows."""
+    out: Dict[str, float] = {}
+
+    def add(key, v):
+        out[key] = out.get(key, 0) + v
+    for r in records:
+        n = r["group"]
+        wire = 2.0 * r["bytes"] * (n - 1) / n
+        op = r["issues"].replace("_", "-")
+        add(op, wire)
+        add("total", wire)
+        add(f"count:{op}", 1)
+        add("n_ops", 1)
+        add(f"computed:{r['computed']}", wire)
+        add(f"count:computed:{r['computed']}", 1)
+        add(f"axis:{r['axis']}", wire)
+    return out
 
 
 @dataclass

@@ -7,6 +7,11 @@ on the device its tensors lie on:
     built on ``repro_torch.kernels.ref``);
   * CUDA tensors launch the hand-written Hopper kernel, or raise.
 
+  * "meta" tensors (the dry run, ``launch/dryrun.py``) give empty outputs
+    of the kernel's shapes and dtypes on meta: the counterpart of a
+    ``pallas_call``'s abstract evaluation. Nothing is computed and no
+    launch is counted.
+
 There is no fallback and no switch that runs the plain version on a CUDA
 tensor. ``LAUNCHES`` counts kernel launches per wrapper; it moves only where
 a kernel is launched, so a run can show which kernels its path went
@@ -41,6 +46,32 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def _refuse_grad(tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a kernel has no backward: its output would carry no gradient. "
+            "Run it under torch.no_grad(), or take the differentiable "
+            "forward (transformer.loss_fn(differentiable=True))")
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on "meta" (the wrapper then returns
+    empty outputs); False when none does; raises on a mix, and for a meta
+    tensor that requires grad under grad mode, as ``_on_card``."""
+    meta = [t.device.type == "meta" for t in tensors]
+    if any(meta) and not all(meta):
+        raise ValueError(f"inputs on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if meta[0]:
+        _refuse_grad(tensors)
+    return meta[0]
+
+
+def _empty(like: torch.Tensor, shape=None, dtype=None) -> torch.Tensor:
+    return torch.empty(like.shape if shape is None else shape,
+                       dtype=like.dtype if dtype is None else dtype, device="meta")
+
+
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises otherwise, and
     for a tensor off the CPU that requires grad under grad mode (the kernel
@@ -51,11 +82,7 @@ def _on_card(*tensors: torch.Tensor) -> bool:
                          f"{[str(t.device) for t in tensors]}")
     if dev.type == "cpu":
         return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "a kernel has no backward: its output would carry no gradient. "
-            "Run it under torch.no_grad(), or take the differentiable "
-            "forward (transformer.loss_fn(differentiable=True))")
+    _refuse_grad(tensors)
     if dev.type == "cuda":
         return True
     raise ValueError(f"no kernel for device {dev}")
@@ -74,6 +101,8 @@ def dual_rmsnorm_plain(x, sa, sb, *, eps=1e-6, plus_one=False):
 def dual_rmsnorm(x, sa, sb, *, eps=1e-6, plus_one=False):
     """x: [..., D] -> [2, ..., D]: the two per-path norms (LP pair) stacked
     on a leading axis, so ``ya, yb = dual_rmsnorm(...)`` unpacks them."""
+    if _on_meta(x, sa, sb):
+        return _empty(x, (2, *x.shape))
     if not _on_card(x, sa, sb):
         return dual_rmsnorm_plain(x, sa, sb, eps=eps, plus_one=plus_one)
     from repro_torch.kernels import dual_rmsnorm as K
@@ -112,6 +141,8 @@ def flash_attention(q, k, v, *, kind="causal", window=0, chunk=0,
     [B, S, H, g, hd]. ``block_n`` is the kv tile width, fixed by the caller
     and never clamped to T. ``q0`` is an int, or an int32 tensor [B] of
     per-row query offsets on the inputs' device."""
+    if _on_meta(q, k, v, *([q0] if torch.is_tensor(q0) else [])):
+        return _empty(q)
     if not _on_card(q, k, v, *([q0] if torch.is_tensor(q0) else [])):
         return flash_attention_plain(q, k, v, kind=kind, window=window,
                                      chunk=chunk, prefix_len=prefix_len,
@@ -133,6 +164,8 @@ decode_attention_pair_plain = ref.decode_attention_pair_ref
 
 def decode_attention(q, k, v, t_valid):
     """q: [B, Hkv, g, hd]; k, v: [B, L, Hkv, hd] -> [B, Hkv, g, hd]."""
+    if _on_meta(q, k, v):
+        return _empty(q)
     if not _on_card(q, k, v):
         return decode_attention_plain(q, k, v, t_valid)
     from repro_torch.kernels import decode_attention as K
@@ -146,6 +179,8 @@ def decode_attention_pair(q, k, v, t_valid):
     (the stacked pair cache) -> [2, B, Hkv, g, hd] in one kernel launch."""
     if q.shape[0] != 2 or k.shape[0] != 2:
         raise ValueError(f"pair decode shapes {tuple(q.shape)}, {tuple(k.shape)}")
+    if _on_meta(q, k, v):
+        return _empty(q)
     if not _on_card(q, k, v):
         return decode_attention_pair_plain(q, k, v, t_valid)
     from repro_torch.kernels import decode_attention as K
@@ -168,6 +203,9 @@ def _paged(name, q, k_pages, v_pages, block_tables, t_valid, head_map):
     (int32 [Hkv] on the inputs' device, or None) is checked on every
     device before it is used."""
     from repro_torch.kernels import decode_attention as K
+    if _on_meta(q, k_pages, v_pages, block_tables, t_valid,
+                *([head_map] if torch.is_tensor(head_map) else [])):
+        return _empty(q)
     if head_map is not None:
         K.check_head_map(head_map, q.shape[2], k_pages.shape[3], q.device)
     if not _on_card(q, k_pages, v_pages, block_tables, t_valid):
@@ -223,6 +261,8 @@ def ssm_scan(a, b, h0, *, block_s=256, block_c=128):
     hT [B, C, N] fp32). The JAX signature: ``block_s``/``block_c`` tile the
     TPU kernel and change nothing here (the card's kernel has no tiles
     over S or C)."""
+    if _on_meta(a, b, h0):
+        return _empty(a), _empty(h0, dtype=torch.float32)
     if not _on_card(a, b, h0):
         return ssm_scan_plain(a, b, h0)
     from repro_torch.kernels import ssm_scan as K

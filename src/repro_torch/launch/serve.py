@@ -16,14 +16,26 @@ kernels; ``--device cpu`` runs the same code through the kernels' plain
 versions, on the reduced config unless ``--full-config``. The weights are
 random bf16 from a generator seeded with 0, the synthetic prompts come from
 a CPU generator seeded with 1 (the JAX package draws both from threefry,
-which torch cannot replay), and the cache takes the weights' type. Only
-``--mesh 1x1`` runs: the command line does not start the rank processes
-of tensor-parallel serving (ROADMAP item 10.4).
+which torch cannot replay), and the cache takes the weights' type.
+
+Tensor-parallel serving over M ranks (``--mesh 1xM``, greedy one-shot or
+continuous) starts one process per rank (``launch.mesh.spawn_ranks``),
+each with its shard of the same global weights and the same prompts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 1x2 \
+        --backend gloo [--continuous]
+
+``--backend nccl`` (the default) puts rank r on card r and needs M cards;
+``--backend gloo`` runs the ranks on one card (or, with ``--device cpu``,
+on the CPU). Rank 0 prints what a one-rank run prints, with ``tp=M``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import sys
 import time
 from typing import Any, Dict, List
 
@@ -32,12 +44,15 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.lp import EMPTY_PLAN, plan_for_depth
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks
 from repro_torch.model import transformer as T
 from repro_torch.model.params import as_tree
-from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.context import BACKENDS, ParallelContext
 from repro_torch.serve import (AdmissionConfig, DegradeConfig, PagedEngine,
                                PagedServeConfig, QueueFullError, ServeConfig,
-                               SpecConfig, TelemetryConfig, generate)
+                               SpecConfig, TelemetryConfig, generate,
+                               sharded_generate)
 
 WEIGHT_SEED, PROMPT_SEED, SAMPLE_SEED = 0, 1, 2
 
@@ -59,26 +74,6 @@ def _parse_buckets(text: str):
             "comma-separated ints like '8,16,32'")
 
 
-def check_mesh(spec: str) -> None:
-    """Accept the 'DxM' spec '1x1' (one device); refuse the rest."""
-    try:
-        d, m = (int(x) for x in spec.lower().split("x"))
-    except ValueError:
-        raise ValueError(f"mesh spec must be DxM (e.g. 1x2), got {spec!r}")
-    if d < 1 or m < 1:
-        raise ValueError(f"mesh axes must be >= 1, got {spec!r}")
-    if d > 1:
-        raise ValueError(
-            f"mesh {spec!r}: serving shards only the model axis; use 1xM "
-            "(data-parallel serving means running engine replicas)")
-    if m > 1:
-        raise NotImplementedError(
-            f"mesh {spec!r}: the command line does not launch the {m} rank "
-            "processes of tensor-parallel serving yet (ROADMAP item 10.4); "
-            "serve.sharded_generate and PagedEngine(pc=) run at tp > 1 in "
-            "processes the caller starts")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -97,8 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-size", type=int, default=16,
                     help="(--continuous) tokens per cache page")
     ap.add_argument("--mesh", default="1x1",
-                    help="1xM device mesh; only 1x1 runs (launching the "
-                         "tensor-parallel ranks is ROADMAP item 10.4)")
+                    help="1xM: tensor parallel over M rank processes "
+                         "(greedy one-shot, or --continuous)")
+    ap.add_argument("--backend", choices=BACKENDS, default="nccl",
+                    help="(--mesh 1xM, M > 1) the ranks' backend: nccl (a "
+                         "card a rank) or gloo (the ranks share one card, or "
+                         "run on the CPU with --device cpu)")
     ap.add_argument("--preempt-after", type=int, default=0,
                     help="(--continuous) blocked-head steps before the "
                          "youngest running request is preempted (0 = off)")
@@ -179,18 +178,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args, dtype=torch.bfloat16):
-    """(cfg, ms, params) of a run: random weights in ``dtype`` on
-    ``args.device``, from a generator there seeded with WEIGHT_SEED."""
-    check_mesh(args.mesh)
+def structure(args):
+    """(cfg, ms) of a run: the config (reduced unless ``--full-config``)
+    under ``--eff-depth``'s plan at ``--mesh``'s tp."""
+    _, m = make_serving_mesh(args.mesh, backend=args.backend, device=args.device)
     cfg = get_config(args.arch)
     if not args.full_config:
         cfg = reduced_config(cfg)
     plan = (plan_for_depth(cfg, args.eff_depth) if args.eff_depth
             else EMPTY_PLAN)
-    ms = T.build_structure(cfg, plan=plan, tp=1)
-    gen = torch.Generator(device=args.device).manual_seed(WEIGHT_SEED)
-    params = T.init_params(ms, gen, dtype, device=args.device)
+    return cfg, T.build_structure(cfg, plan=plan, tp=m)
+
+
+def build(args, dtype=torch.bfloat16, *, rank=None, device=None):
+    """(cfg, ms, params) of a run: random weights in ``dtype`` on
+    ``device`` (default ``args.device``), from a generator there seeded
+    with WEIGHT_SEED. At ``--mesh 1xM``, M > 1, rank ``rank``'s shard of
+    them (every rank draws the same global weights)."""
+    cfg, ms = structure(args)
+    device = device or args.device
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    params = T.init_params(ms, gen, dtype, device=device, rank=rank)
     return cfg, ms, params
 
 
@@ -256,15 +264,16 @@ def paged_config(args, cache_dtype) -> PagedServeConfig:
 
 
 def run_continuous(params, ms: T.ModelStructure, prompts: List[np.ndarray],
-                   args) -> Dict[str, Any]:
+                   args, pc=None) -> Dict[str, Any]:
     """Submit every prompt to a ``PagedEngine`` on the weights' device, then
     drain it. Returns the engine, its streams (``results``, by request id),
     the host seconds of submit + drain (``run_s``) and the arrivals a full
-    queue turned away (``rejected``)."""
+    queue turned away (``rejected``). ``pc``: the rank's context at tp >
+    1."""
     cfg = ms.cfg
     dev, dtype = _weights_place(params)
     psv = paged_config(args, dtype)
-    eng = PagedEngine(params, ms, psv, generator=_sampler(args, dev))
+    eng = PagedEngine(params, ms, psv, pc=pc, generator=_sampler(args, dev))
     _sync(dev)
     t0 = time.perf_counter()
     rejected = 0
@@ -326,15 +335,20 @@ def run_continuous(params, ms: T.ModelStructure, prompts: List[np.ndarray],
 
 
 def run_oneshot(params, ms: T.ModelStructure, prompts: torch.Tensor,
-                args) -> Dict[str, Any]:
+                args, pc=None) -> Dict[str, Any]:
     """``generate`` on the weights' device, twice: a warm call (on the card
     it includes building the kernels and their first launches) and a timed
     call that ends when the device is done. Returns the timed call's tokens
     [batch, new], its seconds (``run_s``, and ``prefill_s`` / ``decode_s``
-    from ``generate``'s timings) and the warm call's (``compile_s``)."""
+    from ``generate``'s timings) and the warm call's (``compile_s``). At tp
+    > 1 (``pc``, the rank's context) the calls are ``sharded_generate``,
+    greedy only."""
     cfg = ms.cfg
     dev, dtype = _weights_place(params)
-    pc = ParallelContext()
+    pc = pc or ParallelContext()
+    if pc.tp_size > 1 and args.temperature != 0.0:
+        raise ValueError("--mesh one-shot is greedy-only (--temperature 0)")
+    run = sharded_generate if pc.tp_size > 1 else generate
     batch, prompt_len = prompts.shape
     sv = ServeConfig(max_len=prompt_len + args.new_tokens + 8,
                      temperature=args.temperature, cache_dtype=dtype)
@@ -348,9 +362,9 @@ def run_oneshot(params, ms: T.ModelStructure, prompts: torch.Tensor,
                                        dtype=dtype, device=dev)
 
     def gen(timings=None):
-        return generate(params, prompts, args.new_tokens, ms=ms, pc=pc, sv=sv,
-                        generator=_sampler(args, dev), timings=timings,
-                        **extras)
+        sampler = {} if pc.tp_size > 1 else {"generator": _sampler(args, dev)}
+        return run(params, prompts, args.new_tokens, ms=ms, pc=pc, sv=sv,
+                   timings=timings, **sampler, **extras)
 
     t0 = time.perf_counter()
     gen()
@@ -362,18 +376,57 @@ def run_oneshot(params, ms: T.ModelStructure, prompts: torch.Tensor,
     _sync(dev)
     run = time.perf_counter() - t0
     tput = batch * args.new_tokens / run
+    tp = f"tp={ms.tp} " if ms.tp > 1 else ""
     print(f"arch={cfg.name} eff_depth={ms.effective_depth}/{cfg.n_layers} "
-          f"batch={batch} new={args.new_tokens}")
+          f"{tp}batch={batch} new={args.new_tokens}")
     print(f"compile={compile_time:.2f}s run={run:.3f}s throughput={tput:.1f} tok/s")
     print("sample:", out[0, :16].tolist())
     return {"tokens": out, "run_s": run, "compile_s": compile_time, **timings}
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Parse ``argv``, build the model and prompts, serve them. Returns the
-    run's pieces (``cfg``, ``ms``, ``params``, ``prompts`` and what
-    ``run_oneshot`` or ``run_continuous`` returned) to a caller in the same
-    process."""
+def serve_rank(pc, device, *, argv, dtype) -> Dict[str, Any]:
+    """One rank of ``--mesh 1xM``: its shard of the weights, the same
+    prompts as every rank, then the one-shot or continuous run under its
+    context. Returns what the parent can take across processes: the
+    tokens or streams, the seconds, the engine's counters and pool, the
+    rank's kernel launches (``ops.LAUNCHES``, from a zero at the start)
+    and the lines it printed (``stdout``: rank 0's; the others' are
+    dropped)."""
+    args = build_parser().parse_args(argv)
+    ops.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        cfg, ms, params = build(args, dtype, rank=pc.tp_index(), device=device)
+        prompts = synthetic_prompts(cfg, args,
+                                    torch.Generator().manual_seed(PROMPT_SEED))
+        if not args.continuous:
+            out = run_oneshot(params, ms, prompts, args, pc)
+            out["tokens"] = out["tokens"].cpu()
+        else:
+            out = run_continuous(params, ms, prompts, args, pc)
+            eng = out.pop("engine")
+            resident = eng.prefix.resident_pages if eng.prefix else 0
+            live = eng.pool.live
+            if eng.prefix:
+                eng.prefix.evict(resident, eng.pool)
+            eng.pool.check_balance()
+            out.update(counters=dict(eng.counters), steps=eng.step_count,
+                       pool={"allocated": eng.pool.allocated_total,
+                             "freed": eng.pool.freed_total,
+                             "live": live, "resident": resident})
+    out["launches"] = dict(ops.LAUNCHES)
+    out["stdout"] = [] if pc.tp_index() else printed.getvalue().splitlines()
+    return out
+
+
+def main(argv=None, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Parse ``argv``, build the model and prompts, serve them in weights
+    of ``dtype``. Returns the run's pieces (``cfg``, ``ms``, ``prompts``,
+    and at one rank ``params`` and what ``run_oneshot`` or
+    ``run_continuous`` returned) to a caller in the same process. At
+    ``--mesh 1xM``, M > 1, the ranks run in processes of their own
+    (``serve_rank``) and this returns rank 0's results with ``cfg``,
+    ``ms`` (the rank structure) and ``prompts``, and every rank's kernel
+    launches (``rank_launches``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.continuous and args.trace_out and not args.telemetry:
@@ -381,7 +434,25 @@ def main(argv=None) -> Dict[str, Any]:
     dev = torch.device(args.device)
     print("device=" + (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else dev.type))
-    cfg, ms, params = build(args)
+    grid, _ = make_serving_mesh(args.mesh, backend=args.backend, device=args.device)
+    if grid is not None:
+        if not args.continuous and args.temperature != 0.0:
+            raise ValueError("--mesh one-shot is greedy-only (--temperature 0)")
+        if dev.type == "cuda":   # once here, not in every rank
+            from repro_torch.kernels import build as kernel_build
+            kernel_build.build_all()
+        ranks = spawn_ranks(serve_rank, grid, backend=args.backend,
+                            device=args.device,
+                            argv=list(sys.argv[1:] if argv is None else argv),
+                            dtype=dtype)
+        for line in ranks[0].pop("stdout"):
+            print(line)
+        cfg, ms = structure(args)
+        prompts = synthetic_prompts(cfg, args,
+                                    torch.Generator().manual_seed(PROMPT_SEED))
+        return {"cfg": cfg, "ms": ms, "prompts": prompts, **ranks[0],
+                "rank_launches": [r["launches"] for r in ranks]}
+    cfg, ms, params = build(args, dtype)
     prompts = synthetic_prompts(cfg, args,
                                 torch.Generator().manual_seed(PROMPT_SEED))
     run = run_continuous if args.continuous else run_oneshot

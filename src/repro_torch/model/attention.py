@@ -329,8 +329,9 @@ def attention_core(q, k, v, *, kind, window=0, chunk=0, prefix_len=0,
         return _chunked_core(q, k, v, kind=kind, window=window, chunk=chunk,
                              prefix_len=prefix_len, q0=q0, k0=k0, qb=qb,
                              kb=kb, fixed_kb=True)
-    if impl == "auto":
-        impl = "dense" if S * T <= 2048 * 2048 else "chunked"
+    if impl == "auto":   # on meta (the dry run) the dense core: shapes only
+        impl = ("dense" if S * T <= 2048 * 2048 or q.device.type == "meta"
+                else "chunked")
     if impl == "dense":
         qpos = q0 + torch.arange(S, device=q.device)
         kpos = k0 + torch.arange(T, device=q.device)

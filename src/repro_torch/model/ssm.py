@@ -73,7 +73,12 @@ def _causal_conv(x, w, b):
 
 
 def _scan_seq(a, b, h0):
-    """h_t = a_t * h_{t-1} + b_t over axis 2. a, b: [P,B,S,C,N]."""
+    """h_t = a_t * h_{t-1} + b_t over axis 2. a, b: [P,B,S,C,N]. On meta
+    tensors (the dry run) one step of the same shapes and autograd graph
+    stands for the S steps: there are no values to scan."""
+    if a.device.type == "meta":
+        y = a * h0.unsqueeze(2) + b
+        return y, y[:, :, -1]
     h = h0
     ys = []
     for t in range(a.shape[2]):

@@ -48,8 +48,8 @@ from repro_torch.model import embedding as E
 from repro_torch.model import stack as ST
 from repro_torch.model.norms import apply_norm
 from repro_torch.model.params import (ModelParams, as_tree, init_tree,
-                                      parts_tree, shard_tree, split_tree,
-                                      tree_leaves, tree_map)
+                                      local_shape, parts_tree, shard_tree,
+                                      split_tree, tree_leaves, tree_map)
 from repro_torch.parallel import fsdp as F
 from repro_torch.parallel.context import ParallelContext
 
@@ -225,13 +225,31 @@ def param_parts(ms: ModelStructure):
     return parts_tree(model_template(ms))
 
 
-def abstract_params(ms: ModelStructure, dtype=torch.bfloat16):
+def abstract_params(ms: ModelStructure, dtype=torch.bfloat16, *,
+                    rank: Optional[int] = None, data_index: int = 0):
     """The weights' tree as tensors on the "meta" device: shapes and
     dtypes, no storage (the counterpart of JAX's ``ShapeDtypeStruct``
-    tree)."""
-    return tree_map(lambda pd: torch.empty(pd.shape, dtype=pd.dtype or dtype,
-                                           device="meta"),
-                    model_template(ms))
+    tree). Without ``rank``, the global shapes; with it, the shapes rank
+    ``rank`` of the tp ranks holds (``init_params(rank=)``: its tp shard of
+    every regular leaf and, under FSDP, its (count, 1, 1, chunk) view of
+    each flat leaf at data index ``data_index``, int8 values and fp32
+    scales under ``ms.quant``)."""
+    if rank is not None and not 0 <= rank < ms.tp:
+        raise ValueError(f"rank {rank} of tp={ms.tp}")
+    if ms.fsdp and not 0 <= data_index < ms.fsdp_data:
+        raise ValueError(f"data index {data_index} of fsdp_data={ms.fsdp_data}")
+    tmpl = model_template(ms)
+
+    def make(pd, shape):
+        return torch.empty(shape, dtype=pd.dtype or dtype, device="meta")
+    if rank is None:
+        return tree_map(lambda pd: make(pd, pd.shape), tmpl)
+    segs = tmpl.pop("segments")
+    out = tree_map(lambda pd: make(pd, local_shape(pd, ms.tp)), tmpl)
+    out["segments"] = tree_map(
+        lambda pd: make(pd, (pd.shape[0], 1, 1, pd.shape[3]) if ms.fsdp
+                        else local_shape(pd, ms.tp)), segs)
+    return out
 
 
 def param_count(ms: ModelStructure) -> int:

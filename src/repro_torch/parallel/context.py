@@ -31,7 +31,15 @@ by operation, ``ALL_GATHERS`` the gathers and ``SCATTERS`` the
 sum-and-scatters, as ``kernels.ops.LAUNCHES`` counts kernel launches: each
 moves only where a collective is issued (never at size 1), forward and
 backward alike, so a caller can hold a step's count to LP's halving or to
-what its leaf list predicts. ``reset_all_reduces`` sets all three to zero.
+what its leaf list predicts. ``COLLECTIVES`` records each of them in
+order: what it computes, what it issues (one all_reduce), the buffer's
+bytes, the group's size and axis (``analysis.roofline.collective_bytes``
+prices them). ``reset_all_reduces`` empties all four.
+
+``make_dry_context`` gives one rank's context on a grid whose groups
+record their collectives and communicate nothing (the dry run,
+``launch/dryrun.py``): it runs a rank's step on "meta" tensors, with no
+process group and no device; a dry group given a tensor off meta raises.
 
 Under autograd (the sharded trainer) each collective a forward runs has the
 backward of Megatron's convention: the gradient of a tensor every rank
@@ -65,7 +73,8 @@ stages (``parallel/pp.py``) take a group of stage ranks of their own.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Optional
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -78,13 +87,42 @@ ALL_REDUCES = {"sum": 0, "max": 0}
 ALL_GATHERS = {"gather": 0}
 #: sum-and-scatters issued by the contexts of this process (one all_reduce each).
 SCATTERS = {"scatter": 0}
+#: the newest collectives of the contexts of this process, real and dry, in
+#: order: {"computed": "sum" | "max" | "gather" | "scatter", "issues":
+#: "all_reduce", "bytes": the buffer's, "group": the group's size, "axis":
+#: "tp" | "dp" | "data" | "pod"}. Bounded, so that a server that never
+#: resets it does not grow: ``recorded`` refuses a log that dropped any.
+COLLECTIVES: Deque[Dict[str, Any]] = deque(maxlen=1 << 16)
 
 
 def reset_all_reduces() -> None:
-    """Zero ``ALL_REDUCES``, ``ALL_GATHERS`` and ``SCATTERS``."""
+    """Zero ``ALL_REDUCES``, ``ALL_GATHERS`` and ``SCATTERS``; empty
+    ``COLLECTIVES``."""
     for counts in (ALL_REDUCES, ALL_GATHERS, SCATTERS):
         for op in counts:
             counts[op] = 0
+    COLLECTIVES.clear()
+
+
+def recorded() -> List[Dict[str, Any]]:
+    """The collectives since the last ``reset_all_reduces``, as a list;
+    raises when there were more than ``COLLECTIVES`` keeps."""
+    n = sum(ALL_REDUCES.values()) + ALL_GATHERS["gather"] + SCATTERS["scatter"]
+    if n != len(COLLECTIVES):
+        raise RuntimeError(f"{n} collectives since the last reset, "
+                           f"{len(COLLECTIVES)} recorded: reset more often")
+    return list(COLLECTIVES)
+
+
+class DryGroup:
+    """The process group of one axis of a dry context: a collective over it
+    is recorded and communicates nothing, on "meta" tensors only."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis, self.size = axis, size
+
+    def __repr__(self) -> str:
+        return f"DryGroup({self.axis!r}, {self.size})"
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +137,27 @@ def _need(group, size: int, what: str):
             "initialised torch.distributed group")
 
 
+def _all_reduce(buf, group, size, what, computed, op="sum"):
+    """The one call every collective issues: all_reduce ``buf`` in place
+    over ``group`` (SUM, or MAX for ``op="max"``), recorded in
+    ``COLLECTIVES``. Over a dry group it records and leaves ``buf``."""
+    dry = isinstance(group, DryGroup)
+    if dry and buf.device.type != "meta":
+        raise RuntimeError(
+            f"a dry {what} group takes meta tensors, not {buf.device}: it "
+            "records collectives and cannot stand in for ranks on data")
+    COLLECTIVES.append({"computed": computed, "issues": "all_reduce",
+                        "bytes": buf.numel() * buf.element_size(),
+                        "group": size, "axis": what})
+    if not dry:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
+
+
 def _sum(x, group, size, what="tp", op="sum"):
     _need(group, size, what)
     y = x.contiguous().clone()   # in place on a copy: x stays as it was
-    dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
-                    group=group)
+    _all_reduce(y, group, size, what, op, op)
     ALL_REDUCES[op] += 1
     return y
 
@@ -116,7 +170,7 @@ def _gather(x, group, size, index, axis, tiled=True, what="tp"):
     _need(group, size, what)
     buf = x.new_zeros((size, *x.shape))
     buf[index] = x
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    _all_reduce(buf, group, size, what, "gather")
     ALL_GATHERS["gather"] += 1
     if not tiled:
         return buf.movedim(0, axis)
@@ -132,7 +186,7 @@ def _scatter(x, group, size, index, axis, what="tp"):
         raise ValueError(f"axis {axis} of {tuple(x.shape)} does not divide "
                          f"into {size} blocks")
     y = x.contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    _all_reduce(y, group, size, what, "scatter")
     SCATTERS["scatter"] += 1
     w = n // size
     return y.narrow(axis, index * w, w).clone(memory_format=torch.contiguous_format)
@@ -515,6 +569,27 @@ def make_grid_context(pod: int, data: int, model: int, *,
                            dp_size=pod * data, pod_size=pod, dp_rank=dp,
                            dp_group=mine.get("dp"), data_group=mine.get("data"),
                            pod_group=mine.get("pod"))
+
+
+def make_dry_context(pod: int, data: int, model: int, *, rank: int = 0,
+                     sp: bool = False) -> ParallelContext:
+    """World rank ``rank``'s context on a (pod, data, model) grid numbered as
+    ``grid_ranks`` numbers it, whose groups are ``DryGroup``s: no process
+    and no device. Each collective is recorded in ``COLLECTIVES`` and
+    returns what one rank's view gives: a sum the rank's input, a gather
+    the rank's block among zero blocks, a sum-and-scatter the rank's
+    block. Its tensors must lie on "meta"."""
+    n = pod * data * model
+    if min(pod, data, model) < 1 or not 0 <= rank < n:
+        raise ValueError(f"rank {rank} of a ({pod}, {data}, {model}) grid")
+
+    def group(axis, size):
+        return DryGroup(axis, size) if size > 1 else None
+    return ParallelContext(tp_size=model, rank=rank % model,
+                           group=group("tp", model), sp=sp,
+                           dp_size=pod * data, pod_size=pod, dp_rank=rank // model,
+                           dp_group=group("dp", pod * data),
+                           data_group=group("data", data), pod_group=group("pod", pod))
 
 
 def init_context(*, backend: str, init_method: str, world_size: int,

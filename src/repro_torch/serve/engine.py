@@ -678,11 +678,11 @@ class PagedEngine:
                  generator: Optional[torch.Generator] = None, mesh=None,
                  fault_plan: Optional[F.FaultPlan] = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "the port serves tensor parallel as one process per rank, "
-                "each with its shard and its ParallelContext (pc=); a mesh "
-                "and the launcher that would start its processes are not "
-                "ported: ROADMAP item 10.4")
+            raise ValueError(
+                "the port serves tensor parallel as one process per rank: "
+                "build one engine in each, with the rank's shard and its "
+                "ParallelContext (pc=), and start the ranks with "
+                "launch.mesh.spawn_ranks (as launch.serve --mesh 1xM does)")
         self.pc = pc if pc is not None else ParallelContext()
         if self.pc.tp_size != ms.tp:
             raise ValueError(f"a tp_size={self.pc.tp_size} context for a "

@@ -451,6 +451,85 @@ def case_pipe(pc, args):
     return out
 
 
+def serve_records(pc, ms, params, prompts, max_len):
+    """The collectives (``context.COLLECTIVES``) of a prefill of ``prompts``
+    with its argmax, and of one serve step after it (fp32 ring cache):
+    {"prefill": [...], "decode": [...]}. On meta tensors under
+    ``make_dry_context`` the dry run's record of the same step."""
+    import torch
+    from repro_torch.model import embedding as E
+    from repro_torch.parallel import context
+    from repro_torch.serve import ServeConfig, make_prefill, make_serve_step
+    sv = ServeConfig(max_len=max_len, cache_dtype=torch.float32)
+    with torch.no_grad():
+        context.reset_all_reduces()
+        logits, caches = make_prefill(ms, pc, sv)(params, prompts)
+        tok = E.vocab_parallel_argmax(logits, pc)
+        out = {"prefill": context.recorded()}
+        context.reset_all_reduces()
+        make_serve_step(ms, pc, sv)(params, tok, caches, prompts.shape[1])
+        out["decode"] = context.recorded()
+    context.reset_all_reduces()
+    return out
+
+
+def train_records(pc, ms, params32, rows):
+    """The collectives of one ``make_train_step`` (sequence parallel, remat,
+    fp32) on the rank's ``rows``, from a fresh state around ``params32``."""
+    from repro_torch.parallel import context
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import make_train_step, state_from_params
+    tc = TrainConfig(opt=OptConfig(), remat=True)
+    state = state_from_params(params32, ms, pc, tc)
+    context.reset_all_reduces()
+    make_train_step(ms, pc.with_sp(True), tc)(state, rows)
+    out = context.recorded()
+    context.reset_all_reduces()
+    return out
+
+
+def records_structure(args, tp):
+    """The reduced structure of ``args`` (``arch``, ``n_layers``,
+    ``pairs``) at ``tp``."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lp import LPPlan
+    from repro_torch.model import transformer as T
+    cfg = reduced_config(get_config(args.get("arch", "tinyllama-1.1b")),
+                         n_layers=args["n_layers"])
+    return T.build_structure(cfg, plan=LPPlan(tuple(map(tuple, args["pairs"]))), tp=tp)
+
+
+def rank_records(pc, device, **args):
+    """``launch.mesh.spawn_ranks`` rank: on the grid's context, the seeded
+    fp32 weights' rank shard, ``serve_records`` of ``args["prompts"]`` and
+    ``train_records`` on this rank's rows of ``args["batch"]``."""
+    import torch
+    from repro_torch.model import transformer as T
+    from repro_torch.train.trainer import batch_shard
+    torch.set_num_threads(1)
+    ms = records_structure(args, pc.tp_size)
+    params = T.init_params(ms, torch.Generator().manual_seed(args["seed"]), device=device,
+                           rank=pc.tp_index())
+    out = serve_records(pc, ms, params, torch.tensor(args["prompts"]), args["max_len"])
+    batch = {k: torch.tensor(v) for k, v in args["batch"].items()}
+    out["train"] = train_records(pc, ms, params, batch_shard(batch, pc))
+    return out
+
+
+def rank_index(pc, device, **args):
+    """``spawn_ranks`` rank: where it stands on the grid; rank ``args["bad"]``
+    fails (``"raise"``) or outlives the launcher (``"sleep"``)."""
+    import time
+    import torch.distributed as dist
+    me = dist.get_rank()
+    if me == args.get("bad"):
+        if args["how"] == "raise":
+            raise RuntimeError(f"rank {me} fails on purpose")
+        time.sleep(120)
+    return {"world": me, "tp": pc.tp_index(), "dp": pc.dp_index(), "device": device,
+            "sizes": (pc.pod_size, pc.data_size, pc.tp_size)}
+
+
 CASES = {"serve": case_serve, "family": case_family, "extras": case_extras,
          "gather": case_gather, "train": case_train, "fsdp": case_fsdp,
          "pipe": case_pipe}

@@ -288,7 +288,7 @@ def test_cancel_deadline_shed_and_metrics(model):
 
 def test_engine_refuses_what_is_not_ported(model):
     _, tms, _, weights = model
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="pc=.*spawn_ranks"):
         PagedEngine(weights, tms, _psv(), mesh=object())
     with pytest.raises(ValueError, match="multiple of"):
         PagedEngine(weights, tms, _psv(max_len=44))

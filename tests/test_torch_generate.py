@@ -263,7 +263,8 @@ y = pp.pipeline_apply(lambda w, h: torch.tanh(h @ w), torch.eye(4), torch.ones(3
 assert y.shape == (3, 2, 4)
 for name in ("data.synthetic", "data.pipeline", "train.optimizer", "train.trainer",
              "train.checkpoint", "launch.train", "launch.elastic", "launch.serve",
-             "launch.dryrun", "launch.specs", "analysis.roofline", "analysis.report",
+             "launch.dryrun", "launch.specs", "launch.mesh", "analysis.roofline",
+             "analysis.report",
              "configs.shapes", "parallel.context", "parallel.zero", "parallel.compress",
              "parallel.fsdp", "parallel.pp", "bridge"):
     assert "repro_torch." + name in sys.modules, name
@@ -297,7 +298,8 @@ def test_port_sources_import_no_jax():
     for name in ("data/synthetic.py", "data/pipeline.py", "train/optimizer.py",
                  "train/trainer.py", "train/checkpoint.py", "launch/train.py",
                  "launch/elastic.py", "launch/serve.py", "launch/dryrun.py",
-                 "launch/specs.py", "analysis/roofline.py", "analysis/report.py",
+                 "launch/specs.py", "launch/mesh.py", "analysis/roofline.py",
+                 "analysis/report.py",
                  "configs/shapes.py", "parallel/context.py", "bridge.py"):
         assert SRC / "repro_torch" / name in files, name
     for f in files:

@@ -241,7 +241,10 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         ops.dual_rmsnorm(x, s, s)
     with pytest.raises(ValueError):
-        ops.dual_rmsnorm(x.to("meta"), s, s)
+        ops.dual_rmsnorm(x.to("meta"), torch.ones(8), s)
+    # all on meta: the dry run's abstract evaluation, the kernel's shape
+    y = ops.dual_rmsnorm(x.to("meta"), s, s)
+    assert y.device.type == "meta" and y.shape == (2, 2, 8) and y.dtype == x.dtype
 
 
 def _view(kind):

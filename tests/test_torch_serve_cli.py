@@ -5,8 +5,10 @@ the JAX package's ``launch/serve.py``, and the port's examples, on the CPU.
 tokens on the same prompts; ``run_continuous`` gives the JAX
 ``PagedEngine``'s streams and counters under the same ``PagedServeConfig``
 (plain with the prefix cache and buckets, speculative, degraded); ``main``
-writes a trace that validates; the flags are JAX's plus ``--device``; a
-mesh past 1x1 and the multi-pod dry run raise and name ROADMAP item 10.
+writes a trace that validates; the flags are JAX's plus ``--device`` and
+``--backend``; a mesh past 1x1 over NCCL without a card a rank raises and
+names ``--backend gloo`` (``test_torch_sharded_tools.py`` runs it over
+gloo).
 """
 import dataclasses
 import importlib.util
@@ -80,7 +82,8 @@ def test_flags_are_jax_flags_and_device():
     ours = {s for a in TSV.build_parser()._actions for s in a.option_strings
             if s.startswith("--") and s != "--help"}
     negated = {"--no-" + f[2:] for f in ("--prefix-cache", "--telemetry")}
-    assert ours - negated == jax_flags | {"--device"}
+    # the port's own: --device, and --backend for its rank processes
+    assert ours - negated == jax_flags | {"--device", "--backend"}
     assert TSV.build_parser().parse_args([]).device == "cuda"
 
 
@@ -172,8 +175,10 @@ def test_main_oneshot_on_cpu(capsys):
 
 
 def test_refusals():
+    # a mesh past 1x1 starts a rank process per model rank: over NCCL (the
+    # default) each takes a card, and the CPU has none
     for argv in (["--mesh", "1x2"], ["--mesh", "1x8", "--continuous"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        with pytest.raises(ValueError, match="--backend gloo"):
             TSV.main(["--device", "cpu", *argv])
     with pytest.raises(ValueError, match="model axis"):
         TSV.main(["--device", "cpu", "--mesh", "2x1"])

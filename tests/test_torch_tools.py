@@ -181,9 +181,12 @@ def test_cell_policy_equals_jax_at_one_rank():
                                    dp=1, lp=lp)
                 t = TS.cell_policy(TC.get_config(arch), TC.SHAPES[name], lp=lp)
                 assert dataclasses.asdict(t) == dataclasses.asdict(j), (arch, name)
+    # at a grid the policy is JAX's too (all cells: test_torch_sharded_tools.py)
     for kw in (dict(tp=2), dict(dp=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            TS.cell_policy(TC.get_config("yi-6b"), TC.SHAPES["train_4k"], **kw)
+        j = JS.cell_policy(JC.get_config("yi-6b"), JC.SHAPES["train_4k"], **{
+            "tp": 1, "dp": 1, **kw})
+        t = TS.cell_policy(TC.get_config("yi-6b"), TC.SHAPES["train_4k"], **kw)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), kw
 
 
 def _jax_batch(cfg, shape, micro_batch):
@@ -265,8 +268,13 @@ def test_dryrun_and_report(tmp_path, capsys):
     assert len(rows) == 80 and len({ln.split(" |")[0] for ln in rows}) == 40
     assert "over the 80 GB HBM budget" in text
     assert "yi-6b/decode_32k" in TRP.summary_stats(d)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        TD.main(["--multi-pod"])
+    # the multi-pod grid runs rank 0 of 512 (one cell here; the rest in
+    # test_torch_sharded_tools.py)
+    TD.main(["--multi-pod", "--arch", "yi-6b", "--shape", "decode_32k",
+             "--out", str(tmp_path / "dryrun_torch_mp.json")])
+    mp = json.loads((tmp_path / "dryrun_torch_mp.json").read_text())["yi-6b/decode_32k"]
+    assert (mp["chips"], mp["tp"], mp["coll_source"]) == (512, 16, "recorded")
+    assert mp["coll"]["total"] > 0 and "error" not in mp
 
 
 @pytest.mark.parametrize("temperature", [0.7, 1.3])

@@ -328,7 +328,7 @@ def test_refusals_at_tp_above_one():
             PagedEngine(params, tms, PagedServeConfig(**base, **kw), pc=pc)
     with pytest.raises(ValueError, match="context"):
         PagedEngine(params, tms, PagedServeConfig(**base))   # no rank context
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="pc=.*spawn_ranks"):
         PagedEngine(params, tms, PagedServeConfig(**base), mesh=object())
     # sequence parallelism at tp > 1 is the sharded trainer's, ported
     assert pc.with_sp(True).sp and ParallelContext(tp_size=4, rank=1, sp=True).sp

@@ -368,7 +368,8 @@ def test_eval_step_matches_jax_and_train_forward():
 def test_kernel_wrappers_refuse_grad_off_the_cpu():
     """A tensor off the CPU that requires grad under grad mode raises in
     every wrapper before any kernel is looked for (here: "meta" tensors);
-    under no_grad the same call reaches the device check."""
+    under no_grad the same call on meta is the dry run's abstract
+    evaluation: empty outputs on meta, no gradient."""
     def m(*shape):
         return torch.empty(shape, device="meta", requires_grad=True)
 
@@ -389,8 +390,10 @@ def test_kernel_wrappers_refuse_grad_off_the_cpu():
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward"):
             call()
-        with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
-            call()
+        with torch.no_grad():
+            out = call()
+        for o in out if isinstance(out, tuple) else (out,):
+            assert o.device.type == "meta" and not o.requires_grad
 
 
 def test_launch_train_cli_on_the_cpu(tmp_path, capsys):
